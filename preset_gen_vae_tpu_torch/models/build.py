@@ -1,0 +1,53 @@
+"""Model factory: config -> an initialised ``ExtendedAE``.
+
+Counterpart: ``preset_gen_vae_tpu/models/build.py`` (reference:
+model/build.py:11-80). Weights are drawn on the CPU from a seeded
+``torch.Generator`` with flax's initialisers (``layers.init_like_flax``),
+so a seed gives the same model on every device; the caller moves it.
+bf16 compute with float32 master weights (``compute_dtype='bfloat16'``,
+models/build.py:22-25 there) is the train step's autocast, not a model
+property.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import ModelConfig, TrainConfig
+from ..data.preset import PresetIndexesHelper
+from .decoder import SpectrogramDecoder
+from .encoder import SpectrogramEncoder
+from .extended_ae import ExtendedAE
+from .layers import init_like_flax
+from .regression import FlowRegression
+from .vae import FlowVAE
+
+
+def build_extended_ae_model(model_config: ModelConfig, train_config: TrainConfig,
+                            idx_helper: PresetIndexesHelper, seed: int = 0) -> ExtendedAE:
+    if model_config.latent_flow_arch is None:
+        raise NotImplementedError("BasicVAE (no latent flow) is not ported yet")
+    if model_config.concat_midi_to_z:
+        raise NotImplementedError("multi-note MIDI-in-z0 models are not ported yet")
+    arch = model_config.params_regression_architecture
+    if not arch.startswith("flow_"):
+        raise NotImplementedError(f"regression head '{arch}' is not ported yet")
+    if not model_config.forward_controls_loss:
+        raise NotImplementedError("FlowParamsLoss (forward_controls_loss=False) is not ported yet")
+    _, channels, H, W = model_config.input_tensor_size
+    force_bigger = len(model_config.midi_notes) > 1 and not model_config.stack_spectrograms
+    encoder = SpectrogramEncoder(
+        model_config.encoder_architecture, model_config.dim_z, (H, W), channels,
+        train_config.fc_dropout,
+        output_bn=train_config.latent_flow_input_regularization.lower() == "bn",
+        deepest_features_mix=model_config.stack_specs_deepest_features_mix,
+        force_bigger_network=force_bigger)
+    decoder = SpectrogramDecoder(model_config.encoder_architecture, model_config.dim_z,
+                                 tuple(model_config.spectrogram_size), channels,
+                                 train_config.fc_dropout, force_bigger)
+    ae_model = FlowVAE(encoder, decoder, model_config.dim_z, model_config.latent_flow_arch)
+    reg_model = FlowRegression(arch.replace("flow_", ""), model_config.dim_z, idx_helper,
+                               train_config.reg_fc_dropout, model_config.forward_controls_loss,
+                               model_config.params_reg_softmax)
+    model = ExtendedAE(ae_model, reg_model)
+    return init_like_flax(model, torch.Generator().manual_seed(seed))

@@ -1,0 +1,77 @@
+"""Flow regression head z_K -> learnable preset v, and the per-parameter
+output activation.
+
+Counterpart: ``preset_gen_vae_tpu/models/regression.py:21-60, 96-134``
+(reference: model/regression.py:20-53, 105-189). The MLP head waits for a
+later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data.preset import PresetIndexesHelper
+from .flows import RegressionFlow
+
+
+def segment_softmax_scatter(x: torch.Tensor, idx_matrix: np.ndarray, mask: np.ndarray,
+                            temperature: float = 1.0) -> torch.Tensor:
+    """In-group softmax over every padded categorical group of a (B, L)
+    learnable tensor, written back in place of the logits
+    (regression.py:21-40). ``idx_matrix`` (G, C) holds learnable indexes,
+    -1 pad; ``mask`` (G, C) is True where valid."""
+    if idx_matrix.size == 0:
+        return x
+    dev = x.device
+    gathered = x[:, torch.from_numpy(np.maximum(idx_matrix, 0)).to(dev)]  # (B, G, C)
+    mask_t = torch.from_numpy(mask).to(dev)
+    gathered = torch.where(mask_t[None], gathered / temperature,
+                           torch.tensor(float("-inf"), device=dev))
+    probs = torch.softmax(gathered, dim=-1)
+    flat_idx = torch.from_numpy(idx_matrix[mask]).to(dev)
+    return x.index_copy(1, flat_idx, probs[:, mask_t])
+
+
+def preset_activation(x: torch.Tensor, idx_helper: PresetIndexesHelper, cat_softmax: bool,
+                      numerical_max: float = 1.0) -> torch.Tensor:
+    """Hardtanh[0, 1] on numerical slots; a softmax per categorical group when
+    ``cat_softmax``, else Hardtanh on those too (regression.py:43-59)."""
+    if not cat_softmax:
+        return torch.clamp(x, 0.0, numerical_max)
+    num_idx = idx_helper.num_learn_idx
+    if len(num_idx):
+        idx = torch.from_numpy(num_idx).to(x.device)
+        x = x.index_copy(1, idx, torch.clamp(x[:, idx], 0.0, numerical_max))
+    return segment_softmax_scatter(x, idx_helper.cat_group_idx_matrix,
+                                   idx_helper.cat_group_mask)
+
+
+class FlowRegression(nn.Module):
+    """Invertible flow z_K <-> v; ``fast_forward_flow`` selects which flow
+    direction maps z_K -> v (regression.py:96-134)."""
+
+    def __init__(self, architecture: str, dim_z: int, idx_helper: PresetIndexesHelper,
+                 dropout_p: float = 0.0, fast_forward_flow: bool = True,
+                 cat_softmax_activation: bool = False):
+        super().__init__()
+        if dim_z != idx_helper.learnable_preset_size:
+            raise ValueError("flow regression requires dim_z == learnable preset length "
+                             "(reference: model/build.py:70, data/build.py:37-39)")
+        self.idx_helper = idx_helper
+        self.fast_forward_flow = fast_forward_flow
+        self.cat_softmax_activation = cat_softmax_activation
+        self.flow = RegressionFlow(architecture, dim_z, dropout_p)
+
+    def forward(self, z_K, generator: Optional[torch.Generator] = None):
+        step = self.flow.forward if self.fast_forward_flow else self.flow.inverse
+        v_out, _ = step(z_K, generator)
+        return preset_activation(v_out, self.idx_helper, self.cat_softmax_activation)
+
+    def flow_inverse(self, v, generator=None):
+        """v -> z_K direction (regression.py:126-130)."""
+        step = self.flow.inverse if self.fast_forward_flow else self.flow.forward
+        return step(v, generator)

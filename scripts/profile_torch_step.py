@@ -1,0 +1,106 @@
+"""Device-time breakdown of the PyTorch port's flagship train step on one GPU.
+
+Builds the flagship FlVAE2 (257x347 inputs, dim_z 610, batch 160, bf16
+autocast) with random weights and inputs from ``--seed``, warms up, then
+traces five train steps and one eval step with ``torch.profiler``
+and prints: the card's name and power limit, the mean step time (host
+clock around synchronised steps), the device-busy share of the traced
+window, and the kernels ranked by device time. Run from the repository
+root:
+
+    python3 scripts/profile_torch_step.py
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+from preset_gen_vae_tpu_torch import config as cfg  # noqa: E402
+from preset_gen_vae_tpu_torch.data.dexed_spec import build_dexed_preset_spec  # noqa: E402
+from preset_gen_vae_tpu_torch.data.preset import PresetIndexesHelper  # noqa: E402
+from preset_gen_vae_tpu_torch.models.build import build_extended_ae_model  # noqa: E402
+from preset_gen_vae_tpu_torch.training import train_step as ts  # noqa: E402
+
+BATCH, STEPS, TOP = 160, 5, 25  # flagship batch, traced steps, kernels listed
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device available", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    dev = torch.device("cuda")
+    helper = PresetIndexesHelper(build_dexed_preset_spec())
+    L, B = helper.learnable_preset_size, BATCH
+    mc, tc = cfg.resolve(cfg.ModelConfig(), cfg.TrainConfig(minibatch_size=B))
+    mc = dataclasses.replace(mc, synth_params_count=L, learnable_params_tensor_length=L,
+                             dim_z=L, input_tensor_size=(B, 1, 257, 347))
+    model = build_extended_ae_model(mc, tc, helper, seed=args.seed).to(dev)
+    opt, crit = ts.make_optimizer(model, tc), ts.Criteria(mc, tc, helper)
+    rng = np.random.default_rng(args.seed)
+    x = torch.from_numpy(rng.uniform(-1, 1, (B, 1, 257, 347)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    v = torch.from_numpy(helper.full_to_learnable_batch(
+        rng.random((B, helper.full_preset_size)).astype(np.float32))).to(dev)
+    info = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def step():
+        return ts.train_step(model, opt, crit, tc, x, v, info, 0.2, gen)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            step()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ts.eval_step(model, crit, tc, x, v, info)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    # device rows only; '#' marks record_function ranges such as
+    # "Optimizer.step#Adam.step", whose device time repeats their kernels'
+    kernels = [e for e in prof.key_averages() if e.device_time_total > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA and "#" not in e.key]
+    busy = sum(e.device_time_total for e in kernels) / 1e6  # us -> s
+    kernels.sort(key=lambda e: -e.device_time_total)
+    print(json.dumps({"batch": B, "step_ms": float(np.mean(times)) * 1e3,
+                      "step_ms_min": float(np.min(times)) * 1e3, "eval_step_ms": eval_ms,
+                      "profiled_window_s": window, "device_busy_s": busy,
+                      "device_busy_share": busy / window,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    print(f"{'device ms/step':>14} {'share':>6} {'calls':>6}  kernel")
+    for e in kernels[:TOP]:
+        ms = e.device_time_total / 1e3 / STEPS
+        print(f"{ms:14.3f} {e.device_time_total / 1e6 / busy:6.1%} {e.count // STEPS:6d}  "
+              f"{e.key[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
