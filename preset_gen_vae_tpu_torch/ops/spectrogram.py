@@ -12,9 +12,11 @@ through ``plain``, the plain PyTorch version: framing by ``unfold``, the
 windowed DFT as two f32 matmuls against the (n_fft, n_bins) cos / -sin
 matrices with the window and norm folded in, magnitude, the mel matmul and
 the log floor, all in f32. A tensor on the card launches the hand-written
-CUDA kernel ``csrc/logmel.cu`` (built with nvcc at first use, bound with
-ctypes) or raises; it never falls back to ``plain``. On the card ``plain``
-is only a reference for comparisons, and its callers keep
+CUDA kernel ``csrc/logmel.cu`` (a real FFT in shared memory; built with
+nvcc at first use, bound with ctypes) or raises; it never falls back to
+``plain``. The kernel takes the tables of ``fft_tables`` and the mel
+filterbank as contiguous runs (``mel_runs``). On the card ``plain`` is only
+a reference for comparisons, and its callers keep
 ``torch.backends.cuda.matmul.allow_tf32`` off (PyTorch's default) so that
 its matmuls stay in full f32.
 """
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import _native
+from ..device import resolve_device
 from .mel import mel_filterbank
 
 # launches of each hand-written kernel, counted by its wrapper at the launch
@@ -70,6 +73,40 @@ def windowed_dft_matrices(n_fft: int):
     return cos_m.astype(np.float32), sin_m.astype(np.float32)
 
 
+def fft_tables(n_fft: int, dtype):
+    """K1's tables, computed in float64 and cast to ``dtype`` once: the
+    window with the norm folded in, w[n]/norm, (n_fft,); the twiddles of the
+    n_fft/2-point complex FFT, e^(-2 pi i m/(n_fft/2)), (n_fft/2, 2) as
+    (re, im); the split's twiddles e^(-2 pi i k/n_fft) for k = 0..n_fft/2,
+    (n_fft/2 + 1, 2)."""
+    half = n_fft // 2
+
+    def unit(m, n):
+        ang = -2.0 * np.pi * m / n
+        return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(dtype)
+
+    window = (hann_window(n_fft) / spectrogram_norm_factor(n_fft)).astype(dtype)
+    return window, unit(np.arange(half), half), unit(np.arange(half + 1), n_fft)
+
+
+def mel_runs(fb: np.ndarray):
+    """(n_bins, n_mels) filterbank -> (start, length, weights): filter m
+    weighs bins start[m] .. start[m] + length[m] - 1 by the next length[m]
+    entries of ``weights`` (filters in order). Raises ValueError when a
+    filter's nonzeros are not one contiguous run of bins."""
+    start, length, weights = [], [], []
+    for m, col in enumerate(np.asarray(fb, dtype=np.float32).T):
+        nz = np.flatnonzero(col)
+        lo = int(nz[0]) if nz.size else 0
+        if nz.size and nz[-1] - lo + 1 != nz.size:
+            raise ValueError(f"mel filter {m} is not one contiguous run of bins: {nz.tolist()}")
+        start.append(lo)
+        length.append(nz.size)
+        weights.append(col[lo:lo + nz.size])
+    return (np.array(start, dtype=np.int32), np.array(length, dtype=np.int32),
+            np.concatenate(weights).astype(np.float32))
+
+
 @dataclasses.dataclass(frozen=True)
 class SpectrogramConfig:
     n_fft: int = 1024
@@ -85,15 +122,18 @@ class SpectrogramProcessor:
     """(B, num_samples) f32 waveforms -> (B, n_out, T) log spectrograms,
     n_out = n_mel_bins, or n_fft//2 + 1 when mel is off.
 
-    ``precision='exact'`` computes in f32; ``'fast'`` rounds every product
-    input to bf16 and accumulates in f32 (the Pallas kernel's bf16 mode,
-    accurate to about 1 dB above -60 dB). The constants live on ``device``.
+    ``precision='exact'``: the plain version computes in f32, the kernel
+    runs its FFT in f64; ``'fast'`` rounds every product input to bf16 and
+    accumulates in f32 (the Pallas kernel's bf16 mode, accurate to about
+    1 dB above -60 dB). The constants live on ``device``, the card unless
+    the caller asks for the CPU; without a card the default raises.
     """
 
-    def __init__(self, config: SpectrogramConfig, device="cpu",
+    def __init__(self, config: SpectrogramConfig, device="cuda",
                  precision: str = "exact"):
         if precision not in ("exact", "fast"):
             raise ValueError(f"precision={precision!r}")
+        device = resolve_device(device)
         self.config = config
         self.precision = precision
         self.n_fft = config.n_fft
@@ -103,12 +143,20 @@ class SpectrogramProcessor:
         cos_m, sin_m = windowed_dft_matrices(config.n_fft)
         self.cos_m = torch.from_numpy(cos_m).to(device)
         self.sin_m = torch.from_numpy(sin_m).to(device)
+        tables = fft_tables(config.n_fft, np.float32 if precision == "fast" else np.float64)
+        self.window, self.twiddles, self.split_twiddles = (
+            torch.from_numpy(t).to(device) for t in tables)
         self.use_mel = config.n_mel_bins > 0
         self.mel_fb = None  # (n_bins, n_mels)
+        self.mel_start = self.mel_off = self.mel_w = None
         if self.use_mel:
             fb = mel_filterbank(config.sample_rate, config.n_fft, config.n_mel_bins,
                                 fmin=config.mel_fmin, fmax=config.mel_fmax)
             self.mel_fb = torch.from_numpy(np.ascontiguousarray(fb.T)).to(device)
+            start, length, weights = mel_runs(fb.T)
+            off = np.concatenate([[0], np.cumsum(length)]).astype(np.int32)
+            self.mel_start, self.mel_off, self.mel_w = (
+                torch.from_numpy(t).to(device) for t in (start, off, weights))
 
     @property
     def n_out(self) -> int:
@@ -159,21 +207,32 @@ class SpectrogramProcessor:
                 f"kernel takes a contiguous (B, S) float32 tensor, got "
                 f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}"
             )
-        for name, c in (("cos", self.cos_m), ("sin", self.sin_m), ("mel", self.mel_fb)):
+        consts = {"window": self.window, "twiddles": self.twiddles,
+                  "split twiddles": self.split_twiddles, "mel runs": self.mel_w}
+        for name, c in consts.items():
             if c is not None and c.device != x.device:
-                raise ValueError(f"{name} constants on {c.device}, input on {x.device}")
+                raise ValueError(f"{name} on {c.device}, input on {x.device}")
         B, S = x.shape
         if B == 0 or S == 0:
             raise ValueError(f"empty input {tuple(x.shape)}")
+        # the TMA copies need 16-byte aligned spans: rows and hops of whole float4s
+        if (self.n_fft != KERNEL_N_FFT or self.hop % 4 or S % 4 or x.data_ptr() % 16
+                or self.n_out > KERNEL_MAX_MELS and self.use_mel):
+            raise ValueError(
+                f"kernel takes n_fft={KERNEL_N_FFT}, at most {KERNEL_MAX_MELS} mels, "
+                f"hop % 4 == 0, S % 4 == 0 and a 16-byte aligned input; got "
+                f"n_fft={self.n_fft}, n_out={self.n_out}, hop={self.hop}, S={S}, "
+                f"address % 16 = {x.data_ptr() % 16}")
         T = num_frames(S, self.n_fft, self.hop)
         out = torch.empty((B, self.n_out, T), dtype=torch.float32, device=x.device)
-        fb = self.mel_fb
+        mel = [t.data_ptr() if t is not None else None
+               for t in (self.mel_start, self.mel_off, self.mel_w)]
         with torch.cuda.device(x.device):  # the launch targets the current device
             err = _logmel_library().logmel_launch(
-                x.data_ptr(), B, S, self.cos_m.data_ptr(), self.sin_m.data_ptr(),
-                fb.data_ptr() if fb is not None else None,
-                fb.shape[1] if fb is not None else 0,
-                out.data_ptr(), self.n_fft, self.hop, T, self.floor_amp,
+                x.data_ptr(), B, S, self.hop, T, self.window.data_ptr(),
+                self.twiddles.data_ptr(), self.split_twiddles.data_ptr(), *mel,
+                self.n_out if self.use_mel else 0,
+                self.mel_w.numel() if self.use_mel else 0, out.data_ptr(), self.floor_amp,
                 int(self.precision == "fast"),
                 torch.cuda.current_stream(x.device).cuda_stream,
             )
@@ -194,6 +253,8 @@ def nvcc_path() -> str:
     return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
 
 
+KERNEL_N_FFT = 1024  # the frame length csrc/logmel.cu is written for
+KERNEL_MAX_MELS = 384  # its mel pass keeps 3 x 8 results per thread
 LOGMEL_SOURCE = _native.REPO_ROOT / "preset_gen_vae_tpu_torch" / "csrc" / "logmel.cu"
 
 
@@ -209,7 +270,9 @@ def _logmel_library() -> ctypes.CDLL:
         "logmel", logmel_build_command(), [LOGMEL_SOURCE])))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.logmel_launch.restype = i
-    lib.logmel_launch.argtypes = [p, i, i, p, p, p, i, p, i, i, i, ctypes.c_float, i, p]
+    lib.logmel_launch.argtypes = [p, i, i, i, i, p, p, p, p, p, p, i, i, p, ctypes.c_float, i, p]
+    lib.logmel_blocks_per_sm.restype = i
+    lib.logmel_blocks_per_sm.argtypes = [i, i, i, i]
     return lib
 
 
