@@ -71,22 +71,22 @@ def cuda_ms(fn, inputs, reps: int = 20) -> float:
 
 def logmel_work(proc, B: int, S: int):
     """(bytes, flops) that the log-mel function itself must move and compute,
-    whatever algorithm computes it: the waveforms and the mel filterbank read
-    once, the output written once; per frame a real-input FFT
-    (2.5 n log2 n flops, half a complex FFT's 5 n log2 n), the magnitude
-    (3 flops per bin) and the mel product over the filterbank's nonzeros
-    (a multiply-add each). The log is not counted. This is the bound."""
+    whatever algorithm computes it: the waveforms and the mel filterbank's
+    nonzeros, with each filter's first bin and offset, read once, the output
+    written once; per frame a real-input FFT (2.5 n log2 n flops, half a
+    complex FFT's 5 n log2 n), the magnitude (3 flops per bin) and the mel
+    product over the filterbank's nonzeros (a multiply-add each). The log is
+    not counted. This is the bound."""
     from preset_gen_vae_tpu_torch.ops.spectrogram import num_frames
 
     n_fft, hop = proc.n_fft, proc.hop
     n_bins = n_fft // 2 + 1
     T = num_frames(S, n_fft, hop)
     n_out = proc.n_out
-    fb_elems = n_bins * n_out if proc.use_mel else 0
+    nnz = int((proc.mel_fb != 0).sum()) if proc.use_mel else 0
+    fb_elems = nnz + 2 * n_out + 1 if proc.use_mel else 0
     nbytes = 4 * (B * S + fb_elems + B * n_out * T)
-    per_frame = 2.5 * n_fft * math.log2(n_fft) + 3 * n_bins
-    if proc.use_mel:
-        per_frame += 2 * int((proc.mel_fb != 0).sum())
+    per_frame = 2.5 * n_fft * math.log2(n_fft) + 3 * n_bins + 2 * nnz
     return nbytes, B * T * per_frame
 
 

@@ -9,13 +9,13 @@
 // Output (B, n_out, T) f32, written directly.
 //
 // Bound. The function is bound by its bytes: for (64, 88576) -> (64, 257,
-// 347) it reads 22.7 MB of samples and writes 22.8 MB of dB, 46.03 MB in
-// all, 0.0137 ms at 3.35 TB/s. Its least work, a real FFT per frame
-// (2.5 n log2 n), the magnitudes and the mel sums over the filterbank's
-// 1,016 nonzeros, is 0.648 GFLOP, 0.0097 ms at the f32 peak: under the
-// bytes. So the design reads each sample once from device memory, keeps
-// every intermediate on chip, and overlaps the next tile's copy with this
-// tile's FFTs:
+// 347) it reads 22.7 MB of samples and the filterbank's 1,016 nonzeros with
+// each filter's start and offset (6 KB), and writes 22.8 MB of dB: 45.51 MB
+// in all, 0.0136 ms at 3.35 TB/s. Its least work, a real FFT per frame
+// (2.5 n log2 n), the magnitudes and the mel sums over those nonzeros, is
+// 0.648 GFLOP, 0.0097 ms at the f32 peak: under the bytes. So the design
+// reads each sample once from device memory, keeps every intermediate on
+// chip, and overlaps the next tile's copy with this tile's FFTs:
 // - A block owns TT = 16 consecutive frames of one waveform (a tile) and
 //   holds the waveform span they cover, 15*hop + 1024 samples, in shared
 //   memory; the overlapping frames are read from it in place. Interior tiles
@@ -41,12 +41,11 @@
 //   the magnitudes and is written as rows of 16 consecutive frames (64 B).
 // - No tensor cores: the FFT's work is under the bytes bound already, and
 //   TF32 or bf16 products would lose ~16 dB near the floor.
-// What holds it back on the card (scripts/logmel_ablation.py times variants
-// with one part taken out): no single part; taking out any one of the table
-// loads, the FFT arithmetic, the split, the mel sums, log10f or the output
-// stores saves 3-11%. At 128 registers a thread (f64 points) two blocks, 16
-// warps, fit on an SM, and each warp waits on shared-memory round trips (16
-// bytes a point in f64) and barriers.
+// What holds it back on the card (PERF.md, section 5): no single part;
+// taking out any one of the table loads, the FFT arithmetic, the split, the
+// mel sums, log10f or the output stores saves 3-11%. At 128 registers a
+// thread (f64 points) two blocks, 16 warps, fit on an SM, and each warp
+// waits on shared-memory round trips (16 bytes a point in f64) and barriers.
 //
 // Precision. EXACT runs the FFT in IEEE f64 (samples widened from f32,
 // window and twiddles made on the host in f64 and kept so), then the squared
@@ -54,11 +53,12 @@
 // follow. An f32 FFT is not enough near the -120 dB floor: on rendered DX7
 // notes, whose quiet bins sit next to loud harmonics, its rounding error
 // against a float64 rFFT is several times that of the dense-DFT plain
-// version (scripts/fft_precision.py: 0.100 dB against 0.020 dB on the CPU),
-// while the f64 FFT's is 1e-5 dB. FAST keeps the Pallas bf16
-// mode's contract, bf16 operands and f32 accumulation: it rounds to bf16 the
-// loaded samples, the magnitudes and the mel weights, and runs the FFT in f32
-// with f32 tables (an FFT has no DFT matrix to round).
+// version, whether its twiddles are powers of one entry or read per point
+// from an f32 table, while the f64 FFT's is 1e-5 dB
+// (tests/test_torch_port_mel.py:test_exact_mode_needs_an_f64_fft). FAST keeps
+// the Pallas bf16 mode's contract, bf16 operands and f32 accumulation: it
+// rounds to bf16 the loaded samples, the magnitudes and the mel weights, and
+// runs the FFT in f32 with f32 tables (an FFT has no DFT matrix to round).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -380,13 +380,17 @@ const void* kernel_ptr() {
 
 extern "C" {
 
-// Blocks of the kernel that fit on one SM (0 if none does or on error).
+// Blocks of the kernel that fit on one SM of the current device (0 if none
+// does or on error). It first lifts the kernel's dynamic shared-memory limit
+// to the device's opt-in maximum, so that every launch configuration of this
+// instance may run on the device afterwards.
 int logmel_blocks_per_sm(int hop, int n_mels, int n_weights, int fast) {
   const void* kern = fast ? kernel_ptr<true>() : kernel_ptr<false>();
   const size_t smem = smem_bytes(hop, n_mels, n_weights, fast != 0);
-  int blocks = 0;
-  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-          cudaSuccess ||
+  int dev = 0, optin = 0, blocks = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS, smem) != cudaSuccess)
     return 0;
   return blocks;
@@ -399,28 +403,23 @@ int logmel_blocks_per_sm(int hop, int n_mels, int n_weights, int fast) {
 // (re, im) pairs. mel_start (n_mels), mel_off (n_mels + 1), mel_w
 // (n_weights = mel_off[n_mels]): filter m weighs bins mel_start[m] + i by
 // mel_w[mel_off[m] + i], i < mel_off[m+1] - mel_off[m]; n_mels = 0 (null
-// pointers) for linear bins. out: (B, n_mels or
-// 513, T) f32. All contiguous on the current device. Returns the cudaError_t
-// of the launch (0 on success); launches on `stream`, does not synchronize.
+// pointers) for linear bins. out: (B, n_mels or 513, T) f32. All contiguous
+// on the current device. grid_cap: the persistent grid's most blocks,
+// logmel_blocks_per_sm times the SMs, called on this device before. Returns
+// the cudaError_t of the launch (0 on success); launches on `stream`, does
+// not synchronize.
 int logmel_launch(const float* x, int B, int S, int hop, int T, const void* win, const void* tw,
                   const void* post, const int* mel_start, const int* mel_off, const float* mel_w,
-                  int n_mels, int n_weights, float* out, float floor_amp, int fast,
+                  int n_mels, int n_weights, float* out, float floor_amp, int fast, int grid_cap,
                   void* stream) {
   const bool mel = n_mels > 0;
   if (B <= 0 || S <= 0 || S % 4 != 0 || hop <= 0 || hop % 4 != 0 || T != 1 + S / hop ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || !win || !tw || !post || !out || n_mels < 0 ||
       mel != (mel_start && mel_off && mel_w) || (mel && n_weights <= 0) ||
-      2 * n_mels > MEL_ROUNDS * THREADS)
+      2 * n_mels > MEL_ROUNDS * THREADS || grid_cap <= 0)
     return (int)cudaErrorInvalidValue;
-  const int n_out = mel ? n_mels : N_BINS;
-  const int per_sm = logmel_blocks_per_sm(hop, n_mels, n_weights, fast);
-  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
   const long long tiles = (long long)B * ((T + TT - 1) / TT);
-  const int grid = (int)(tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms);
+  const int grid = (int)(tiles < grid_cap ? tiles : grid_cap);
   const size_t smem = smem_bytes(hop, n_mels, n_weights, fast != 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fast)

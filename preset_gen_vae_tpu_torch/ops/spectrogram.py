@@ -157,6 +157,7 @@ class SpectrogramProcessor:
             off = np.concatenate([[0], np.cumsum(length)]).astype(np.int32)
             self.mel_start, self.mel_off, self.mel_w = (
                 torch.from_numpy(t).to(device) for t in (start, off, weights))
+        self._grid_caps = {}  # device index -> the kernel's persistent grid size
 
     @property
     def n_out(self) -> int:
@@ -227,13 +228,22 @@ class SpectrogramProcessor:
         out = torch.empty((B, self.n_out, T), dtype=torch.float32, device=x.device)
         mel = [t.data_ptr() if t is not None else None
                for t in (self.mel_start, self.mel_off, self.mel_w)]
+        n_mels = self.n_out if self.use_mel else 0
+        n_weights = self.mel_w.numel() if self.use_mel else 0
+        fast = int(self.precision == "fast")
+        lib = _logmel_library()
         with torch.cuda.device(x.device):  # the launch targets the current device
-            err = _logmel_library().logmel_launch(
+            cap = self._grid_caps.get(x.device.index)
+            if cap is None:  # once per device: the blocks that fit, times the SMs
+                per_sm = lib.logmel_blocks_per_sm(self.hop, n_mels, n_weights, fast)
+                if per_sm == 0:
+                    raise RuntimeError(f"no block of the logmel kernel fits on {x.device}")
+                sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+                cap = self._grid_caps[x.device.index] = per_sm * sms
+            err = lib.logmel_launch(
                 x.data_ptr(), B, S, self.hop, T, self.window.data_ptr(),
-                self.twiddles.data_ptr(), self.split_twiddles.data_ptr(), *mel,
-                self.n_out if self.use_mel else 0,
-                self.mel_w.numel() if self.use_mel else 0, out.data_ptr(), self.floor_amp,
-                int(self.precision == "fast"),
+                self.twiddles.data_ptr(), self.split_twiddles.data_ptr(), *mel, n_mels,
+                n_weights, out.data_ptr(), self.floor_amp, fast, cap,
                 torch.cuda.current_stream(x.device).cuda_stream,
             )
         if err != 0:
@@ -270,7 +280,8 @@ def _logmel_library() -> ctypes.CDLL:
         "logmel", logmel_build_command(), [LOGMEL_SOURCE])))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.logmel_launch.restype = i
-    lib.logmel_launch.argtypes = [p, i, i, i, i, p, p, p, p, p, p, i, i, p, ctypes.c_float, i, p]
+    lib.logmel_launch.argtypes = [p, i, i, i, i, p, p, p, p, p, p, i, i, p, ctypes.c_float, i, i,
+                                  p]
     lib.logmel_blocks_per_sm.restype = i
     lib.logmel_blocks_per_sm.argtypes = [i, i, i, i]
     return lib
