@@ -4,10 +4,15 @@ Builds every hand-written kernel of the port from the sources in this
 checkout, holds each against its plain PyTorch version on the card (K1 on
 noise and on rendered DX7 notes, there also against a float64 rFFT
 witness), times it beside its bound, its plain version and one library
-call, then drives the port's main path once through its user entry point
-(``preset_gen_vae_tpu_torch.training.loop.train_config``): the flagship
-FlVAE2 at full width (257x347 log-mels, dim_z 610, batch 160) trained for
-one epoch on a seeded synthetic 1,024-preset corpus, with a validation pass.
+call, then drives the port's main path through its user entry points with
+the flagship FlVAE2 at full width (257x347 log-mels, dim_z 610, batch 160)
+on a seeded synthetic 1,024-preset corpus, in three paths, each with its
+own corpus pass: ``training.loop.train_config`` trains 2 epochs with the
+plateau scheduler and checkpoints; a second call resumes from the
+checkpoint for a third epoch; ``evaluation.evaluate.evaluate_model_from_dir``
+scores the 164 validation items (inference, DX7 re-render, similarity
+metrics on the card) and writes the artifacts. Runs live in a temporary
+directory that is removed at the end.
 
 Run from the repository root with one GPU:
 
@@ -21,10 +26,13 @@ non-zero exit code; without a GPU it fails before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -256,38 +264,111 @@ def phase_kernels():
     return entry
 
 
-def phase_main_path():
-    """The flagship train path through the port's entry point."""
-    from preset_gen_vae_tpu_torch import config as cfg
-    from preset_gen_vae_tpu_torch.ops import spectrogram as sp
-    from preset_gen_vae_tpu_torch.training.loop import train_config
+CORPUS = {"n_synthetic_presets": 1024}  # the main path's synthetic corpus
 
-    model_c = cfg.ModelConfig()
-    train_c = cfg.TrainConfig(n_epochs=1, minibatch_size=160, verbosity=1)
+
+def drive(name: str, fn):
+    """Runs one path of the main path with the launch counts set to 0 just
+    before it and read just after; fails unless K1 launched. -> (result,
+    launches, wall seconds, peak device GiB)."""
+    from preset_gen_vae_tpu_torch.ops import spectrogram as sp
+
     for k in sp.LAUNCHES:
         sp.LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats()
-    summary = train_config(model_c, train_c, dataset_kwargs={"n_synthetic_presets": 1024},
-                           device="cuda")
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = dict(sp.LAUNCHES)
     if launches["logmel"] < 1:
-        raise AssertionError(f"K1 was not launched on the main path: {launches}")
-    bad = {k: v for k, v in summary.items()
-           if isinstance(v, float) and not np.isfinite(v)}
+        raise AssertionError(f"K1 was not launched on the {name} path: {launches}")
+    return result, launches, wall, torch.cuda.max_memory_allocated() / 2**30
+
+
+def check_train_summary(name: str, summary: dict, epochs_trained: int):
+    bad = {k: v for k, v in summary.items() if isinstance(v, float) and not np.isfinite(v)}
     if bad:
-        raise AssertionError(f"non-finite metrics: {bad}")
+        raise AssertionError(f"{name}: non-finite metrics: {bad}")
     if summary["dim_z"] != 610 or summary["input_size"] != [160, 1, 257, 347]:
-        raise AssertionError(f"not the flagship shapes: {summary}")
-    print(f"[main path] {json.dumps(summary, sort_keys=True)}", flush=True)
-    print(f"[main path] corpus pass {summary['corpus_seconds']:.3f} s for "
-          f"{summary['corpus_presets']} presets (host render "
-          f"{summary['corpus_render_seconds']:.3f} s); {summary['train_steps']} train steps, "
-          f"steady step {summary['step_ms']:.2f} ms = "
-          f"{summary['spectrograms_per_s']:.0f} spectrograms/s", flush=True)
-    print(f"[main path] peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K1 launches {launches}",
-          flush=True)
-    return launches
+        raise AssertionError(f"{name}: not the flagship shapes: {summary}")
+    if summary["epochs_trained"] != epochs_trained:
+        raise AssertionError(f"{name}: epochs_trained {summary['epochs_trained']}")
+    print(f"[{name} path] {json.dumps(summary, sort_keys=True)}", flush=True)
+
+
+def phase_main_path(root: str):
+    """The flagship through the port's entry points, three paths in turn:
+    train 2 epochs, resume for a third, evaluate the validation split."""
+    from preset_gen_vae_tpu_torch import config as cfg
+    from preset_gen_vae_tpu_torch.evaluation.evaluate import evaluate_model_from_dir
+    from preset_gen_vae_tpu_torch.logs.logger import list_checkpoint_epochs, load_checkpoint
+    from preset_gen_vae_tpu_torch.training.loop import train_config
+
+    model_c = cfg.ModelConfig(logs_root_dir=root)
+    train_c = cfg.TrainConfig(n_epochs=2, minibatch_size=160, lr_warmup_epochs=0, save_period=1,
+                              verbosity=1)
+    counts = {}
+
+    # ---- train: checkpoints follow the JAX cadence, (epoch > 0 and epoch %
+    # save_period == 0) or the last epoch: epoch 1 only
+    summary, counts["train"], wall, mem = drive("train", lambda: train_config(
+        model_c, train_c, dataset_kwargs=CORPUS, device="cuda", use_tensorboard=False))
+    check_train_summary("train", summary, 2)
+    if list_checkpoint_epochs(model_c) != [1]:
+        raise AssertionError(f"train: checkpoints {list_checkpoint_epochs(model_c)}, want [1]")
+    sched = load_checkpoint(model_c, 1)["scheduler"]
+    plateau_loss = summary["ReconsLoss/Backprop/Valid"] + summary["Controls/BackpropLoss/Valid"]
+    if not math.isclose(sched["best"], plateau_loss, rel_tol=1e-9):  # it stepped after epoch 1
+        raise AssertionError(f"train: plateau scheduler {sched}, validation loss {plateau_loss}")
+    print(f"[train path] wall {wall:.2f} s, K1 launches {counts['train']['logmel']}, "
+          f"{summary['train_steps']} steps, steady step {summary['step_ms']:.2f} ms (first "
+          f"{summary['first_step_ms']:.1f} ms), corpus pass {summary['corpus_seconds']:.3f} s "
+          f"(render {summary['corpus_render_seconds']:.3f} s), peak device memory {mem:.2f} GiB; "
+          f"checkpoints {list_checkpoint_epochs(model_c)}, scheduler {sched}", flush=True)
+
+    # ---- resume: a third epoch from checkpoint 1, the dataset rebuilt
+    resume_c = dataclasses.replace(train_c, start_epoch=2, n_epochs=3)
+    summary, counts["resume"], wall, mem = drive("resume", lambda: train_config(
+        model_c, resume_c, dataset_kwargs=CORPUS, device="cuda", use_tensorboard=False))
+    check_train_summary("resume", summary, 3)
+    restored = load_checkpoint(model_c, 1)
+    steps_per_epoch = summary["train_steps"]
+    if not summary["start_step"] == restored["state"]["step"] == 2 * steps_per_epoch:
+        raise AssertionError(f"resume: step {summary['start_step']}, checkpoint "
+                             f"{restored['state']['step']}, {steps_per_epoch} steps an epoch")
+    if any(lr != restored["scheduler"]["lr"] for lr in summary["start_lr"]):
+        raise AssertionError(f"resume: LRs {summary['start_lr']} vs {restored['scheduler']}")
+    if list_checkpoint_epochs(model_c) != [1, 2]:
+        raise AssertionError(f"resume: checkpoints {list_checkpoint_epochs(model_c)}")
+    print(f"[resume path] wall {wall:.2f} s, K1 launches {counts['resume']['logmel']}, restored "
+          f"step {summary['start_step']} = 2 x {steps_per_epoch}, LR {summary['start_lr']} in "
+          f"every group = the scheduler's {restored['scheduler']['lr']}, steady step "
+          f"{summary['step_ms']:.2f} ms, peak device memory {mem:.2f} GiB; checkpoints "
+          f"{list_checkpoint_epochs(model_c)}", flush=True)
+
+    # ---- eval: the validation split of checkpoint 2, re-rendered and scored
+    phases = {}
+    _, counts["eval"], wall, mem = drive("eval", lambda: evaluate_model_from_dir(
+        summary["run_dir"], cfg.EvalConfig(dataset="validation"), dataset_kwargs=CORPUS,
+        phase_seconds=phases))
+    with open(f"{summary['run_dir']}/eval_validation_summary.json") as f:
+        ev = json.load(f)
+    items = np.load(f"{summary['run_dir']}/eval_validation.items.npz")
+    if ev["n_items"] != 164 or len(items["preset_UID"]) != 164:
+        raise AssertionError(f"eval: {ev['n_items']} items, want 164")
+    for k in ("num_eval_loss", "num_mae", "num_mae_dyn", "acc", "acc_dyn", "spec_mae",
+              "mfcc13_mae", "mfcc40_mae"):
+        if not np.isfinite(items[k]).all():
+            raise AssertionError(f"eval: non-finite {k}")
+    if int(np.isnan(items["spec_sc"]).sum()) != ev.get("n_nan_spec_sc", 0) or \
+            not np.isfinite(items["spec_sc"][~np.isnan(items["spec_sc"])]).all():
+        raise AssertionError("eval: spec_sc has values that are neither finite nor counted")
+    print(f"[eval path] {json.dumps(ev, sort_keys=True)}", flush=True)
+    print(f"[eval path] wall {wall:.2f} s, K1 launches {counts['eval']['logmel']}, 164 items "
+          f"(2 batches), seconds per phase {json.dumps(phases)}, peak device memory "
+          f"{mem:.2f} GiB", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -298,7 +379,12 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     k1 = phase_kernels()
-    k1["launches"] = phase_main_path()["logmel"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        counts = phase_main_path(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    k1["launches"] = counts["train"]["logmel"]
     print(json.dumps({"kernels": [k1]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

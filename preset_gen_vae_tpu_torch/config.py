@@ -1,5 +1,6 @@
 """Copy of ``preset_gen_vae_tpu/config.py``, the JAX package's counterpart,
-unchanged apart from this line.
+unchanged apart from this paragraph and three defaults of ``EvalConfig``
+(``device``, ``audio_render_backend``, ``cache_gt_audio``; see there).
 
 Typed, functional configuration system.
 
@@ -197,7 +198,7 @@ class EvalConfig:
     k_folds_count: int = 0
     dataset: str = "validation"  # 'validation' or 'test'
     minibatch_size: int = 1
-    device: str = "tpu"
+    device: str = "cuda"
     verbosity: int = 2
     load_from_archives: bool = False
     multiprocess_cores_ratio: float = 0.1
@@ -210,7 +211,10 @@ class EvalConfig:
     # metric identical to the C++ engine within 4e-5 at exact feedback.
     # 'cpp' remains available as the engine-independence cross-check
     # (tests/test_synth.py pins the two engines against each other).
-    audio_render_backend: str = "jax"
+    #
+    # The port's default is 'cpp': its evaluation raises for 'jax' until
+    # synth/fm_jax.py is ported (ROADMAP).
+    audio_render_backend: str = "cpp"
     # feedback solve for the 'jax' backend: 'exact' (per-sample scan,
     # matches the C++ engine — the DEFAULT: eval is where fidelity matters,
     # VERDICT r3 #6) or 'unrolled' (fast fixed-point approximation,
@@ -225,7 +229,9 @@ class EvalConfig:
     # for the eval split is rendered once and disk-cached keyed by
     # (item set, engine version, sample rate) — the reference reads
     # pre-rendered GT wavs instead of re-rendering (eval.py:257-259)
-    cache_gt_audio: bool = True
+    # The port's default is False: its evaluation raises for True until the
+    # disk corpus cache, which holds that audio, is ported (ROADMAP).
+    cache_gt_audio: bool = False
 
 
 def resolve(model: ModelConfig, train: TrainConfig) -> Tuple[ModelConfig, TrainConfig]:

@@ -106,6 +106,7 @@ class DexedDataset:
             keep &= np.asarray([any(l in s for l in self.restrict_to_labels) for s in labels])
         self.presets = presets[keep]
         self.uids = np.nonzero(keep)[0].astype(np.int64)
+        self._uid_to_row = {int(u): i for i, u in enumerate(self.uids)}
 
         # ---- learnable model spec (dexed_dataset.py:143-151)
         spec = build_dexed_preset_spec(
@@ -141,6 +142,10 @@ class DexedDataset:
     @property
     def learnable_params_tensor_length(self) -> int:
         return self.preset_indexes_helper.learnable_preset_size
+
+    def get_full_preset_params(self, preset_UID: int) -> np.ndarray:
+        """The full 155-parameter preset of one UID (dexed_dataset.py:184)."""
+        return self.presets[self._uid_to_row[int(preset_UID)]]
 
     def get_spectrogram_tensor_size(self):
         H = self.n_mel_bins if self.n_mel_bins > 0 else self.spectrogram.n_fft // 2 + 1

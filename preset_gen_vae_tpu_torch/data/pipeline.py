@@ -54,9 +54,10 @@ class SplitLoader:
                 sel = np.concatenate([sel, np.resize(idx, self.batch_size - len(sel))])
             yield sel
 
-    def gather(self, sel: np.ndarray):
-        """(x, v, info) of the items ``sel``, gathered on the device."""
-        i = torch.from_numpy(np.asarray(sel, dtype=np.int64)).to(self.tensors["x"].device)
+    def gather(self, sel):
+        """(x, v, info) of the items ``sel`` (a numpy array, or an index
+        tensor already on the device), gathered on the device."""
+        i = torch.as_tensor(sel, dtype=torch.int64, device=self.tensors["x"].device)
         return self.tensors["x"][i], self.tensors["v"][i], self.tensors["info"][i]
 
 

@@ -1,0 +1,221 @@
+"""Post-training evaluation pass.
+
+Counterpart: ``preset_gen_vae_tpu/evaluation/evaluate.py:84-371``
+(reference: eval.py:34-284). For a saved run: reload its frozen config,
+rebuild the dataset (its corpus pass launches K1 on the card), restore a
+checkpoint, run the batched eval-mode forward (under the training's
+autocast), compute the per-item parameter metrics, full and on the
+MIDI-key-dependent subset, and the latent Spearman matrices of z0 and zK;
+re-render the ground-truth and inferred presets through the C++ DX7 engine,
+score the audio similarity on the device, and write the artifacts into the
+run dir:
+
+- ``eval_<split>_summary.json``: the JAX package's keys, each metric's
+  ``nanmean`` with ``n_nan_<metric>`` where it has NaNs (spectral
+  convergence is NaN for a silent reference), the latent entanglements and
+  ``n_items``;
+- ``eval_<split>_{z0,zK}_spearman_{r,p}.npy``;
+- ``eval_<split>.items.npz``: the per-item table, one array per column of
+  the JAX package's ``eval_<split>.dataframe.pickle``. The port writes no
+  pickle: the card's machine has no pandas, and the port does not need it.
+
+The rows that cyclically pad the last batch are dropped before any metric,
+the latent ones included (the JAX package keeps them in its latent
+matrices, evaluate.py:190-191 there). ``evaluate_model`` returns the
+per-UID means (the JAX package's ``groupby('preset_UID').mean()``) as a
+dict of numpy columns.
+
+Not in this slice: the ``'jax'`` render backend (it waits for the port of
+``synth/fm_jax.py``) and the ground-truth audio cache (it waits for the
+disk corpus cache); both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .. import config as cfg
+from .._native import REPO_ROOT
+from ..data.pipeline import get_split_loaders
+from ..device import resolve_device
+from ..logs.logger import get_run_dir, load_checkpoint
+from ..logs.metrics import LatentMetric
+from ..losses.synth_params import CategoricalParamsAccuracy, QuantizedNumericalParamsLoss
+from ..models.build import build_extended_ae_model
+from ..synth import dexed_params as dx
+from ..training.loop import prepare_dataset
+from ..training.train_step import autocast
+from .similarity import batched_audio_errors
+
+KEYS = ("preset_UID", "midi_pitch", "midi_velocity")
+PARAM_METRICS = ("num_eval_loss", "num_mae", "num_mae_dyn", "acc", "acc_dyn")
+AUDIO_METRICS = ("spec_mae", "spec_sc", "mfcc13_mae", "mfcc40_mae")
+
+
+def items_path(run_dir, split: str) -> pathlib.Path:
+    return pathlib.Path(run_dir) / f"eval_{split}.items.npz"
+
+
+def evaluate_all_models(eval_config: cfg.EvalConfig, saved_root=REPO_ROOT / "saved",
+                        device="cuda", dataset=None, dataset_kwargs: Optional[Dict] = None
+                        ) -> List[Dict[str, np.ndarray]]:
+    """(reference: eval.py:34-62) Evaluates each run of
+    ``eval_config.models_names`` (with its k-fold expansion) that has no
+    ``items.npz`` for the split yet, unless ``override_previous_eval``."""
+    resolve_device(device)
+    out = []
+    for base_name in eval_config.models_names:
+        names = ([f"{base_name}_kf{k}" for k in range(eval_config.k_folds_count)]
+                 if eval_config.k_folds_count > 0 else [base_name])
+        for name in names:
+            model_name, run_name = name.split("/")
+            run_dir = pathlib.Path(saved_root) / model_name / run_name
+            if items_path(run_dir, eval_config.dataset).exists() and \
+                    not eval_config.override_previous_eval:
+                continue
+            out.append(evaluate_model_from_dir(run_dir, eval_config, device=device,
+                                               dataset=dataset, dataset_kwargs=dataset_kwargs))
+    return out
+
+
+def evaluate_model_from_dir(run_dir, eval_config: cfg.EvalConfig, device="cuda", **kwargs):
+    """``evaluate_model`` on the configs frozen in ``run_dir/config.json``;
+    ``kwargs`` go to ``evaluate_model``."""
+    resolve_device(device)
+    model_c, train_c = cfg.load_config(pathlib.Path(run_dir) / "config.json")
+    return evaluate_model(model_c, train_c, eval_config, device=device, **kwargs)
+
+
+def per_uid_means(table: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Per-``preset_UID`` means of every other column, NaNs skipped, UIDs
+    ascending, float columns in their dtype and integer ones as float64:
+    pandas' ``groupby('preset_UID', as_index=False).mean()``."""
+    uids, inv = np.unique(table["preset_UID"], return_inverse=True)
+    out = {"preset_UID": uids}
+    for k, col in table.items():
+        if k == "preset_UID":
+            continue
+        dtype = col.dtype if np.issubdtype(col.dtype, np.floating) else np.float64
+        col = np.asarray(col, dtype=np.float64)
+        ok = ~np.isnan(col)
+        n = np.bincount(inv, weights=ok, minlength=len(uids))
+        s = np.bincount(inv, weights=np.where(ok, col, 0.0), minlength=len(uids))
+        with np.errstate(invalid="ignore", divide="ignore"):
+            out[k] = (s / n).astype(dtype)
+    return out
+
+
+def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
+                   eval_config: cfg.EvalConfig, device="cuda", dataset=None,
+                   dataset_kwargs: Optional[Dict] = None, render_audio: bool = True,
+                   phase_seconds: Optional[Dict[str, float]] = None) -> Dict[str, np.ndarray]:
+    """(reference: eval.py:65-243) Returns the per-UID means as numpy
+    columns. ``phase_seconds``, if given, receives the wall seconds of each
+    phase: ``dataset`` (corpus pass and model restore), ``inference``,
+    ``render``, ``similarity`` and ``artifacts``."""
+    dev = resolve_device(device)
+    if eval_config.audio_render_backend != "cpp":
+        raise NotImplementedError(
+            f"audio_render_backend={eval_config.audio_render_backend!r}: only 'cpp' is ported")
+    if eval_config.cache_gt_audio:
+        raise NotImplementedError("the ground-truth audio cache is not ported yet")
+    times = {} if phase_seconds is None else phase_seconds
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    model_c, train_c = cfg.resolve(model_config, train_config)
+    model_c, train_c, dataset = prepare_dataset(model_c, train_c, dev, dataset, dataset_kwargs)
+    helper = dataset.preset_indexes_helper
+    loader = get_split_loaders(dataset, train_c)[eval_config.dataset]
+    model = build_extended_ae_model(model_c, train_c, helper).to(dev)
+    model.load_state_dict(load_checkpoint(model_c, eval_config.epoch)["state"]["model"])
+    model.eval()
+    lap("dataset")
+
+    # ---- batched inference and per-item parameter metrics (eval.py:135-176)
+    dynamic_idx = dx.midi_key_related_param_indexes()
+    criteria = {
+        "num_eval_loss": QuantizedNumericalParamsLoss(helper, loss="mse"),
+        "num_mae": QuantizedNumericalParamsLoss(helper, loss="mae"),
+        "num_mae_dyn": QuantizedNumericalParamsLoss(
+            helper, loss="mae", limited_vst_params_indexes=dynamic_idx),
+        "acc": CategoricalParamsAccuracy(helper),
+        "acc_dyn": CategoricalParamsAccuracy(helper, limited_vst_params_indexes=dynamic_idx),
+    }
+    cols = {k: [] for k in KEYS + PARAM_METRICS + ("z0", "zK", "v_out")}
+    bs = loader.batch_size
+    with torch.no_grad():
+        for i, sel in enumerate(loader.epoch_index_batches(0)):
+            n_real = min(bs, loader.n_items - i * bs)  # the rest pads the last batch
+            x, v, info = loader.gather(sel[:n_real])
+            with autocast(dev, train_c):
+                outs = model.forward_full(x, info)
+            v_out = outs[5].float()
+            cols["z0"].append(outs[0][:, 0, :].float())
+            cols["zK"].append(outs[2].float())
+            cols["v_out"].append(v_out)
+            for j, k in enumerate(KEYS):
+                cols[k].append(info[:, j])
+            for k, crit in criteria.items():
+                cols[k].append(crit.per_item(v_out, v))
+    cols = {k: torch.cat(c).cpu().numpy() for k, c in cols.items()}  # one fetch
+    lat = {}
+    for name in ("z0", "zK"):
+        lat[name] = LatentMetric(model_c.dim_z)
+        lat[name].append(cols[name], cols[name])
+    table = {k: cols[k] for k in KEYS + PARAM_METRICS}
+    lap("inference")
+
+    if render_audio:  # ---- re-render and score the audio (eval.py:211-323)
+        renderer = dataset.renderer
+        inferred = helper.learnable_to_full_batch(cols["v_out"])
+        pitch, vel = table["midi_pitch"], table["midi_velocity"]
+        errs = {k: [] for k in AUDIO_METRICS}
+        B = eval_config.audio_batch_size
+        render_s = 0.0
+        for s in range(0, len(inferred), B):
+            t_r = time.perf_counter()
+            gt = np.stack([dataset.get_full_preset_params(u) for u in table["preset_UID"][s:s + B]])
+            gt = renderer.render_batch(gt, pitch[s:s + B], vel[s:s + B])
+            est = renderer.render_batch(inferred[s:s + B], pitch[s:s + B], vel[s:s + B])
+            render_s += time.perf_counter() - t_r
+            e = batched_audio_errors(torch.from_numpy(gt).to(dev), torch.from_numpy(est).to(dev),
+                                     model_c.stft_args[0], model_c.stft_args[1],
+                                     model_c.sampling_rate)
+            for k in AUDIO_METRICS:
+                errs[k].append(e[k])
+        for k in AUDIO_METRICS:
+            table[k] = torch.cat(errs[k]).cpu().numpy()
+        lap("similarity")
+        times["render"], times["similarity"] = render_s, times["similarity"] - render_s
+
+    # ---- artifacts (eval.py:331-366)
+    run_dir = get_run_dir(model_c)
+    if run_dir.exists():
+        split = eval_config.dataset
+        np.savez(items_path(run_dir, split), **table)
+        for name in ("z0", "zK"):
+            np.save(run_dir / f"eval_{split}_{name}_spearman_r.npy", lat[name].get_spearman_corr())
+            np.save(run_dir / f"eval_{split}_{name}_spearman_p.npy",
+                    lat[name].get_spearman_pvalues())
+        metric_cols = [k for k in table if k not in KEYS]
+        summary = {k: float(np.nanmean(table[k])) for k in metric_cols}
+        summary.update({f"n_nan_{k}": int(np.isnan(table[k]).sum())
+                        for k in metric_cols if np.isnan(table[k]).any()})
+        summary.update(latent_entanglement_z0=lat["z0"].get(),
+                       latent_entanglement_zK=lat["zK"].get(), n_items=len(table["preset_UID"]))
+        with open(run_dir / f"eval_{split}_summary.json", "w") as f:
+            json.dump(summary, f, indent=2)
+    lap("artifacts")
+    return per_uid_means(table)

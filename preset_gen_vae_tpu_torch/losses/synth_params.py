@@ -2,15 +2,16 @@
 
 Counterpart: ``preset_gen_vae_tpu/losses/synth_params.py:31-305``
 (reference: model/loss.py:73-315): ``SynthParamsLoss``,
-``QuantizedNumericalParamsLoss`` and ``CategoricalParamsAccuracy`` (the
-reduced form). ``FlowParamsLoss`` waits for a later slice. The index tables
+``QuantizedNumericalParamsLoss`` and ``CategoricalParamsAccuracy``, each
+with its per-item form and its limited parameter subset for the eval pass.
+``FlowParamsLoss`` waits for a later slice. The index tables
 of ``PresetIndexesHelper`` are numpy; each criterion moves them to the
 device of its inputs once and keeps them there.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -114,25 +115,32 @@ class SynthParamsLoss:
 
 class QuantizedNumericalParamsLoss:
     """Quantized numerical-params error, monitoring only
-    (synth_params.py:115-183; reference: model/loss.py:187-261). All
-    parameters are included (the limited-subset option is not ported)."""
+    (synth_params.py:115-217; reference: model/loss.py:187-261). With
+    ``limited_vst_params_indexes`` the errors of the other parameters are
+    zeroed but still count in the mean (loss.py:226-247)."""
 
-    def __init__(self, idx_helper: PresetIndexesHelper, loss: str = "mse"):
+    def __init__(self, idx_helper: PresetIndexesHelper, loss: str = "mse",
+                 limited_vst_params_indexes: Optional[Sequence[int]] = None):
         h = idx_helper
         self.loss = loss
         nn_pairs = sorted(h.num_idx_learned_as_num.items())
         vst_to_group = {int(v): g for g, v in enumerate(h.cat_group_vst_idx)}
-        nc_groups = np.array([vst_to_group[v] for v in sorted(h.num_idx_learned_as_cat)],
-                             dtype=np.int64)
+        nc_vst = sorted(h.num_idx_learned_as_cat)
+        nc_groups = np.array([vst_to_group[v] for v in nc_vst], dtype=np.int64)
+        lim = (None if limited_vst_params_indexes is None
+               else {int(i) for i in limited_vst_params_indexes})
         self.n_nn, self.n_nc = len(nn_pairs), len(nc_groups)
         self.t = _Tables(
             nn_idx=np.array([li for _, li in nn_pairs], dtype=np.int64),
             nn_card=np.array([h.spec.cardinalities[v] for v, _ in nn_pairs], dtype=np.float32),
+            nn_include=np.array([lim is None or v in lim for v, _ in nn_pairs], dtype=np.float32),
             nc_idx_m=np.maximum(h.cat_group_idx_matrix[nc_groups], 0),
             nc_pad=h.cat_group_mask[nc_groups],
-            nc_card=h.cat_group_card[nc_groups].astype(np.float32))
+            nc_card=h.cat_group_card[nc_groups].astype(np.float32),
+            nc_include=np.array([lim is None or v in lim for v in nc_vst], dtype=np.float32))
 
-    def __call__(self, v_out: torch.Tensor, v_in: torch.Tensor) -> torch.Tensor:
+    def _errors(self, v_out: torch.Tensor, v_in: torch.Tensor) -> Optional[torch.Tensor]:
+        """(B, P) quantized errors, or None without parameters."""
         t = self.t.on(v_in.device)
         errs = []
         if self.n_nn:
@@ -140,27 +148,44 @@ class QuantizedNumericalParamsLoss:
             u_out_q = torch.where(card > 0,
                                   torch.round(u_out * (card - 1.0)) / torch.clamp(card - 1.0, min=1.0),
                                   u_out)
-            errs.append(u_out_q - u_in)
+            errs.append((u_out_q - u_in) * t["nn_include"][None])
         if self.n_nc:
             in_cls = _masked_argmax(v_in[:, t["nc_idx_m"]], t["nc_pad"])
             out_cls = _masked_argmax(v_out[:, t["nc_idx_m"]], t["nc_pad"])
-            errs.append((out_cls - in_cls).float() / torch.clamp(t["nc_card"][None] - 1.0, min=1.0))
-        if not errs:
-            return v_in.new_zeros(())
-        err = torch.cat(errs, dim=1)
-        return torch.square(err).mean() if self.loss == "mse" else err.abs().mean()
+            errs.append((out_cls - in_cls).float() / torch.clamp(t["nc_card"][None] - 1.0, min=1.0)
+                        * t["nc_include"][None])
+        return torch.cat(errs, dim=1) if errs else None
+
+    def _reduce(self, err: torch.Tensor, dim=None) -> torch.Tensor:
+        e = torch.square(err) if self.loss == "mse" else err.abs()
+        return e.mean() if dim is None else e.mean(dim)
+
+    def __call__(self, v_out: torch.Tensor, v_in: torch.Tensor) -> torch.Tensor:
+        err = self._errors(v_out, v_in)
+        return v_in.new_zeros(()) if err is None else self._reduce(err)
+
+    def per_item(self, v_out: torch.Tensor, v_in: torch.Tensor) -> torch.Tensor:
+        """(B,) per-item loss, for the eval pass's table (synth_params.py:185-217)."""
+        err = self._errors(v_out, v_in)
+        return v_in.new_zeros((v_in.shape[0],)) if err is None else self._reduce(err, 1)
 
 
 class CategoricalParamsAccuracy:
-    """Categorical-params accuracy averaged over parameters, in percent
-    (synth_params.py:220-305, reduced form; reference: model/loss.py:265-315)."""
+    """Categorical-params accuracy in percent (synth_params.py:220-305;
+    reference: model/loss.py:265-315): ``__call__`` averages per-parameter
+    accuracies, ``per_item`` each item's accuracy over the parameters. With
+    ``limited_vst_params_indexes`` only those parameters count."""
 
-    def __init__(self, idx_helper: PresetIndexesHelper):
+    def __init__(self, idx_helper: PresetIndexesHelper,
+                 limited_vst_params_indexes: Optional[Sequence[int]] = None):
         h = idx_helper
-        cn_pairs = sorted(h.cat_idx_learned_as_num.items())
+        lim = (None if limited_vst_params_indexes is None
+               else {int(i) for i in limited_vst_params_indexes})
+        cn_pairs = [(v, li) for v, li in sorted(h.cat_idx_learned_as_num.items())
+                    if lim is None or v in lim]
         vst_to_group = {int(v): g for g, v in enumerate(h.cat_group_vst_idx)}
-        cc_groups = np.array([vst_to_group[v] for v in sorted(h.cat_idx_learned_as_cat)],
-                             dtype=np.int64)
+        cc_groups = np.array([vst_to_group[v] for v in sorted(h.cat_idx_learned_as_cat)
+                              if lim is None or v in lim], dtype=np.int64)
         self.n_cn, self.n_cc = len(cn_pairs), len(cc_groups)
         self.t = _Tables(
             cn_idx=np.array([li for _, li in cn_pairs], dtype=np.int64),
@@ -168,18 +193,31 @@ class CategoricalParamsAccuracy:
             cc_idx_m=np.maximum(h.cat_group_idx_matrix[cc_groups], 0),
             cc_pad=h.cat_group_mask[cc_groups])
 
-    def __call__(self, v_out: torch.Tensor, v_in: torch.Tensor) -> torch.Tensor:
+    def _hits(self, v_out: torch.Tensor, v_in: torch.Tensor) -> Optional[torch.Tensor]:
+        """(B, P) 1.0 where the inferred class is the target's, or None
+        without parameters."""
         t = self.t.on(v_in.device)
-        accs = []
+        hits = []
         if self.n_cn:
             c = t["cn_card"][None] - 1.0
             t_cls = torch.round(v_in[:, t["cn_idx"]] * c)
             o_cls = torch.round(v_out[:, t["cn_idx"]] * c)
-            accs.append((t_cls == o_cls).float().mean(0))
+            hits.append((t_cls == o_cls).float())
         if self.n_cc:
             t_cls = _masked_argmax(v_in[:, t["cc_idx_m"]], t["cc_pad"])
             o_cls = _masked_argmax(v_out[:, t["cc_idx_m"]], t["cc_pad"])
-            accs.append((t_cls == o_cls).float().mean(0))
-        if not accs:
-            return v_in.new_zeros(())
-        return torch.cat(accs).mean() * 100.0
+            hits.append((t_cls == o_cls).float())
+        return torch.cat(hits, dim=1) if hits else None
+
+    def __call__(self, v_out: torch.Tensor, v_in: torch.Tensor) -> torch.Tensor:
+        hits = self._hits(v_out, v_in)
+        return v_in.new_zeros(()) if hits is None else hits.mean(0).mean() * 100.0
+
+    def per_item(self, v_out: torch.Tensor, v_in: torch.Tensor) -> torch.Tensor:
+        """(B,) per-item accuracy in percent (synth_params.py:276-295). The
+        mean is taken as XLA takes the JAX package's, the sum times the
+        float32 reciprocal of the count, so both agree to the bit."""
+        hits = self._hits(v_out, v_in)
+        if hits is None:
+            return v_in.new_zeros((v_in.shape[0],))
+        return hits.sum(1) * (1.0 / hits.shape[1]) * 100.0

@@ -127,9 +127,13 @@ def train_step(model, optimizer, criteria: Criteria, train_config: TrainConfig,
 @torch.no_grad()
 def eval_step(model, criteria: Criteria, train_config: TrainConfig, x_in, v_in,
               sample_info) -> Dict[str, torch.Tensor]:
-    """Validation / inference step (train_step.py:374-415)."""
+    """Validation / inference step (train_step.py:374-415): the metrics as
+    0-d tensors, plus the latents ``z0_mu`` and ``z0`` (B, dim_z) in float32
+    (train_step.py:364-367 there), equal in eval mode."""
     model.eval()
     with autocast(x_in.device, train_config):
         outs = model.forward_full(x_in, sample_info)
     terms = criteria.losses(outs, x_in, v_in, train=False)
-    return criteria.metrics(terms, outs, x_in, v_in)
+    m = criteria.metrics(terms, outs, x_in, v_in)
+    m["z0_mu"], m["z0"] = outs[0][:, 0, :].float(), outs[1].float()
+    return m

@@ -5,8 +5,9 @@ autocast) with random weights and inputs from ``--seed``, warms up, then
 traces five train steps and one eval step with ``torch.profiler``
 and prints: the card's name and power limit, the mean step time (host
 clock around synchronised steps), the device-busy share of the traced
-window, and the kernels ranked by device time. Run from the repository
-root:
+window, the kernels ranked by device time, and the calls in one train step
+that make the host wait for the card (``torch.cuda.set_sync_debug_mode``),
+by source line. Run from the repository root:
 
     python3 scripts/profile_torch_step.py
 """
@@ -14,12 +15,14 @@ root:
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -67,6 +70,14 @@ def main() -> int:
     for _ in range(3):
         step()
     torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = collections.Counter(f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
     times = []
     for _ in range(STEPS):
         t0 = time.perf_counter()
@@ -93,7 +104,9 @@ def main() -> int:
                       "step_ms_min": float(np.min(times)) * 1e3, "eval_step_ms": eval_ms,
                       "profiled_window_s": window, "device_busy_s": busy,
                       "device_busy_share": busy / window,
-                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}))
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "host_syncs_per_step": sum(syncs.values()),
+                      "host_syncs_by_line": dict(syncs)}))
     print(f"{'device ms/step':>14} {'share':>6} {'calls':>6}  kernel")
     for e in kernels[:TOP]:
         ms = e.device_time_total / 1e3 / STEPS

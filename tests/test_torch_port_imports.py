@@ -4,11 +4,18 @@
   jax, flax, optax, orbax or the JAX package ``preset_gen_vae_tpu``. The
   check matches ``preset_gen_vae_tpu`` exactly or as the prefix
   ``preset_gen_vae_tpu.``, so the port's own name does not match.
+- Every module of the port imports in a process where those packages and
+  pandas, tensorboard and matplotlib cannot be imported (the card's
+  machine has none of the last three), except ``logs/tbwriter.py``, which
+  ``RunLogger`` loads only for ``use_tensorboard=True`` and which raises
+  there.
 - Entry points default to the card and raise where there is none.
 """
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -43,15 +50,54 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert not bad, bad
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+BLOCKED = FORBIDDEN + ("pandas", "tensorboard", "matplotlib")
+_GUARD = """
+import importlib, sys
+for name in {blocked!r}:
+    sys.modules[name] = None  # `import name` now raises ImportError
+for module in {modules!r}:
+    importlib.import_module(module)
+try:
+    importlib.import_module("preset_gen_vae_tpu_torch.logs.tbwriter")
+except ImportError:
+    print("tbwriter raised")
+"""
+
+
+def test_every_module_imports_without_the_blocked_packages():
+    modules = sorted(".".join(f.relative_to(ROOT).with_suffix("").parts)
+                     for f in PORT.rglob("*.py") if f.name != "tbwriter.py")
+    modules = [m.removesuffix(".__init__") for m in modules]
+    assert len(modules) > 30 and "preset_gen_vae_tpu_torch.evaluation.evaluate" in modules
+    code = _GUARD.format(blocked=BLOCKED, modules=modules)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "tbwriter raised"
+
+
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from preset_gen_vae_tpu_torch import config as cfg
     from preset_gen_vae_tpu_torch.device import resolve_device
+    from preset_gen_vae_tpu_torch.evaluation import evaluate as ev
+    from preset_gen_vae_tpu_torch.evaluation.similarity import SimilarityEvaluator
     from preset_gen_vae_tpu_torch.training.loop import train_config
+    from preset_gen_vae_tpu_torch.training.queue import run_queue
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        train_config()  # device defaults to "cuda"
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        resolve_device()
+    calls = [
+        lambda: train_config(),  # device defaults to "cuda"
+        lambda: run_queue([({}, {})]),
+        lambda: ev.evaluate_model(cfg.ModelConfig(), cfg.TrainConfig(), cfg.EvalConfig()),
+        lambda: ev.evaluate_model_from_dir(tmp_path, cfg.EvalConfig()),
+        lambda: ev.evaluate_all_models(cfg.EvalConfig(models_names=("FlVAE2/none",)),
+                                       saved_root=tmp_path),
+        lambda: SimilarityEvaluator([[0.0] * 4096, [0.0] * 4096]),
+        lambda: resolve_device(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

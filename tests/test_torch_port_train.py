@@ -198,12 +198,19 @@ def test_adam_is_coupled_l2_like_make_optimizer():
     np.testing.assert_allclose(p.detach().numpy(), np.asarray(jw), rtol=1e-6, atol=1e-7)
 
 
-def test_tiny_train_config_on_cpu():
+def test_tiny_train_config_on_cpu(tmp_path):
+    """One epoch through the user entry point, TensorBoard on: the run dir
+    holds the frozen config, the model summary, the events and the last
+    epoch's checkpoint."""
     summary = train_config(
-        cfg.ModelConfig(dataset_synth_args=(None, (1, 2))),
+        cfg.ModelConfig(dataset_synth_args=(None, (1, 2)), logs_root_dir=str(tmp_path)),
         cfg.TrainConfig(n_epochs=1, minibatch_size=16), device="cpu",
         dataset_kwargs={"n_synthetic_presets": 64})
     assert summary["device"] == "cpu" and summary["train_steps"] == 2
     assert summary["input_size"] == [16, 1, 257, 347]
     vals = [v for v in summary.values() if isinstance(v, float)]
     assert len(vals) > 15 and all(np.isfinite(vals))
+    run_dir = tmp_path / "FlVAE2" / "00_debug"
+    assert (run_dir / "config.json").exists() and (run_dir / "model_summary.txt").exists()
+    assert list((run_dir / "tensorboard").glob("events.out.tfevents.*"))
+    assert (run_dir / "checkpoints" / "0" / "state.pt").exists()
