@@ -11,8 +11,15 @@ own corpus pass: ``training.loop.train_config`` trains 2 epochs with the
 plateau scheduler and checkpoints; a second call resumes from the
 checkpoint for a third epoch; ``evaluation.evaluate.evaluate_model_from_dir``
 scores the 164 validation items (inference, DX7 re-render, similarity
-metrics on the card) and writes the artifacts. Runs live in a temporary
-directory that is removed at the end.
+metrics on the card) and writes the artifacts. Then the saved runs'
+other configurations (``saved/FlVAE2/<run>/config.json``, C++ render
+backend), each through the same two entry points at full width: the
+repo's best run, 3 stacked notes (``r5stack3_v2_20480``, train and eval),
+the 6-note un-stacked run with MIDI in z0 (``r5multi6_v2_12288``, train
+and eval), FlowParamsLoss (``r2flowloss_train``), the MLP head
+(``r2mlp400``, train and eval) and BasicVAE with a MAF head. Each path
+prints its wall time, model build time, steady step and peak memory. Runs
+live in a temporary directory that is removed at the end.
 
 Run from the repository root with one GPU:
 
@@ -27,8 +34,10 @@ non-zero exit code; without a GPU it fails before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -275,6 +284,7 @@ def drive(name: str, fn):
 
     for k in sp.LAUNCHES:
         sp.LAUNCHES[k] = 0
+    gc.collect()  # the previous path's tensors must not count in this one's peak
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = fn()
@@ -286,12 +296,13 @@ def drive(name: str, fn):
     return result, launches, wall, torch.cuda.max_memory_allocated() / 2**30
 
 
-def check_train_summary(name: str, summary: dict, epochs_trained: int):
+def check_train_summary(name: str, summary: dict, epochs_trained: int,
+                        input_size=(160, 1, 257, 347), dim_z: int = 610):
     bad = {k: v for k, v in summary.items() if isinstance(v, float) and not np.isfinite(v)}
     if bad:
         raise AssertionError(f"{name}: non-finite metrics: {bad}")
-    if summary["dim_z"] != 610 or summary["input_size"] != [160, 1, 257, 347]:
-        raise AssertionError(f"{name}: not the flagship shapes: {summary}")
+    if summary["dim_z"] != dim_z or summary["input_size"] != list(input_size):
+        raise AssertionError(f"{name}: not the configuration's shapes: {summary}")
     if summary["epochs_trained"] != epochs_trained:
         raise AssertionError(f"{name}: epochs_trained {summary['epochs_trained']}")
     print(f"[{name} path] {json.dumps(summary, sort_keys=True)}", flush=True)
@@ -321,7 +332,8 @@ def phase_main_path(root: str):
     plateau_loss = summary["ReconsLoss/Backprop/Valid"] + summary["Controls/BackpropLoss/Valid"]
     if not math.isclose(sched["best"], plateau_loss, rel_tol=1e-9):  # it stepped after epoch 1
         raise AssertionError(f"train: plateau scheduler {sched}, validation loss {plateau_loss}")
-    print(f"[train path] wall {wall:.2f} s, K1 launches {counts['train']['logmel']}, "
+    print(f"[train path] wall {wall:.2f} s, model build {summary['model_build_seconds']:.2f} s, "
+          f"K1 launches {counts['train']['logmel']}, "
           f"{summary['train_steps']} steps, steady step {summary['step_ms']:.2f} ms (first "
           f"{summary['first_step_ms']:.1f} ms), corpus pass {summary['corpus_seconds']:.3f} s "
           f"(render {summary['corpus_render_seconds']:.3f} s), peak device memory {mem:.2f} GiB; "
@@ -343,7 +355,8 @@ def phase_main_path(root: str):
         raise AssertionError(f"resume: checkpoints {list_checkpoint_epochs(model_c)}")
     print(f"[resume path] wall {wall:.2f} s, K1 launches {counts['resume']['logmel']}, restored "
           f"step {summary['start_step']} = 2 x {steps_per_epoch}, LR {summary['start_lr']} in "
-          f"every group = the scheduler's {restored['scheduler']['lr']}, steady step "
+          f"every group = the scheduler's {restored['scheduler']['lr']}, model build "
+          f"{summary['model_build_seconds']:.2f} s, steady step "
           f"{summary['step_ms']:.2f} ms, peak device memory {mem:.2f} GiB; checkpoints "
           f"{list_checkpoint_epochs(model_c)}", flush=True)
 
@@ -371,6 +384,136 @@ def phase_main_path(root: str):
     return counts
 
 
+SAVED_RUNS = pathlib.Path(__file__).resolve().parent / "saved" / "FlVAE2"
+VARIANT_CORPUS = {"n_synthetic_presets": 512}  # the variant paths' cut corpus
+
+
+def saved_run_configs(run: str, root: str, model_kw=None, **train_kw):
+    """A saved run's frozen configs, retargeted: C++ render backend, runs
+    under ``root``, ``train_kw`` (epochs, verbosity) over its TrainConfig;
+    its widths, notes, flows, heads and losses stay."""
+    from preset_gen_vae_tpu_torch import config as cfg
+
+    model_c, train_c = cfg.load_config(SAVED_RUNS / run / "config.json")
+    model_c = dataclasses.replace(model_c, **{
+        "logs_root_dir": root, "run_name": f"smoke_{run}", "allow_erase_run": True,
+        "dataset_corpus_render_backend": "cpp", "dataset_corpus_cache_policy": "disk",
+        **(model_kw or {})})
+    return model_c, dataclasses.replace(train_c, start_epoch=0, verbosity=0, **train_kw)
+
+
+def variant_train(counts, name, model_c, train_c, corpus, epochs, dim_z):
+    """One train path: K1 launched once per 64 presets and note, the input
+    shape (B, stacked notes, 257, 347), finite metrics; timings printed."""
+    from preset_gen_vae_tpu_torch.data.dexed_dataset import CORPUS_CHUNK
+    from preset_gen_vae_tpu_torch.training.loop import train_config
+
+    summary, counts[name], wall, mem = drive(name, lambda: train_config(
+        model_c, train_c, dataset_kwargs=corpus, device="cuda", use_tensorboard=False))
+    n_notes = len(model_c.midi_notes)
+    channels = n_notes if model_c.stack_spectrograms else 1
+    check_train_summary(name, summary, epochs, (train_c.minibatch_size, channels, 257, 347),
+                        dim_z)
+    k1 = n_notes * -(-corpus["n_synthetic_presets"] // CORPUS_CHUNK)
+    if counts[name]["logmel"] != k1:
+        raise AssertionError(f"{name}: {counts[name]['logmel']} K1 launches, want {k1}")
+    print(f"[{name} path] wall {wall:.2f} s, model build {summary['model_build_seconds']:.2f} s, "
+          f"K1 launches {counts[name]['logmel']}, {summary['train_steps']} steps, steady step "
+          f"{summary['step_ms']:.2f} ms (first {summary['first_step_ms']:.1f} ms), corpus pass "
+          f"{summary['corpus_seconds']:.3f} s (render {summary['corpus_render_seconds']:.3f} s), "
+          f"{summary['n_params']} parameters, input {summary['input_size']}, peak device memory "
+          f"{mem:.2f} GiB", flush=True)
+    return summary
+
+
+def variant_eval(counts, name, model_c, run_dir, corpus, latents=None):
+    """One eval path on the run's last checkpoint: the validation items
+    (one per preset, or per preset and note when the notes are not
+    stacked) inferred, re-rendered and scored, every metric finite."""
+    from preset_gen_vae_tpu_torch import config as cfg
+    from preset_gen_vae_tpu_torch.data.dexed_dataset import CORPUS_CHUNK
+    from preset_gen_vae_tpu_torch.data.sampler import split_preset_indexes
+    from preset_gen_vae_tpu_torch.evaluation.evaluate import evaluate_model_from_dir
+
+    phases = {}
+    _, counts[name], wall, mem = drive(name, lambda: evaluate_model_from_dir(
+        run_dir, cfg.EvalConfig(dataset="validation"), dataset_kwargs=corpus,
+        phase_seconds=phases, latents=latents))
+    with open(f"{run_dir}/eval_validation_summary.json") as f:
+        ev = json.load(f)
+    items = np.load(f"{run_dir}/eval_validation.items.npz")
+    P, n_notes = corpus["n_synthetic_presets"], len(model_c.midi_notes)
+    n_items = len(split_preset_indexes(P)["validation"]) * (
+        1 if model_c.stack_spectrograms else n_notes)
+    if ev["n_items"] != n_items or len(items["preset_UID"]) != n_items:
+        raise AssertionError(f"{name}: {ev['n_items']} items, want {n_items}")
+    for k in ("num_eval_loss", "num_mae", "num_mae_dyn", "acc", "acc_dyn", "spec_mae",
+              "mfcc13_mae", "mfcc40_mae"):
+        if not np.isfinite(items[k]).all():
+            raise AssertionError(f"{name}: non-finite {k}")
+    k1 = n_notes * -(-P // CORPUS_CHUNK)
+    if counts[name]["logmel"] != k1:
+        raise AssertionError(f"{name}: {counts[name]['logmel']} K1 launches, want {k1}")
+    print(f"[{name} path] {json.dumps(ev, sort_keys=True)}", flush=True)
+    print(f"[{name} path] wall {wall:.2f} s, model build and restore {phases['model']:.2f} s, "
+          f"K1 launches {counts[name]['logmel']}, {n_items} items, seconds per phase "
+          f"{json.dumps(phases)}, peak device memory {mem:.2f} GiB", flush=True)
+    return items
+
+
+def phase_variant_paths(root: str):
+    """The saved runs' other configurations through the same entry points.
+    At 1,024 presets: stack3 48 K1 launches a pass, 164 eval items; multi6
+    96 launches, 24 steps, 984 eval items; at 512 presets 8 launches."""
+    from preset_gen_vae_tpu_torch.data.sampler import split_preset_indexes
+
+    counts = {}
+    # ---- the repo's best run: 3 stacked notes, full width, 2 epochs
+    model_c, train_c = saved_run_configs("r5stack3_v2_20480", root, n_epochs=2)
+    summary = variant_train(counts, "stack3 train", model_c, train_c, CORPUS, 2, 610)
+    variant_eval(counts, "stack3 eval", model_c, summary["run_dir"], CORPUS)
+
+    # ---- 6 un-stacked notes, MIDI in z0, 1800-channel mixers, 1 epoch
+    model_c, train_c = saved_run_configs("r5multi6_v2_12288", root, n_epochs=1)
+    summary = variant_train(counts, "multi6 train", model_c, train_c, CORPUS, 1, 610)
+    n_train = len(split_preset_indexes(CORPUS["n_synthetic_presets"])["train"]) * 6
+    if summary["train_steps"] != n_train // train_c.minibatch_size:
+        raise AssertionError(f"multi6: {summary['train_steps']} steps for {n_train} items")
+    latents = {}
+    items = variant_eval(counts, "multi6 eval", model_c, summary["run_dir"], CORPUS, latents)
+    midi = -1.0 + 2.0 * np.stack([items["midi_pitch"], items["midi_velocity"]], 1) / 127.0
+    err = float(np.abs(latents["z0"][:, :2] - midi).max())
+    if err > 1e-6 or len(set(zip(items["midi_pitch"], items["midi_velocity"]))) != 6:
+        raise AssertionError(f"multi6 eval: z0 dims 0-1 off the MIDI head by {err}")
+    print(f"[multi6 eval path] z0 dims 0-1 of all {len(midi)} items equal -1 + 2 (pitch, "
+          f"velocity) / 127 of their own note (max |err| {err:.1e})", flush=True)
+
+    # ---- FlowParamsLoss, the train-mode pullback (cut corpus)
+    model_c, train_c = saved_run_configs("r2flowloss_train", root, n_epochs=1)
+    summary = variant_train(counts, "flowloss train", model_c, train_c, VARIANT_CORPUS, 1, 610)
+    share = summary["Controls/FlooredShare/Train"]
+    n_train = summary["train_steps"] * train_c.minibatch_size
+    print(f"[flowloss train path] Controls/BackpropLoss {summary['Controls/BackpropLoss/Train']}"
+          f" (train), {summary['Controls/BackpropLoss/Valid']} (valid); items at the -1e8 floor:"
+          f" {share * n_train:.0f} of {n_train} trained ({share:.1%}), "
+          f"{summary['Controls/FlooredShare/Valid']:.1%} of validation", flush=True)
+
+    # ---- the MLP head, dim_z 256 (cut corpus)
+    model_c, train_c = saved_run_configs("r2mlp400", root, n_epochs=1)
+    summary = variant_train(counts, "mlp train", model_c, train_c, VARIANT_CORPUS, 1, 256)
+    variant_eval(counts, "mlp eval", model_c, summary["run_dir"], VARIANT_CORPUS)
+
+    # ---- BasicVAE (Dkl latent loss) with a MAF head, forward direction only
+    model_c, train_c = saved_run_configs(
+        "r2flowloss_train", root, dict(run_name="smoke_basic_maf", latent_flow_arch=None,
+                                       params_regression_architecture="flow_maf_6l300",
+                                       forward_controls_loss=True), n_epochs=1)
+    summary = variant_train(counts, "basic_maf train", model_c, train_c, VARIANT_CORPUS, 1, 610)
+    print(f"[basic_maf train path] LatLoss (Dkl) {summary['LatLoss/Train']} (train), "
+          f"{summary['LatLoss/Valid']} (valid)", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -382,9 +525,11 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     try:
         counts = phase_main_path(root)
+        counts.update(phase_variant_paths(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    k1["launches"] = counts["train"]["logmel"]
+    k1["launches_by_path"] = {name: c["logmel"] for name, c in counts.items()}
+    k1["launches"] = sum(k1["launches_by_path"].values())
     print(json.dumps({"kernels": [k1]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ C++ engine on the host, moves each chunk of waveforms to the device and
 runs kernel K1 there (``SpectrogramProcessor``; on the CPU its plain
 version), takes the corpus min/max on the device
 (abstract_dataset.py:272-281) and keeps the min/max-normalised corpus on
-the device as ``(P, n_notes, H, W)``. There is no disk cache, no SQLite
+the device as ``(P, n_notes, H, W)``. ``corpus_tensors`` serves it in the
+two multi-note layouts of abstract_dataset.py:609-631: stacked, one item
+per preset with its notes as channels, or un-stacked, one item per
+(preset, note), as a view of the same buffer. There is no disk cache, no SQLite
 preset database and no on-device ('jax') render backend in this slice; the
 128-lane chunked corpus layout of ``data/corpus_device.py`` is not needed
 by torch indexing and is not ported.
@@ -35,12 +38,19 @@ CORPUS_CHUNK = 64  # waveforms rendered and turned into log-mels per K1 launch
 
 
 def model_config_to_dataset_kwargs(model_config) -> Dict:
-    """(data/build.py:18-41; reference: data/dataset.py:18-25)"""
+    """(data/build.py:18-41; reference: data/dataset.py:18-25). Raises for
+    the on-device 'jax' render backend, which is not ported: the C++
+    engine's corpus would differ from the one that config asks for."""
+    if model_config.dataset_corpus_render_backend != "cpp":
+        raise NotImplementedError(
+            f"corpus render backend {model_config.dataset_corpus_render_backend!r}: "
+            "only 'cpp' is ported")
     return dict(
         note_duration=model_config.note_duration,
         n_fft=model_config.stft_args[0],
         fft_hop=model_config.stft_args[1],
         midi_notes=model_config.midi_notes,
+        multichannel_stacked_spectrograms=model_config.stack_spectrograms,
         n_mel_bins=model_config.mel_bins,
         spectrogram_min_dB=model_config.spectrogram_min_dB,
         algos=model_config.dataset_synth_args[0],
@@ -58,6 +68,7 @@ class DexedDataset:
         n_fft: int = 1024,
         fft_hop: int = 256,
         midi_notes=((60, 85),),
+        multichannel_stacked_spectrograms: bool = False,
         n_mel_bins: int = 257,
         spectrogram_min_dB: float = -120.0,
         spectrogram_normalization: Optional[str] = "min_max",
@@ -77,6 +88,8 @@ class DexedDataset:
             raise NotImplementedError(f"normalization {spectrogram_normalization!r}")
         self.note_duration = tuple(note_duration)
         self.midi_notes = tuple(tuple(n) for n in midi_notes)
+        # (abstract_dataset.py:57)
+        self._stacked = multichannel_stacked_spectrograms and len(self.midi_notes) > 1
         self.n_mel_bins = n_mel_bins
         self.spectrogram_normalization = spectrogram_normalization
         self.sample_rate = int(sample_rate)
@@ -133,7 +146,7 @@ class DexedDataset:
 
     @property
     def multichannel_stacked_spectrograms(self) -> bool:
-        return False
+        return self._stacked
 
     @property
     def learnable_params_count(self) -> int:
@@ -150,7 +163,7 @@ class DexedDataset:
     def get_spectrogram_tensor_size(self):
         H = self.n_mel_bins if self.n_mel_bins > 0 else self.spectrogram.n_fft // 2 + 1
         T = 1 + self.renderer.samples_per_render // self.spectrogram.hop
-        return (1, H, T)
+        return (self.midi_notes_per_preset if self._stacked else 1, H, T)
 
     # ------------------------------------------------------------------
     def load_corpus(self) -> torch.Tensor:
@@ -180,14 +193,23 @@ class DexedDataset:
         return self._corpus
 
     def corpus_tensors(self) -> Dict[str, torch.Tensor]:
-        """x (P, 1, H, W), v (P, L) float32 and info (P, 3) int32, all on the
-        device (abstract_dataset.py:581-624, single-note case)."""
-        if len(self.midi_notes) != 1:
-            raise NotImplementedError("multi-note datasets are not ported yet")
+        """x, v (N, L) float32 and info (N, 3) int32 (uid, pitch, velocity),
+        all on the device (abstract_dataset.py:581-631). Single-note or
+        stacked: N = P items, x (P, n_notes, H, W), info the first note.
+        Un-stacked multi-note: N = P * n_notes items, note-major per preset,
+        x (N, 1, H, W) a view of the (P, n_notes, H, W) corpus (no second
+        corpus-sized buffer), v repeated, info each item's own note."""
         x = self.load_corpus()
-        v = self.preset_indexes_helper.full_to_learnable_batch(self.presets)
-        p0, v0 = self.midi_notes[0]
-        info = np.stack([self.uids, np.full(len(self.uids), p0), np.full(len(self.uids), v0)],
-                        axis=1).astype(np.int32)
+        learnable = self.preset_indexes_helper.full_to_learnable_batch(self.presets)
+        P, n_notes = x.shape[0], x.shape[1]
+        notes = np.asarray(self.midi_notes, dtype=np.int64)
+        if self._stacked or n_notes == 1:
+            v = learnable
+            info = np.stack([self.uids, np.full(P, notes[0, 0]), np.full(P, notes[0, 1])], axis=1)
+        else:
+            x = x.view(P * n_notes, 1, *x.shape[2:])
+            v = np.repeat(learnable, n_notes, axis=0)
+            info = np.concatenate([np.repeat(self.uids, n_notes)[:, None], np.tile(notes, (P, 1))],
+                                  axis=1)
         return {"x": x, "v": torch.from_numpy(v.astype(np.float32)).to(self.device),
-                "info": torch.from_numpy(info).to(self.device)}
+                "info": torch.from_numpy(info.astype(np.int32)).to(self.device)}

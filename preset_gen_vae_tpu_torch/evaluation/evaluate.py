@@ -114,11 +114,14 @@ def per_uid_means(table: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
                    eval_config: cfg.EvalConfig, device="cuda", dataset=None,
                    dataset_kwargs: Optional[Dict] = None, render_audio: bool = True,
-                   phase_seconds: Optional[Dict[str, float]] = None) -> Dict[str, np.ndarray]:
+                   phase_seconds: Optional[Dict[str, float]] = None,
+                   latents: Optional[Dict[str, np.ndarray]] = None) -> Dict[str, np.ndarray]:
     """(reference: eval.py:65-243) Returns the per-UID means as numpy
     columns. ``phase_seconds``, if given, receives the wall seconds of each
-    phase: ``dataset`` (corpus pass and model restore), ``inference``,
-    ``render``, ``similarity`` and ``artifacts``."""
+    phase: ``dataset`` (corpus pass), ``model`` (build and restore),
+    ``inference``, ``render``, ``similarity`` and ``artifacts``; ``latents`` receives the
+    ``z0`` and ``zK`` rows (N, dim_z) of the evaluated items, in the
+    order of the per-item table."""
     dev = resolve_device(device)
     if eval_config.audio_render_backend != "cpp":
         raise NotImplementedError(
@@ -138,10 +141,11 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
     model_c, train_c, dataset = prepare_dataset(model_c, train_c, dev, dataset, dataset_kwargs)
     helper = dataset.preset_indexes_helper
     loader = get_split_loaders(dataset, train_c)[eval_config.dataset]
+    lap("dataset")
     model = build_extended_ae_model(model_c, train_c, helper).to(dev)
     model.load_state_dict(load_checkpoint(model_c, eval_config.epoch)["state"]["model"])
     model.eval()
-    lap("dataset")
+    lap("model")
 
     # ---- batched inference and per-item parameter metrics (eval.py:135-176)
     dynamic_idx = dx.midi_key_related_param_indexes()
@@ -175,6 +179,8 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
         lat[name] = LatentMetric(model_c.dim_z)
         lat[name].append(cols[name], cols[name])
     table = {k: cols[k] for k in KEYS + PARAM_METRICS}
+    if latents is not None:
+        latents.update(z0=cols["z0"], zK=cols["zK"])
     lap("inference")
 
     if render_audio:  # ---- re-render and score the audio (eval.py:211-323)

@@ -4,7 +4,8 @@ Counterpart: ``preset_gen_vae_tpu/losses/synth_params.py:31-305``
 (reference: model/loss.py:73-315): ``SynthParamsLoss``,
 ``QuantizedNumericalParamsLoss`` and ``CategoricalParamsAccuracy``, each
 with its per-item form and its limited parameter subset for the eval pass.
-``FlowParamsLoss`` waits for a later slice. The index tables
+``FlowParamsLoss`` needs the model's flows and lives in the train step
+(``training/train_step.py``), as in the JAX package. The index tables
 of ``PresetIndexesHelper`` are numpy; each criterion moves them to the
 device of its inputs once and keeps them there.
 """

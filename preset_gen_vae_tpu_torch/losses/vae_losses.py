@@ -30,3 +30,8 @@ def flow_vae_latent_loss(z0_mu_logvar, z0, zK, log_abs_det_jac, normalize: bool)
     log_q_z0 = gaussian_log_probability(z0, z0_mu_logvar[:, 0, :], z0_mu_logvar[:, 1, :])
     loss = -torch.mean(standard_gaussian_log_probability(zK) - log_q_z0 + log_abs_det_jac)
     return loss / z0.shape[1] if normalize else loss
+
+
+def latent_dkl_loss(z0_mu_logvar, normalize: bool) -> torch.Tensor:
+    """BasicVAE latent loss (vae_losses.py:54-58; reference: VAE.py:63-66)."""
+    return gaussian_dkl(z0_mu_logvar[:, 0, :], z0_mu_logvar[:, 1, :], normalize)

@@ -6,7 +6,10 @@ model/decoder.py:9-274). ``decoder_tconv_specs`` is copied from
 decoder.py:49-133; the per-layer output paddings land the speccnn8l1
 family exactly on 257x347. The FC output is reshaped in flax's NHWC order
 (decoder.py:190) and then moved to NCHW, so the ``mlp`` kernel transplants
-unchanged. Output is ``(B, 1, H, W)``; single-channel only in this slice.
+unchanged. Output is ``(B, C, H, W)``: ``unmix1`` gives C x 512 (1800
+when ``force_bigger_network``) channels and the shared ``single_ch_cnn``
+runs once per channel split (decoder.py:195-208), each call with its own
+train-mode batch statistics, as the encoder does.
 """
 
 from __future__ import annotations
@@ -148,7 +151,7 @@ class DecoderCNN(nn.Module):
 
 
 class SpectrogramDecoder(nn.Module):
-    """z -> (B, 1, 257, 347) spectrograms (counterpart: decoder.py:165-208)."""
+    """z -> (B, C, 257, 347) spectrograms (counterpart: decoder.py:165-208)."""
 
     def __init__(self, architecture: str, dim_z: int, output_size=(257, 347),
                  spectrogram_channels: int = 1, fc_dropout: float = 0.3,
@@ -159,17 +162,19 @@ class SpectrogramDecoder(nn.Module):
                 "Full decoder supports the speccnn8l1 family only (reference: decoder.py:35-37)")
         if tuple(output_size) != (257, 347):
             raise ValueError("speccnn8l1 decoders target 257x347")
-        if spectrogram_channels != 1:
-            raise NotImplementedError("stacked multi-note spectrograms are not ported yet")
-        self.fc_dropout = fc_dropout
+        self.fc_dropout, self.channels = fc_dropout, spectrogram_channels
         self.cnn_in = (3, 3) if architecture == "speccnn8l1_3" else (3, 4)
-        last_4x4_ch = 1800 if force_bigger_network else 512
+        self.last_4x4_ch = 1800 if force_bigger_network else 512
         self.mlp = nn.Linear(dim_z, 2048 * self.cnn_in[0] * self.cnn_in[1])
-        self.unmix1 = TConv2DBlock(2048, last_4x4_ch, (1, 1))  # decoder.py:72-75
+        self.unmix1 = TConv2DBlock(2048, spectrogram_channels * self.last_4x4_ch,
+                                   (1, 1))  # decoder.py:72-75
         self.single_ch_cnn = DecoderCNN(
-            decoder_tconv_specs(architecture, force_bigger_network), last_4x4_ch)
+            decoder_tconv_specs(architecture, force_bigger_network), self.last_4x4_ch)
 
     def forward(self, z, generator: Optional[torch.Generator] = None):
         h = dropout(f32_linear(self.mlp, z), self.fc_dropout, self.training, generator)
         h = h.reshape(-1, self.cnn_in[0], self.cnn_in[1], 2048).permute(0, 3, 1, 2)
-        return self.single_ch_cnn(self.unmix1(h))
+        h = self.unmix1(h)
+        n = self.last_4x4_ch
+        outs = [self.single_ch_cnn(h[:, c * n:(c + 1) * n]) for c in range(self.channels)]
+        return outs[0] if self.channels == 1 else torch.cat(outs, dim=1)

@@ -5,8 +5,12 @@ model/encoder.py:8-307). The layer tables (``encoder_conv_specs``) are
 copied whole from encoder.py:44-108. Input ``x`` is ``(B, C, H, W)``, as at
 the JAX package's public function; the port computes in NCHW and flattens
 the deepest features in NHWC order, as flax does (encoder.py:204), so the
-``mlp_out`` kernel transplants unchanged. Only single-channel inputs are
-ported; stacked multi-note spectrograms wait for a later slice.
+``mlp_out`` kernel transplants unchanged. Stacked multi-note inputs
+(C > 1 channels, speccnn8l1_bn only) run the shared ``single_ch_cnn`` once
+per channel, as encoder.py:168-172 does: in train mode each call
+normalises with that channel's own batch statistics and updates the shared
+running statistics in turn, which folding the channels into the batch
+would not. The outputs are concatenated channel-major before the mixers.
 """
 
 from __future__ import annotations
@@ -133,7 +137,7 @@ def _out_hw(specs, hw):
 
 
 class SpectrogramEncoder(nn.Module):
-    """(B, 1, H, W) spectrograms -> (B, 2, dim_z) latent mu and log-variance
+    """(B, C, H, W) spectrograms -> (B, 2, dim_z) latent mu and log-variance
     (counterpart: encoder.py:135-218; reference: model/encoder.py:23-108)."""
 
     def __init__(self, architecture: str, dim_z: int, input_hw=(257, 347),
@@ -141,21 +145,23 @@ class SpectrogramEncoder(nn.Module):
                  output_bn: bool = False, deepest_features_mix: bool = True,
                  force_bigger_network: bool = False):
         super().__init__()
-        if spectrogram_channels != 1:
-            raise NotImplementedError("stacked multi-note spectrograms are not ported yet")
         if not ("speccnn8l1" in architecture or "wavenet" in architecture):
             raise NotImplementedError(f"Architecture '{architecture}' is not ported yet")
-        self.dim_z, self.fc_dropout = dim_z, fc_dropout
+        if spectrogram_channels > 1 and architecture != "speccnn8l1_bn":
+            raise ValueError(f"multi-channel input requires 'speccnn8l1_bn' (got "
+                             f"'{architecture}'; encoder.py:199-203)")
+        self.dim_z, self.fc_dropout, self.channels = dim_z, fc_dropout, spectrogram_channels
         specs = encoder_conv_specs(architecture)
         mixers = []
         if architecture == "speccnn8l1_bn":
+            multi_ch = spectrogram_channels > 1
             specs = specs[: len(specs) - (1 if deepest_features_mix else 2)]
             if not deepest_features_mix:  # 4x4 mixing conv then 1x1 (encoder.py:59-70)
-                n_4x4 = 1800 if force_bigger_network else 512
+                n_4x4 = 1800 if force_bigger_network else (768 if multi_ch else 512)
                 mixers.append(("mix7", _c(n_4x4, 4, 2, 2)))
-            mixers.append(("mix8", _c(2048, 1, 1, 0, bn=None)))  # encoder.py:46
+            mixers.append(("mix8", _c(1024 if multi_ch else 2048, 1, 1, 0, bn=None)))  # :46
         self.single_ch_cnn = SpectrogramCNN(specs)
-        in_ch = self.single_ch_cnn.out_ch
+        in_ch = self.single_ch_cnn.out_ch * spectrogram_channels
         self.mixers = []
         for name, s in mixers:
             setattr(self, name, Conv2DBlock(in_ch, s.out_ch, s.kernel, s.stride, s.pad,
@@ -170,7 +176,11 @@ class SpectrogramEncoder(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         B = x.shape[0]
-        h = self.single_ch_cnn(x)
+        if self.channels == 1:
+            h = self.single_ch_cnn(x)
+        else:  # the shared CNN once per channel (encoder.py:168-172)
+            h = torch.cat([self.single_ch_cnn(x[:, c:c + 1]) for c in range(self.channels)],
+                          dim=1)
         for name in self.mixers:
             h = getattr(self, name)(h)
         h = h.permute(0, 2, 3, 1).reshape(B, -1)  # flax's NHWC flatten order

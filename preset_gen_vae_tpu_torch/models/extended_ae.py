@@ -21,9 +21,9 @@ class ExtendedAE(nn.Module):
     def forward_full(self, x, sample_info=None, noise: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None):
         """(B, C, H, W) spectrograms -> (z0_mu_logvar, z0, zK,
-        log_abs_det_jac, x_out, v_out). ``sample_info`` (B, 3) is accepted
-        for the JAX package's signature; single-note models do not read it."""
-        z0_mu_logvar, z0, zK, logdet, x_out = self.ae_model(x, noise, generator)
+        log_abs_det_jac, x_out, v_out). ``sample_info`` (B, 3) holds each
+        item's (uid, pitch, velocity); only MIDI-in-z0 models read it."""
+        z0_mu_logvar, z0, zK, logdet, x_out = self.ae_model(x, sample_info, noise, generator)
         v_out = self.reg_model(zK, generator)
         return z0_mu_logvar, z0, zK, logdet, x_out, v_out
 

@@ -1,16 +1,17 @@
-"""Normalizing flows: RealNVP affine coupling, inter-layer BatchNorm flows,
-ReversePermutation, and their composition into the latent and regression
-flows.
+"""Normalizing flows: RealNVP affine coupling, MAF (masked autoregressive),
+inter-layer BatchNorm flows, ReversePermutation, and their composition into
+the latent and regression flows.
 
-Counterpart: ``preset_gen_vae_tpu/models/flows.py:33-195, 287-429``
-(reference rules: model/flows.py:42-90, VAE.py:110-127,
-regression.py:139-164). Every layer exposes ``forward(x, generator) ->
-(y, logdet)`` and ``inverse(y, generator) -> (x, logdet)``, logdet of shape
-(B,). MAF (masked autoregressive) layers wait for a later slice.
+Counterpart: ``preset_gen_vae_tpu/models/flows.py:33-429`` (reference
+rules: model/flows.py:42-90, VAE.py:110-127, regression.py:139-164). Every
+layer exposes ``forward(x, generator) -> (y, logdet)`` and
+``inverse(y, generator) -> (x, logdet)``, logdet of shape (B,). A MAF
+layer's forward is one MADE pass; its inverse is the D-step sequential
+recursion (D MADE passes), always with the MADE net in eval mode.
 
 The conditioner MLPs run in the autocast dtype (bf16 on the card, as the
-JAX package's ``dtype`` field); the coupling scale, shift and logdet are
-computed in float32.
+JAX package's ``dtype`` field); the scale, shift and logdet are computed in
+float32 (float64 for float64 inputs).
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, dropout
+from .layers import BatchNorm, dropout, widen
 
 
 def checkerboard_mask(features: int, even_transformed: bool) -> np.ndarray:
@@ -92,7 +94,7 @@ class AffineCouplingLayer(nn.Module):
                                        hidden_features, num_blocks, dropout_p, bn_within)
 
     def _params(self, x_id, generator):
-        raw = self.conditioner(x_id, generator).float()
+        raw = widen(self.conditioner(x_id, generator))
         raw_s, t = raw.chunk(2, dim=-1)
         return torch.sigmoid(raw_s + 2.0) + 1e-3, t
 
@@ -154,6 +156,84 @@ class ReversePermutation(nn.Module):
         return y.flip(1), y.new_zeros(y.shape[0])
 
 
+def made_masks(features: int, hidden: int, n_hidden_layers: int):
+    """MADE degree masks, (in, out) each, strictly autoregressive output with
+    respect to the input order; the last one covers the two output blocks
+    (shift, raw scale). Copy of flows.py:197-212."""
+    degrees_in = np.arange(1, features + 1)
+    masks = []
+    prev = degrees_in
+    for _ in range(n_hidden_layers):
+        deg_h = (np.arange(hidden) % max(features - 1, 1)) + 1
+        masks.append((deg_h[None, :] >= prev[:, None]).astype(np.float32))
+        prev = deg_h
+    out_mask = (degrees_in[None, :] > prev[:, None]).astype(np.float32)
+    masks.append(np.concatenate([out_mask, out_mask], axis=1))
+    return masks
+
+
+class MaskedDense(nn.Linear):
+    """Dense layer whose full kernel is the parameter, multiplied by a fixed
+    0/1 mask at use, as flax's MaskedDense does (flows.py:214-224), so the
+    kernel carries across unchanged. ``mask`` is (in, out)."""
+
+    def __init__(self, mask: np.ndarray):
+        super().__init__(mask.shape[0], mask.shape[1])
+        self.register_buffer("mask", torch.from_numpy(np.ascontiguousarray(mask.T)),
+                             persistent=False)
+
+    def forward(self, x):
+        return F.linear(x, self.weight * self.mask, self.bias)
+
+
+class MaskedAffineAutoregressive(nn.Module):
+    """MAF layer (flows.py:227-284): y_d = x_d * s_d(x_<d) + t_d(x_<d), with
+    scale = softplus(raw + c0) + 1e-3, c0 = softplus^-1(1). Submodules carry
+    the flax names ``layers`` (MaskedDense) and ``bns`` (BatchNorm)."""
+
+    SOFTPLUS_C0 = 0.5413248546129181  # softplus(c0) == 1
+
+    def __init__(self, features: int, hidden_features: int, n_hidden_layers: int = 2,
+                 dropout_p: float = 0.0, use_batch_norm: bool = False):
+        super().__init__()
+        self.features, self.dropout_p, self.use_bn = features, dropout_p, use_batch_norm
+        masks = made_masks(features, hidden_features, n_hidden_layers)
+        self.layers = nn.ModuleList([MaskedDense(m) for m in masks])
+        if use_batch_norm:
+            self.bns = nn.ModuleList([BatchNorm(hidden_features)
+                                      for _ in range(n_hidden_layers)])
+
+    def _params(self, x, generator):
+        h = x
+        for i, layer in enumerate(self.layers[:-1]):
+            h = layer(h)
+            if self.use_bn:
+                h = self.bns[i](h)
+            h = dropout(torch.relu(h), self.dropout_p, self.training, generator)
+        t, raw_s = widen(self.layers[-1](h)).chunk(2, dim=-1)
+        return F.softplus(raw_s + self.SOFTPLUS_C0) + 1e-3, t
+
+    def forward(self, x, generator=None):
+        s, t = self._params(x, generator)
+        return x * s + t, torch.log(s).sum(-1)
+
+    def inverse(self, y, generator=None):
+        """D passes: after pass d the first d outputs are exact. The MADE net
+        runs in eval mode (no dropout, running BN statistics), whatever the
+        module's mode (flows.py:274-281)."""
+        mode = self.training
+        self.train(False)
+        try:
+            x = torch.zeros_like(y)
+            for _ in range(self.features):
+                s, t = self._params(x, generator)
+                x = (y - t) / s
+            s, _ = self._params(x, generator)
+        finally:
+            self.train(mode)
+        return x, -torch.log(s).sum(-1)
+
+
 class FlowSequence(nn.Module):
     """Composition with summed log|det J| (flows.py:287-308)."""
 
@@ -176,28 +256,38 @@ class FlowSequence(nn.Module):
         return y, logdet
 
 
-def _realnvp(features: int, flow_arch: str, bn_between: bool, dropout_p: float):
+def _build_flow(features: int, flow_arch: str, bn_between: bool, dropout_p: float,
+                maf_dropout_p: float):
+    """RealNVP with BN inside the conditioners, BN between layers when
+    ``bn_between`` and dropout, both off on the last two layers; or MAF as
+    (ReversePermutation, MaskedAffineAutoregressive) pairs."""
     flow_type, n_layers, hidden = parse_flow_arch(flow_arch)
-    if flow_type not in ("realnvp", "rnvp"):
-        raise NotImplementedError(f"flow '{flow_type}' is not ported yet (RealNVP only)")
     layers = []
-    for l in range(n_layers):
-        not_last_two = l < n_layers - 2
-        layers.append(AffineCouplingLayer(
-            features, hidden, checkerboard_mask(features, l % 2 == 0), num_blocks=2,
-            dropout_p=dropout_p if not_last_two else 0.0, bn_within=True))
-        if bn_between and not_last_two:
-            layers.append(BatchNormFlow(features))
+    if flow_type == "maf":
+        for _ in range(n_layers):
+            layers.append(ReversePermutation())
+            layers.append(MaskedAffineAutoregressive(features, hidden, dropout_p=maf_dropout_p))
+    elif flow_type in ("realnvp", "rnvp"):
+        for l in range(n_layers):
+            not_last_two = l < n_layers - 2
+            layers.append(AffineCouplingLayer(
+                features, hidden, checkerboard_mask(features, l % 2 == 0), num_blocks=2,
+                dropout_p=dropout_p if not_last_two else 0.0, bn_within=True))
+            if bn_between and not_last_two:
+                layers.append(BatchNormFlow(features))
+    else:
+        raise NotImplementedError(f"Unavailable flow '{flow_type}'")
     return FlowSequence(layers)
 
 
 class LatentFlow(nn.Module):
-    """VAE latent flow z0 -> zK: RealNVP with BN inside the conditioners,
-    none between layers, no dropout (flows.py:326-373)."""
+    """VAE latent flow z0 -> zK (flows.py:326-373): RealNVP with BN inside
+    the conditioners, none between layers, no dropout; or MAF."""
 
     def __init__(self, flow_arch: str, features: int):
         super().__init__()
-        self.flow = _realnvp(features, flow_arch, bn_between=False, dropout_p=0.0)
+        self.flow = _build_flow(features, flow_arch, bn_between=False, dropout_p=0.0,
+                                maf_dropout_p=0.0)
 
     def forward(self, x, generator=None):
         return self.flow.forward(x, generator)
@@ -207,13 +297,14 @@ class LatentFlow(nn.Module):
 
 
 class RegressionFlow(nn.Module):
-    """Synth-parameter regression flow: RealNVP with BN between layers and
-    inside the conditioners, and dropout, all off on the last two layers
-    (flows.py:376-429)."""
+    """Synth-parameter regression flow (flows.py:376-429): RealNVP with BN
+    between layers and inside the conditioners, and dropout, all off on the
+    last two layers; or MAF with dropout 0.5 (reference: regression.py:158)."""
 
     def __init__(self, flow_arch: str, features: int, dropout_p: float = 0.0):
         super().__init__()
-        self.flow = _realnvp(features, flow_arch, bn_between=True, dropout_p=dropout_p)
+        self.flow = _build_flow(features, flow_arch, bn_between=True, dropout_p=dropout_p,
+                                maf_dropout_p=0.5)
 
     def forward(self, x, generator=None):
         return self.flow.forward(x, generator)

@@ -53,6 +53,11 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     return x * keep / (1.0 - p)
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """bf16/f16 (autocast outputs) -> float32; float32 and float64 stay."""
+    return x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+
+
 def f32_linear(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """A Dense that the JAX package leaves in float32 (no ``dtype``), kept in
     float32 under bf16 autocast."""
@@ -77,8 +82,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype in (torch.float16, torch.bfloat16):
-            x = x.float()
+        x = widen(x)
         if self.training:
             with torch.no_grad():
                 dims = [0] + list(range(2, x.dim()))
@@ -145,8 +149,9 @@ def _truncated_normal(shape, std: float, generator: torch.Generator) -> torch.Te
     """Normal(0, std) cut at +-2 std by the inverse CDF of a uniform draw, as
     ``jax.random.truncated_normal`` does (one pass, no rejection loop)."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = torch.rand(shape, generator=generator, dtype=torch.float64) * (1.0 - 2.0 * lo) + lo
-    return (torch.erfinv(2.0 * u - 1.0) * (math.sqrt(2.0) * std)).float()
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)  # in place: one buffer
+    u.mul_(1.0 - 2.0 * lo).add_(lo).mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0) * std)
+    return u.float()
 
 
 @torch.no_grad()

@@ -1,9 +1,8 @@
-"""Flow regression head z_K -> learnable preset v, and the per-parameter
-output activation.
+"""Regression heads z_K -> learnable preset v (an MLP, or an invertible
+flow) and the per-parameter output activation.
 
-Counterpart: ``preset_gen_vae_tpu/models/regression.py:21-60, 96-134``
-(reference: model/regression.py:20-53, 105-189). The MLP head waits for a
-later slice.
+Counterpart: ``preset_gen_vae_tpu/models/regression.py:21-134``
+(reference: model/regression.py:20-189).
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from torch import nn
 
 from ..data.preset import PresetIndexesHelper
 from .flows import RegressionFlow
+from .layers import BatchNorm, dropout
 
 
 def segment_softmax_scatter(x: torch.Tensor, idx_matrix: np.ndarray, mask: np.ndarray,
@@ -48,6 +48,40 @@ def preset_activation(x: torch.Tensor, idx_helper: PresetIndexesHelper, cat_soft
         x = x.index_copy(1, idx, torch.clamp(x[:, idx], 0.0, numerical_max))
     return segment_softmax_scatter(x, idx_helper.cat_group_idx_matrix,
                                    idx_helper.cat_group_mask)
+
+
+class MLPRegression(nn.Module):
+    """'3l1024'-style MLP (regression.py:62-93): Dense layers ``fc1..fc{n}``
+    with ReLU, BatchNorm ``bn{l}`` and dropout on every hidden layer but the
+    last, a final Dense ``fc{n+1}`` to the learnable preset size, then the
+    preset activation in float32."""
+
+    def __init__(self, architecture: str, dim_z: int, idx_helper: PresetIndexesHelper,
+                 dropout_p: float = 0.0, cat_softmax_activation: bool = False):
+        super().__init__()
+        arch = architecture.split("_")
+        if len(arch) != 1:
+            raise NotImplementedError("Arch suffix arguments not implemented yet")
+        self.n_layers, n_neurons = (int(v) for v in arch[0].split("l"))
+        self.idx_helper, self.dropout_p = idx_helper, dropout_p
+        self.cat_softmax_activation = cat_softmax_activation
+        n_in = dim_z
+        for l in range(1, self.n_layers + 1):
+            setattr(self, f"fc{l}", nn.Linear(n_in, n_neurons))
+            if l < self.n_layers:
+                setattr(self, f"bn{l}", BatchNorm(n_neurons))
+            n_in = n_neurons
+        setattr(self, f"fc{self.n_layers + 1}", nn.Linear(n_in, idx_helper.learnable_preset_size))
+
+    def forward(self, z_K, generator: Optional[torch.Generator] = None):
+        h = z_K
+        for l in range(1, self.n_layers + 1):
+            h = getattr(self, f"fc{l}")(h)
+            if l < self.n_layers:  # no BN/dropout on the last hidden layer
+                h = dropout(getattr(self, f"bn{l}")(h), self.dropout_p, self.training, generator)
+            h = torch.relu(h)
+        h = getattr(self, f"fc{self.n_layers + 1}")(h)
+        return preset_activation(h.float(), self.idx_helper, self.cat_softmax_activation)
 
 
 class FlowRegression(nn.Module):

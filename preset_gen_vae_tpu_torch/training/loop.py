@@ -47,9 +47,8 @@ from ..models.build import build_extended_ae_model
 from ..utils.exception import check_nan_values
 from ..utils.hparams import LinearDynamicParam
 from .schedulers import ReduceLROnPlateau
-from .train_step import SCALARS, Criteria, eval_step, make_optimizer, train_step
+from .train_step import Criteria, eval_step, make_optimizer, train_step
 
-TRAIN_KEYS = SCALARS + ("TotalLoss",)
 # the losses whose NaN/inf stops a run (loop.py:524-528 there)
 NAN_CHECKED = ("ReconsLoss/Backprop", "LatLoss", "FlowInputReg", "Controls/BackpropLoss")
 # hparams metrics of TensorBoard: buffered validation scalars (loop.py:447-454)
@@ -110,10 +109,9 @@ def prepare_dataset(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dev: tor
                       **(dataset_kwargs or {}))
         dataset = DexedDataset(**kwargs)
     model_c, train_c = cfg.resolve_with_dataset(model_c, train_c, dataset)
-    size = dataset.get_spectrogram_tensor_size()
+    size = dataset.get_spectrogram_tensor_size()  # (C, H, W), C = stacked notes
     model_c = dataclasses.replace(
-        model_c, input_tensor_size=(train_c.minibatch_size, 1, *size[1:]),
-        spectrogram_size=size[1:])
+        model_c, input_tensor_size=(train_c.minibatch_size, *size), spectrogram_size=size[1:])
     return model_c, train_c, dataset
 
 
@@ -147,7 +145,10 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
     logger = RunLogger(model_c, train_c, restart_from_checkpoint=start_checkpoint is not None,
                        use_tensorboard=use_tensorboard)
 
+    t_build = time.perf_counter()
     model = build_extended_ae_model(model_c, train_c, helper, seed=train_c.seed).to(dev)
+    _sync(dev)
+    build_s = time.perf_counter() - t_build
     if train_c.verbosity >= 1:
         logger.init_with_model(model)
     optimizer = make_optimizer(model, train_c)
@@ -165,7 +166,7 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
     start_step = step
 
     scalars: Dict[str, object] = {f"{k}/{split}": EpochMetric()
-                                  for k in SCALARS for split in ("Train", "Valid")}
+                                  for k in criteria.scalars for split in ("Train", "Valid")}
     scalars["TotalLoss/Train"] = EpochMetric()
     scalars["LatCorr/Valid"] = LatentMetric(model_c.dim_z)
     scalars["Sched/LR"] = SimpleMetric(train_c.initial_learning_rate)
@@ -175,7 +176,8 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         logger.tensorboard.init_hparams_and_metrics(metrics)
 
     train_loader, valid_loader = loaders["train"], loaders["validation"]
-    nan_cols = [TRAIN_KEYS.index(k) for k in NAN_CHECKED]
+    train_keys = criteria.scalars + ("TotalLoss",)
+    nan_cols = [train_keys.index(k) for k in NAN_CHECKED]
     first_step_s, steady_s, steady_steps, start_lr = None, 0.0, 0, None
     early_stop = False
     for epoch in range(train_c.start_epoch, train_c.n_epochs):
@@ -203,12 +205,12 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
                 first_step_s, t0 = time.perf_counter() - t0, time.perf_counter()
             logger.on_minibatch_finished(i)
         # the epoch's one host fetch of the train scalars (loop.py:572-582)
-        train_rows = torch.stack([torch.stack([m[k] for k in TRAIN_KEYS]) for m in rows])
+        train_rows = torch.stack([torch.stack([m[k] for k in train_keys]) for m in rows])
         train_rows = train_rows.cpu().numpy()
         steady_s += time.perf_counter() - t0
         steady_steps += len(rows) - 1 if epoch == train_c.start_epoch else len(rows)
         check_nan_values(epoch, *train_rows[:, nan_cols].ravel())
-        for j, k in enumerate(TRAIN_KEYS):
+        for j, k in enumerate(train_keys):
             for value in train_rows[:, j]:
                 scalars[f"{k}/Train"].append(value)
 
@@ -217,7 +219,7 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         for i, sel in enumerate(valid_loader.epoch_index_batches(epoch)):
             x, v, info = valid_loader.gather(sel)
             m = eval_step(model, criteria, train_c, x, v, info)
-            val_rows.append(torch.stack([m[k] for k in SCALARS]))
+            val_rows.append(torch.stack([m[k] for k in criteria.scalars]))
             n_real = min(valid_loader.batch_size, valid_loader.n_items - i * valid_loader.batch_size)
             latents.append(torch.stack([m["z0_mu"][:n_real], m["z0"][:n_real]]))
         if not val_rows:
@@ -225,7 +227,7 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         val_rows = torch.stack(val_rows).cpu().numpy()
         latents = torch.cat(latents, dim=1).cpu().numpy()
         for i, row in enumerate(val_rows):
-            for k, value in zip(SCALARS, row):
+            for k, value in zip(criteria.scalars, row):
                 scalars[f"{k}/Valid"].append(value, weight=valid_loader.batch_weight(i))
         scalars["LatCorr/Valid"].append(latents[0], latents[1])
         for split in ("Train", "Valid"):
@@ -272,6 +274,7 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         "corpus_presets": dataset.valid_presets_count,
         "corpus_seconds": dataset.corpus_seconds,
         "corpus_render_seconds": dataset.render_seconds,
+        "model_build_seconds": build_s,
         "first_step_ms": first_step_s * 1e3,
         "step_ms": step_s * 1e3,
         "spectrograms_per_s": train_c.minibatch_size / step_s,

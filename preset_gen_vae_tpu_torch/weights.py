@@ -1,11 +1,13 @@
 """The JAX package's flax variables dict -> the port's ``state_dict``.
 
 The port's modules carry the flax module names, so a torch module path is
-the flax path with ``layers.N`` read as ``layers_N``. Each leaf changes
+the flax path with the module lists ``layers.N`` and ``bns.N`` (a MAF
+layer's BatchNorms) read as ``layers_N`` and ``bns_N``. Each leaf changes
 layout by the rules of ``tests/_torch_twin.py:41-86`` (copied here, not
 imported):
 
 - Dense kernel (in, out) -> Linear weight (out, in)            ``dense_T``
+  (MaskedDense too: its full, unmasked kernel is the parameter)
 - Conv kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw)
                                                                 ``conv_OIHW``
 - TorchConvTranspose2d kernel (kh, kw, in, out) -> ConvTranspose2d weight
@@ -24,12 +26,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.flows import BatchNormFlow
+from .models.flows import BatchNormFlow, MaskedDense
 from .models.layers import BatchNorm
 
 # torch attribute -> (flax collection, flax leaf, layout transform)
 _LEAVES = {
     nn.Linear: {"weight": ("params", "kernel", "dense_T"), "bias": ("params", "bias", None)},
+    MaskedDense: {"weight": ("params", "kernel", "dense_T"), "bias": ("params", "bias", None)},
     nn.Conv2d: {"weight": ("params", "kernel", "conv_OIHW"), "bias": ("params", "bias", None)},
     nn.ConvTranspose2d: {"weight": ("params", "kernel", "tconv_IOHW"),
                          "bias": ("params", "bias", None)},
@@ -54,14 +57,17 @@ def to_torch_layout(leaf: np.ndarray, transform) -> np.ndarray:
     return a
 
 
+_MODULE_LISTS = ("layers", "bns")
+
+
 def flax_path(module_name: str) -> Tuple[str, ...]:
-    """'ae_model.flow.flow.layers.0.conditioner' ->
-    ('ae_model', 'flow', 'flow', 'layers_0', 'conditioner')."""
+    """'ae_model.flow.flow.layers.1.bns.0' ->
+    ('ae_model', 'flow', 'flow', 'layers_1', 'bns_0')."""
     out, parts = [], module_name.split(".") if module_name else []
     i = 0
     while i < len(parts):
-        if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
-            out.append(f"layers_{parts[i + 1]}")
+        if parts[i] in _MODULE_LISTS and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"{parts[i]}_{parts[i + 1]}")
             i += 2
         else:
             out.append(parts[i])

@@ -1,7 +1,9 @@
-"""Device-time breakdown of the PyTorch port's flagship train step on one GPU.
+"""Device-time breakdown of the PyTorch port's train step on one GPU.
 
 Builds the flagship FlVAE2 (257x347 inputs, dim_z 610, batch 160, bf16
-autocast) with random weights and inputs from ``--seed``, warms up, then
+autocast), or with ``--run NAME`` the configuration of the saved run
+``saved/FlVAE2/NAME`` (its notes, heads, flows and losses), with random
+weights and inputs from ``--seed``, warms up, then
 traces five train steps and one eval step with ``torch.profiler``
 and prints: the card's name and power limit, the mean step time (host
 clock around synchronised steps), the device-busy share of the traced
@@ -9,7 +11,7 @@ window, the kernels ranked by device time, and the calls in one train step
 that make the host wait for the card (``torch.cuda.set_sync_debug_mode``),
 by source line. Run from the repository root:
 
-    python3 scripts/profile_torch_step.py
+    python3 scripts/profile_torch_step.py [--run r5stack3_v2_20480]
 """
 
 from __future__ import annotations
@@ -37,11 +39,13 @@ from preset_gen_vae_tpu_torch.models.build import build_extended_ae_model  # noq
 from preset_gen_vae_tpu_torch.training import train_step as ts  # noqa: E402
 
 BATCH, STEPS, TOP = 160, 5, 25  # flagship batch, traced steps, kernels listed
+SAVED_RUNS = pathlib.Path(__file__).resolve().parents[1] / "saved" / "FlVAE2"
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--run", default=None, help="saved run whose configuration to profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device available", file=sys.stderr)
@@ -51,17 +55,26 @@ def main() -> int:
     dev = torch.device("cuda")
     helper = PresetIndexesHelper(build_dexed_preset_spec())
     L, B = helper.learnable_preset_size, BATCH
-    mc, tc = cfg.resolve(cfg.ModelConfig(), cfg.TrainConfig(minibatch_size=B))
+    mc, tc = (cfg.load_config(SAVED_RUNS / args.run / "config.json") if args.run
+              else (cfg.ModelConfig(), cfg.TrainConfig()))
+    mc, tc = cfg.resolve(mc, dataclasses.replace(tc, minibatch_size=B))
+    C = mc.input_tensor_size[1]
+    dim_z = L if mc.params_regression_architecture.startswith("flow_") else mc.dim_z
     mc = dataclasses.replace(mc, synth_params_count=L, learnable_params_tensor_length=L,
-                             dim_z=L, input_tensor_size=(B, 1, 257, 347))
+                             dim_z=dim_z, input_tensor_size=(B, C, 257, 347))
+    print(f"{args.run or 'flagship'}: input {list(mc.input_tensor_size)}, dim_z {dim_z}, "
+          f"{mc.params_regression_architecture}, latent flow {mc.latent_flow_arch}, "
+          f"forward_controls_loss {mc.forward_controls_loss}")
     model = build_extended_ae_model(mc, tc, helper, seed=args.seed).to(dev)
     opt, crit = ts.make_optimizer(model, tc), ts.Criteria(mc, tc, helper)
     rng = np.random.default_rng(args.seed)
-    x = torch.from_numpy(rng.uniform(-1, 1, (B, 1, 257, 347)).astype(np.float32)).to(
+    x = torch.from_numpy(rng.uniform(-1, 1, (B, C, 257, 347)).astype(np.float32)).to(
         dev, torch.bfloat16)
     v = torch.from_numpy(helper.full_to_learnable_batch(
         rng.random((B, helper.full_preset_size)).astype(np.float32))).to(dev)
-    info = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    notes = mc.midi_notes
+    info = torch.tensor([[0, *notes[i % len(notes)]] for i in range(B)], dtype=torch.int32,
+                        device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     def step():

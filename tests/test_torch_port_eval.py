@@ -173,7 +173,7 @@ def test_evaluate_writes_the_jax_artifacts(evaluated):
             assert np.load(f"{run_dir}/eval_validation_{name}_spearman_{kind}.npy").shape == \
                 (250, 250)
     assert np.isfinite(df[["spec_mae", "mfcc13_mae", "mfcc40_mae"]].to_numpy()).all()
-    assert set(evaluated["phases"]) == {"dataset", "inference", "render", "similarity",
+    assert set(evaluated["phases"]) == {"dataset", "model", "inference", "render", "similarity",
                                         "artifacts"}
 
 

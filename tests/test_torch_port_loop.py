@@ -35,6 +35,7 @@ from preset_gen_vae_tpu_torch.data.dexed_dataset import DexedDataset
 from preset_gen_vae_tpu_torch.logs.logger import list_checkpoint_epochs, load_checkpoint
 from preset_gen_vae_tpu_torch.training import loop
 from preset_gen_vae_tpu_torch.training import queue as q
+from preset_gen_vae_tpu_torch.training.train_step import SCALARS
 from preset_gen_vae_tpu_torch.utils.exception import ModelConvergenceError
 
 SCHEDULE = dict(lr_warmup_epochs=3, lr_warmup_start_factor=0.1, beta_warmup_epochs=5,
@@ -216,7 +217,7 @@ def test_early_stop_stops_and_saves(dataset, tmp_path):
 
 def test_nan_loss_raises(dataset, tmp_path, monkeypatch):
     def nan_step(*args, **kwargs):
-        return {k: torch.tensor(float("nan")) for k in loop.TRAIN_KEYS}
+        return {k: torch.tensor(float("nan")) for k in SCALARS + ("TotalLoss",)}
 
     monkeypatch.setattr(loop, "train_step", nan_step)
     with pytest.raises(ModelConvergenceError, match="epoch 0"):

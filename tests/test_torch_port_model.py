@@ -53,20 +53,27 @@ def _perturb(model, seed=7):
     return model
 
 
-def flagship_pair(train_kwargs=None, model_kwargs=None):
+def flagship_pair(train_kwargs=None, model_kwargs=None, adjust=None):
     """(port model loaded from the flax dict, JAX ExtendedAE, flax variables
     as jax arrays, port configs, JAX configs, helper, x, v, info).
-    ``model_kwargs`` override the flagship ``ModelConfig`` on both sides."""
+    ``model_kwargs`` override the flagship ``ModelConfig`` on both sides;
+    x has the resolved config's channels (stacked notes), info cycles its
+    MIDI notes, and dim_z is the learnable length for a flow head.
+    ``adjust(model)`` edits the port's weights before they are exported."""
     helper = PresetIndexesHelper(build_dexed_preset_spec())
     L = helper.learnable_preset_size
     kw = dict(minibatch_size=B, compute_dtype="float32", **(train_kwargs or {}))
-    fix = dict(synth_params_count=L, learnable_params_tensor_length=L, dim_z=L,
-               input_tensor_size=(B, 1, H, W))
     pm, pt = cfg.resolve(cfg.ModelConfig(**(model_kwargs or {})), cfg.TrainConfig(**kw))
+    C = pm.input_tensor_size[1]
+    fix = dict(synth_params_count=L, learnable_params_tensor_length=L,
+               dim_z=L if pm.params_regression_architecture.startswith("flow_") else pm.dim_z,
+               input_tensor_size=(B, C, H, W))
     pm = dataclasses.replace(pm, **fix)
     jm, jt = jcfg.resolve(jcfg.ModelConfig(**(model_kwargs or {})), jcfg.TrainConfig(**kw))
     jm = dataclasses.replace(jm, **fix)
     source = _perturb(build_extended_ae_model(pm, pt, helper, seed=0))
+    if adjust is not None:
+        adjust(source)
     variables = weights.flax_variables_from_model(source)
     blank = copy.deepcopy(source)
     with torch.no_grad():
@@ -79,9 +86,10 @@ def flagship_pair(train_kwargs=None, model_kwargs=None):
     _, _, _, ext = jbuild.build_extended_ae_model(jm, jt, jhelper)
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
     rng = np.random.default_rng(3)
-    x = (rng.standard_normal((B, 1, H, W)) * 0.3).astype(np.float32)
+    x = (rng.standard_normal((B, C, H, W)) * 0.3).astype(np.float32)
     v = helper.full_to_learnable_batch(rng.random((B, helper.full_preset_size)).astype(np.float32))
-    info = np.tile(np.array([[0, 60, 85]], dtype=np.int32), (B, 1))
+    notes = pm.midi_notes
+    info = np.array([[0, *notes[i % len(notes)]] for i in range(B)], dtype=np.int32)
     return port, ext, jvars, (pm, pt), (jm, jt), helper, jhelper, x, v, info
 
 

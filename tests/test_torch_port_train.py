@@ -35,6 +35,7 @@ import torch
 from preset_gen_vae_tpu.models.flows import LatentFlow as JaxLatentFlow
 from preset_gen_vae_tpu.models.flows import RegressionFlow as JaxRegressionFlow
 from preset_gen_vae_tpu.training.train_step import (
+    _flow_controls_loss,
     _latent_loss,
     _recons_loss,
     build_criteria,
@@ -56,25 +57,36 @@ BETA = 0.2
 FLOW_ARCH = "realnvp_3l300"
 
 
-@pytest.fixture(scope="module")
-def stepped():
-    """One train step on both sides from the same weights."""
+def step_both(train_kwargs, model_kwargs, adjust=None):
+    """One train step on both sides from the same weights. The JAX side is
+    its ``loss_fn`` (train_step.py:262-320): recons + beta * latent +
+    controls, the controls term SynthParamsLoss or the FlowParamsLoss
+    pullback of ``_flow_controls_loss`` in the configured BN mode, with the
+    batch statistics chained as there."""
     port, ext, jvars, (pm, pt), (jm, jt), helper, jhelper, x, v, info = flagship_pair(
-        dict(fc_dropout=0.0, reg_fc_dropout=0.0),
-        dict(latent_flow_arch=FLOW_ARCH, params_regression_architecture=f"flow_{FLOW_ARCH}"))
+        dict(fc_dropout=0.0, reg_fc_dropout=0.0, **train_kwargs), model_kwargs, adjust)
     crit = build_criteria(jm, jt, jhelper)
 
     def loss_fn(params):
-        outs, mut = ext.apply({"params": params, "batch_stats": jvars["batch_stats"]},
-                              jnp.asarray(x), jnp.asarray(info), train=True,
+        variables = {"params": params, "batch_stats": jvars["batch_stats"]}
+        outs, mut = ext.apply(variables, jnp.asarray(x), jnp.asarray(info), train=True,
                               method=ext.forward_full,
                               rngs={"sampling": jax.random.PRNGKey(11),
                                     "dropout": jax.random.PRNGKey(12)},
                               mutable=["batch_stats"])
+        bs = mut["batch_stats"]
         recons = _recons_loss(outs[4], jnp.asarray(x), jt.normalize_losses)
         lat = _latent_loss(jm, jt, *outs[:4])
-        cont = crit["controls"](outs[5], jnp.asarray(v))
-        return recons + BETA * lat + cont, (outs, mut["batch_stats"], recons, lat, cont)
+        if jm.forward_controls_loss:
+            cont = crit["controls"](outs[5], jnp.asarray(v))
+        elif jt.flow_loss_bn_mode == "train":
+            cont, bs = _flow_controls_loss(ext, {"params": params, "batch_stats": bs},
+                                           jnp.asarray(v), outs[0], train_mode=True,
+                                           rng_pair=jax.random.split(jax.random.PRNGKey(13)))
+        else:
+            cont, _ = _flow_controls_loss(ext, variables, jnp.asarray(v), outs[0],
+                                          train_mode=False)
+        return recons + BETA * lat + cont, (outs, bs, recons, lat, cont)
 
     (j_total, (j_outs, j_bs, *j_terms)), j_grads = jax.jit(jax.value_and_grad(
         loss_fn, has_aux=True))(jvars["params"])
@@ -92,16 +104,16 @@ def stepped():
                 flows_before=flows_before, flow_inputs={"ae_model": z0, "reg_model": np.asarray(j_outs[2])})
 
 
-def test_train_step_loss_terms_match_jax(stepped):
-    m, (j_recons, j_lat, j_cont) = stepped["m"], stepped["j_terms"]
+def assert_loss_terms_match(st):
+    m, (j_recons, j_lat, j_cont) = st["m"], st["j_terms"]
     assert float(m["ReconsLoss/Backprop"]) == pytest.approx(j_recons, rel=2e-3)
     assert float(m["LatLoss"]) == pytest.approx(j_lat, rel=2e-3)
     assert float(m["Controls/BackpropLoss"]) == pytest.approx(j_cont, rel=2e-3)
-    assert float(m["TotalLoss"]) == pytest.approx(stepped["j_total"], rel=2e-3)
+    assert float(m["TotalLoss"]) == pytest.approx(st["j_total"], rel=2e-3)
 
 
-def test_train_step_gradients_align_with_jax(stepped):
-    port, j_grads = stepped["port"], stepped["j_grads"]
+def assert_gradients_align(st, min_leaves=100):
+    port, j_grads = st["port"], st["j_grads"]
     cosines, n = [], 0
     for key, coll, path, tf in weights.flax_leaves(port):
         if coll != "params":
@@ -115,23 +127,48 @@ def test_train_step_gradients_align_with_jax(stepped):
         if nt / np.sqrt(tg.size) < 1e-6 and nj / np.sqrt(jg.size) < 1e-6:
             continue
         cosines.append(float(tg @ jg / (nt * nj + 1e-30)))
-    assert n == len(list(port.parameters())) and len(cosines) > 100
+    assert n == len(list(port.parameters())) and len(cosines) > min_leaves
     assert min(cosines) > 0.95, sorted(cosines)[:5]
     assert float(np.median(cosines)) > 0.99
 
 
-def test_batch_stats_after_step_match_jax(stepped):
-    port, j_bs = stepped["port"], stepped["j_bs"]
+def batch_stats_rel_errors(st):
+    """Each running statistic's relative distance (in norm) to the JAX one."""
+    port, j_bs = st["port"], st["j_bs"]
     sd, rel = port.state_dict(), {}
     for key, coll, path, tf in weights.flax_leaves(port):
         if coll == "batch_stats":
             got, want = sd[key].numpy(), np.asarray(weights.lookup(j_bs, path))
             rel[key] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
-    assert len(rel) > 60
+    return rel
+
+
+def assert_batch_stats_match(st, min_stats=60):
+    rel = batch_stats_rel_errors(st)
+    assert len(rel) > min_stats
     assert float(np.median(list(rel.values()))) < 1e-5
     worst = max(rel, key=rel.get)
     assert rel[worst] < 1e-4, (worst, rel[worst])
 
+
+@pytest.fixture(scope="module")
+def stepped():
+    return step_both({}, dict(latent_flow_arch=FLOW_ARCH,
+                              params_regression_architecture=f"flow_{FLOW_ARCH}"))
+
+
+def test_train_step_loss_terms_match_jax(stepped):
+    assert_loss_terms_match(stepped)
+
+
+def test_train_step_gradients_align_with_jax(stepped):
+    assert_gradients_align(stepped)
+
+
+def test_batch_stats_after_step_match_jax(stepped):
+    assert_batch_stats_match(stepped)
+
+    port = stepped["port"]
     # the float64 witness: each flow's train-mode update from the pre-step
     # state on the JAX step's own input, both sides at float64
     jax_flows = {"ae_model": JaxLatentFlow(flow_arch=FLOW_ARCH, features=610,
