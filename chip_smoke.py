@@ -1,25 +1,32 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
 Builds every hand-written kernel of the port from the sources in this
-checkout, holds each against its plain PyTorch version on the card (K1 on
-noise and on rendered DX7 notes, there also against a float64 rFFT
-witness), times it beside its bound, its plain version and one library
-call, then drives the port's main path through its user entry points with
-the flagship FlVAE2 at full width (257x347 log-mels, dim_z 610, batch 160)
-on a seeded synthetic 1,024-preset corpus, in three paths, each with its
-own corpus pass: ``training.loop.train_config`` trains 2 epochs with the
-plateau scheduler and checkpoints; a second call resumes from the
+checkout (K1, ``csrc/logmel.cu``; F1 and F2, ``csrc/fm_render.cu``, built
+at once, each by its own nvcc), holds each against its plain PyTorch
+version on the card (K1 on noise and on rendered DX7 notes, there also
+against a float64 rFFT witness; F1 and F2 on 32 mixed presets over two
+seeds, short renders, and F2 against the C++ engine at the full 4 s),
+times each beside its bound, its plain version and, where there is one, a
+library call, then drives the port's main path through its user entry
+points with the flagship FlVAE2 at full width (257x347 log-mels, dim_z 610,
+batch 160) on a seeded synthetic 1,024-preset corpus, in three paths, each
+with its own corpus pass: ``training.loop.train_config`` trains 2 epochs
+with the plateau scheduler and checkpoints; a second call resumes from the
 checkpoint for a third epoch; ``evaluation.evaluate.evaluate_model_from_dir``
-scores the 164 validation items (inference, DX7 re-render, similarity
-metrics on the card) and writes the artifacts. Then the saved runs'
-other configurations (``saved/FlVAE2/<run>/config.json``, C++ render
-backend), each through the same two entry points at full width: the
-repo's best run, 3 stacked notes (``r5stack3_v2_20480``, train and eval),
-the 6-note un-stacked run with MIDI in z0 (``r5multi6_v2_12288``, train
-and eval), FlowParamsLoss (``r2flowloss_train``), the MLP head
-(``r2mlp400``, train and eval) and BasicVAE with a MAF head. Each path
-prints its wall time, model build time, steady step and peak memory. Runs
-live in a temporary directory that is removed at the end.
+scores the 164 validation items (inference, the on-device re-render through
+F1 and F2, similarity metrics on the card) and writes the artifacts. Then
+the saved runs' other configurations (``saved/FlVAE2/<run>/config.json``),
+each through the same two entry points at full width: the repo's best run,
+3 stacked notes (``r5stack3_v2_20480``, train and eval), the 6-note
+un-stacked run with MIDI in z0 (``r5multi6_v2_12288``, train and eval),
+both on their saved on-device corpus render (F1, F2 and K1, ``'jax'`` /
+``'device'``) and the ``structured2`` corpus they trained on,
+FlowParamsLoss (``r2flowloss_train``), the MLP head (``r2mlp400``, train,
+eval, and eval again with the C++ re-render) and BasicVAE with a MAF head,
+the last three on the C++ corpus render. Each path prints its wall time,
+model build time, steady step, corpus and render seconds, launches of
+every kernel and peak memory. Runs live in a temporary directory that is
+removed at the end.
 
 Run from the repository root with one GPU:
 
@@ -42,6 +49,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -166,20 +174,25 @@ def rendered_notes(n: int) -> np.ndarray:
     return DexedRenderer().render_batch(presets, [60] * n, [85] * n)
 
 
-def build_report(sp) -> str:
-    """ptxas' register, spill and shared-memory lines for K1, and the blocks
-    that fit on one SM for each launch configuration of the main path."""
+def ptxas_report(name: str, command, source) -> str:
+    """ptxas' register, spill and shared-memory lines of a built library."""
     from preset_gen_vae_tpu_torch import _native
 
-    so = _native.build_shared_library("logmel", sp.logmel_build_command(), [sp.LOGMEL_SOURCE])
-    lines = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    so = _native.build_shared_library(name, command, [source])
+    return "\n".join(ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
+                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln)
+
+
+def build_report(sp) -> str:
+    """ptxas' lines for K1, and the blocks that fit on one SM for each
+    launch configuration of the main path."""
     lib = sp._logmel_library()
     occ = {f"{name} blocks/SM": lib.logmel_blocks_per_sm(256, n_mels, n_weights, fast)
            for name, n_mels, n_weights, fast in (("exact mel", 257, 1016, 0),
                                                  ("exact linear", 0, 0, 0),
                                                  ("fast mel", 257, 1016, 1))}
-    return "\n".join(lines) + f"\n{occ}"
+    report = ptxas_report("logmel", sp.logmel_build_command(), sp.LOGMEL_SOURCE)
+    return f"{report}\n{occ}"
 
 
 def phase_kernels():
@@ -190,10 +203,7 @@ def phase_kernels():
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's matmuls in full f32
     rng = np.random.default_rng(0)
-    t0 = time.time()
-    sp._logmel_library()  # builds csrc/logmel.cu with nvcc
-    print(f"[build] logmel kernel built in {time.time() - t0:.1f} s\n{build_report(sp)}",
-          flush=True)
+    print(f"[build] logmel\n{build_report(sp)}", flush=True)
 
     def noise(shape):
         return (rng.standard_normal(shape) * 0.1).astype(np.float32)
@@ -273,26 +283,254 @@ def phase_kernels():
     return entry
 
 
-CORPUS = {"n_synthetic_presets": 1024}  # the main path's synthetic corpus
-
-
-def drive(name: str, fn):
-    """Runs one path of the main path with the launch counts set to 0 just
-    before it and read just after; fails unless K1 launched. -> (result,
-    launches, wall seconds, peak device GiB)."""
+def build_kernels():
+    """Builds K1 and F1/F2 at once, one nvcc each, started together."""
     from preset_gen_vae_tpu_torch.ops import spectrogram as sp
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
 
-    for k in sp.LAUNCHES:
-        sp.LAUNCHES[k] = 0
+    errors = []
+
+    def build(fn):
+        try:
+            fn()
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    t0 = time.time()
+    threads = [threading.Thread(target=build, args=(fn,))
+               for fn in (sp._logmel_library, ft._fm_library)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    print(f"[build] logmel.cu and fm_render.cu built in parallel in {time.time() - t0:.1f} s",
+          flush=True)
+
+
+FM_SHORT = 4096  # samples of the F1/F2 checks against the plain loops
+
+
+def mixed_fm_presets(seed: int, n: int = 16) -> np.ndarray:
+    """``n`` structured2 presets (the saved runs' generator), algorithms
+    16 * seed + 1 .. 16 * seed + 16, feedback 0 and 7 in turn, LFO fast
+    and deep, every other one S&H (wave 5) and the rest waves 0-4, key
+    sync on and off: two seeds cover the 32 algorithms."""
+    from preset_gen_vae_tpu_torch.synth import database as db
+
+    p, _, _ = db.generate_structured_corpus_v2(n, seed=seed)
+    i = np.arange(n)
+    p[:, 4] = (16 * seed + i % 16) / 31.0
+    p[:, 5] = np.where(i % 3 == 0, 0.0, np.where(i % 3 == 1, 1.0, p[:, 5]))
+    p[:, 7] = 0.9 + 0.1 * (i % 2)
+    p[:, 8] = np.where(i % 4 == 0, 0.3, 0.0)
+    p[:, 9], p[:, 10], p[:, 14] = 0.8, 0.5, 1.0
+    p[:, 11] = (i // 2) % 2
+    p[:, 12] = np.where(i % 2 == 0, 1.0, (i % 5) / 5.0)
+    return p.astype(np.float32)
+
+
+def fm_notes(n: int):
+    pitch = np.resize(np.array([60, 48, 72, 40, 55, 67, 84, 60], np.int32), n)
+    vel = np.resize(np.array([85, 100, 64, 127, 42, 85, 110, 1], np.int32), n)
+    return pitch, vel
+
+
+def fm_exact_work(B: int, n_samples: int):
+    """(bytes, flops) that the exact render itself must move and compute,
+    whatever computes it: each item's packed control row (94 f32) read
+    once and its waveform written once; per item and sample the six
+    operators (phase and amplitude step, 4; the modulation sum over the
+    algorithm's edges and the feedback term, ~3; the scaled sine argument,
+    3; the sine, ~20; the amplitude product, 1) and the feedback history,
+    carrier sum, normalisation, clip and fade (~12): 6 x 31 + 12 = 198 f32
+    operations. The control pass adds ~200 a tick, 1/32 of the samples,
+    and is F1's work."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    return 4 * B * (ft.CTL_WIDTH + n_samples), B * n_samples * (6 * 31 + 12)
+
+
+def fm_control_work(B: int, n_ticks: int):
+    """(bytes, flops) of the control pass: the packed rows read once, the
+    (T, B, 6) amplitudes, phase starts and increments and the (T, B) pitch
+    factor written once; per item and tick the LFO (~15 operations), the
+    pitch EG (~10) and six operator EGs with their amplitude, increment and
+    phase wrap (~30 each): ~205."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    return 4 * B * (ft.CTL_WIDTH + n_ticks * 19), B * n_ticks * 205
+
+
+def phase_fm_kernels():
+    """F1 and F2 against their plain versions on 32 mixed presets (two
+    seeds, all 32 algorithms, short renders), F2 against the C++ engine at
+    the full 4 s, then F1, F2 and the plain loops timed at the corpus
+    pass's shapes: (1,024, 88,576), and one note of 20,480 presets."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+    from preset_gen_vae_tpu_torch.synth import database as db
+    from preset_gen_vae_tpu_torch.synth.render import DexedRenderer
+
+    print(f"[build] fm_render\n{ptxas_report('fm_render', ft.fm_build_command(), ft.FM_SOURCE)}",
+          flush=True)
+    sr, total = 22050, FM_SHORT / 22050
+    err_f2, err_f1 = 0.0, 0.0
+    for seed in (0, 1):
+        p = torch.from_numpy(mixed_fm_presets(seed)).cuda()
+        pitch, vel = fm_notes(len(p))
+        d = ft.decode_presets(p)
+        ctl = ft.control_params(d, torch.from_numpy(pitch).cuda(), torch.from_numpy(vel).cuda(), sr)
+        got = ft.fm_control(ctl, FM_SHORT // ft.BLOCK, int(0.1 * sr), sr)
+        want = ft.control_pass(ctl, FM_SHORT // ft.BLOCK, int(0.1 * sr), sr)
+        torch.cuda.synchronize()
+        errs = {k: float((g - w).abs().max()) for k, g, w in zip(
+            ("amps", "pitch_fact", "starts", "incs"), got, want)}
+        bars = {"amps": 1e-5, "pitch_fact": 1e-5, "starts": 1e-4, "incs": 1e-6}
+        if any(errs[k] > bars[k] for k in errs):
+            raise AssertionError(f"F1 against control_pass, seed {seed}: {errs}, bars {bars}")
+        err_f1 = max(err_f1, errs["amps"])
+        # F2 on F1's own outputs against the plain exact loop on the same
+        # inputs: the same f32 operations in the same order, so even a
+        # chaotic feedback-7 item (whose samples part after ~100 steps from
+        # a last-bit difference) must agree
+        amps, _, starts, incs = got
+        alg, fb_amt = d["algorithm"].to(torch.int32), ft.feedback_amount(d)
+        nc = torch.clamp(torch.from_numpy(ft.ALGO_CARRIER).cuda()[alg.long()].sum(-1), min=1.0)
+        out = ft.fm_exact(amps, starts, incs, alg, fb_amt, nc, d["master_volume"], sr)
+        ref = ft.fade_and_volume(ft.exact_pass(ft.sample_phases(starts, incs),
+                                               ft.upsample_amps(amps), alg, fb_amt),
+                                 nc, d["master_volume"], sr)
+        # end to end, F1 and F2 against the plain loops, where F1's last-bit
+        # differences (exp2) reach the audio: held on the items without feedback
+        e2e = ft.render_batch(p, pitch, vel, note_on_s=0.1, total_s=total, sample_rate=sr,
+                              feedback="exact")
+        e2e_ref = ft.plain_render(p, pitch, vel, note_on_s=0.1, total_s=total, sample_rate=sr,
+                                  feedback="exact")
+        torch.cuda.synchronize()
+        per_item = (out - ref).abs().amax(1)
+        no_fb = p[:, 5] == 0
+        e_nofb = float((e2e - e2e_ref).abs()[no_fb].max())
+        e2e_items = [f"{v:.1e}" for v in (e2e - e2e_ref).abs().mean(1).tolist()]
+        err_f2 = max(err_f2, float(per_item.max()))
+        if not torch.isfinite(out).all() or float(per_item.max()) > 1e-4 or e_nofb > 1e-4:
+            raise AssertionError(
+                f"F2, seed {seed}: max |err| on F1's outputs {per_item.tolist()} (bar 1e-4); "
+                f"end to end without feedback {e_nofb} (bar 1e-4); MAE by item {e2e_items}")
+        print(f"[F1/F2 seed {seed}] algorithms {16 * seed + 1}-{16 * seed + 16}, {FM_SHORT} "
+              f"samples: F1 max|err| {errs}; F2 on F1's outputs max|err| "
+              f"{float(per_item.max()):.3e}; end to end max|err| without feedback {e_nofb:.3e}, "
+              f"MAE by item {e2e_items} (feedback {[round(v * 7) for v in p[:, 5].tolist()]})",
+              flush=True)
+
+    # ---- F2 against the C++ engine at 4 s (tests/test_fm_jax.py:54-55's limits)
+    presets, _, _ = db.generate_structured_corpus_v2(16, seed=0)
+    pitch, vel = fm_notes(16)
+    cpp = DexedRenderer().render_batch(presets, pitch, vel)
+    gpu = ft.render_batch(torch.from_numpy(presets).cuda(), pitch, vel, feedback="exact").cpu()
+    cpp_mae = float(np.abs(gpu.numpy() - cpp).mean())
+    cpp_rel = float(np.abs(gpu.numpy() - cpp).max() / max(np.abs(cpp).max(), 1e-6))
+    print(f"[F2 vs C++ engine] 16 structured2 presets at 4 s: MAE {cpp_mae:.3e} (limit 2e-3), "
+          f"max relative deviation {cpp_rel:.3e} (limit 0.15)", flush=True)
+    if cpp_mae >= 2e-3 or cpp_rel >= 0.15:
+        raise AssertionError(f"F2 against the C++ engine: MAE {cpp_mae}, max rel {cpp_rel}")
+
+    # ---- timing at the corpus pass's shapes
+    n_ticks = SAMPLES // ft.BLOCK
+    entries = {}
+    props = torch.cuda.get_device_properties(0)
+    for B in (1024, 20480):
+        pr, _, _ = db.generate_structured_corpus_v2(B, seed=0)
+        p = torch.from_numpy(pr).cuda()
+        pitch, vel = np.full(B, 60), np.full(B, 85)
+        d = ft.decode_presets(p)
+        ctl = ft.control_params(d, torch.from_numpy(pitch).cuda(), torch.from_numpy(vel).cuda(),
+                                22050)
+        note_off = int(3.0 * 22050)
+        f1_ms = cuda_ms(lambda c: ft.fm_control(c, n_ticks, note_off, 22050), [ctl], reps=3)
+        amps, _, starts, incs = ft.fm_control(ctl, n_ticks, note_off, 22050)
+        alg, fb_amt = d["algorithm"].to(torch.int32), ft.feedback_amount(d)
+        nc = torch.clamp(torch.from_numpy(ft.ALGO_CARRIER).cuda()[alg.long()].sum(-1), min=1.0)
+        args = (amps, starts, incs, alg, fb_amt, nc, d["master_volume"], 22050)
+        f2_ms = cuda_ms(lambda a: ft.fm_exact(*a), [args], reps=3)
+        wav = ft.fm_exact(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(wav).all() or float(wav.abs().max()) > 1.0:
+            raise AssertionError(f"F2 at ({B}, {SAMPLES}): non-finite or out of [-1, 1]")
+        row = {"F1": f1_ms, "F2": f2_ms}
+        if B == 1024:
+            t0 = time.perf_counter()
+            ft.control_pass(ctl, n_ticks, note_off, 22050)
+            torch.cuda.synchronize()
+            row["F1 plain"] = (time.perf_counter() - t0) * 1e3
+            phases, amps_s = ft.sample_phases(starts, incs), ft.upsample_amps(amps)
+            t0 = time.perf_counter()
+            ft.exact_pass(phases, amps_s, alg, fb_amt)
+            torch.cuda.synchronize()
+            row["F2 plain"] = (time.perf_counter() - t0) * 1e3
+            del phases, amps_s
+            # the serial floor: one warp of 32 items alone on the card
+            one = tuple(t[:, :32].contiguous() for t in args[:3]) + tuple(
+                t[:32].contiguous() for t in args[3:7]) + (22050,)
+            row["F2 one warp"] = cuda_ms(lambda a: ft.fm_exact(*a), [one], reps=3)
+        for name, (nbytes, flops) in (("F1", fm_control_work(B, n_ticks)),
+                                      ("F2", fm_exact_work(B, SAMPLES))):
+            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+            row[f"{name} bound"] = max(t_b, t_o)
+            row[f"{name} bound_by"] = "operations" if t_o >= t_b else "bytes"
+        entries[B] = row
+        print(f"[F1/F2 timing] ({B}, {SAMPLES}), {-(-B // 32)} warps on {props.multi_processor_count}"
+              f" SMs: {json.dumps(row)}", flush=True)
+        del p, ctl, amps, starts, incs, args, wav
+        gc.collect()
+        torch.cuda.empty_cache()
+    main = entries[1024]
+    # no Pallas kernel stands behind F1 and F2: they replace the JAX
+    # package's XLA scans, and no PyTorch call computes an FM render
+    common = {"route": "cuda", "source": "preset_gen_vae_tpu_torch/csrc/fm_render.cu",
+              "library_ms": None, "launches": None}
+    f1 = dict(common, name="fm_control", replaces="preset_gen_vae_tpu/synth/fm_jax.py:299",
+              max_abs_err=err_f1, ms=main["F1"],
+              plain_ms=main["F1 plain"], bound_ms=main["F1 bound"],
+              bound_by=main["F1 bound_by"], ms_20480=entries[20480]["F1"])
+    f2 = dict(common, name="fm_exact", replaces="preset_gen_vae_tpu/synth/fm_jax.py:489",
+              max_abs_err=err_f2, ms=main["F2"],
+              plain_ms=main["F2 plain"], bound_ms=main["F2 bound"],
+              bound_by=main["F2 bound_by"], serial_floor_ms=main["F2 one warp"],
+              ms_20480=entries[20480]["F2"], bound_ms_20480=entries[20480]["F2 bound"],
+              mae_vs_cpp_engine=cpp_mae)
+    return f1, f2
+
+
+CORPUS = {"n_synthetic_presets": 1024}  # the main path's synthetic corpus
+# the saved multi-note runs' corpus: the generator they trained on
+# (scripts/run_stack3_v2_r5.py:68-77)
+CORPUS_V2 = {"n_synthetic_presets": 1024, "synthetic_style": "structured2"}
+
+
+def drive(name: str, fn, fm: int = 0):
+    """Runs one path of the main path with every kernel's launch count set
+    to 0 just before it and read just after; fails unless K1 launched, and
+    unless F1 and F2 each launched ``fm`` times (the path's on-device
+    renders: one per note of a 'jax' corpus pass, one per eval batch).
+    -> (result, launches, wall seconds, peak device GiB)."""
+    from preset_gen_vae_tpu_torch.ops import spectrogram as sp
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    for counts in (sp.LAUNCHES, ft.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     gc.collect()  # the previous path's tensors must not count in this one's peak
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(sp.LAUNCHES)
+    launches = {**sp.LAUNCHES, **ft.LAUNCHES}
     if launches["logmel"] < 1:
         raise AssertionError(f"K1 was not launched on the {name} path: {launches}")
+    if launches["fm_control"] != fm or launches["fm_exact"] != fm:
+        raise AssertionError(f"{name} path: F1/F2 launched {launches}, want {fm} each")
     return result, launches, wall, torch.cuda.max_memory_allocated() / 2**30
 
 
@@ -362,9 +600,10 @@ def phase_main_path(root: str):
 
     # ---- eval: the validation split of checkpoint 2, re-rendered and scored
     phases = {}
+    # the default 'jax' re-render: 164 items, one batch, one F1 and one F2 launch
     _, counts["eval"], wall, mem = drive("eval", lambda: evaluate_model_from_dir(
         summary["run_dir"], cfg.EvalConfig(dataset="validation"), dataset_kwargs=CORPUS,
-        phase_seconds=phases))
+        phase_seconds=phases), fm=1)
     with open(f"{summary['run_dir']}/eval_validation_summary.json") as f:
         ev = json.load(f)
     items = np.load(f"{summary['run_dir']}/eval_validation.items.npz")
@@ -378,9 +617,9 @@ def phase_main_path(root: str):
             not np.isfinite(items["spec_sc"][~np.isnan(items["spec_sc"])]).all():
         raise AssertionError("eval: spec_sc has values that are neither finite nor counted")
     print(f"[eval path] {json.dumps(ev, sort_keys=True)}", flush=True)
-    print(f"[eval path] wall {wall:.2f} s, K1 launches {counts['eval']['logmel']}, 164 items "
-          f"(2 batches), seconds per phase {json.dumps(phases)}, peak device memory "
-          f"{mem:.2f} GiB", flush=True)
+    print(f"[eval path] wall {wall:.2f} s, launches {counts['eval']}, 164 items (2 batches), "
+          f"re-render of 328 notes on the card {phases['render']:.3f} s, seconds per phase "
+          f"{json.dumps(phases)}, peak device memory {mem:.2f} GiB", flush=True)
     return counts
 
 
@@ -389,27 +628,43 @@ VARIANT_CORPUS = {"n_synthetic_presets": 512}  # the variant paths' cut corpus
 
 
 def saved_run_configs(run: str, root: str, model_kw=None, **train_kw):
-    """A saved run's frozen configs, retargeted: C++ render backend, runs
-    under ``root``, ``train_kw`` (epochs, verbosity) over its TrainConfig;
-    its widths, notes, flows, heads and losses stay."""
+    """A saved run's frozen configs, retargeted: runs under ``root``,
+    ``train_kw`` (epochs, verbosity) over its TrainConfig; its widths,
+    notes, flows, heads, losses and corpus render settings stay (a setting
+    the file leaves null takes the ModelConfig default)."""
     from preset_gen_vae_tpu_torch import config as cfg
 
     model_c, train_c = cfg.load_config(SAVED_RUNS / run / "config.json")
+    defaults = cfg.ModelConfig()
+    unset = {k: getattr(defaults, k) for k in ("dataset_corpus_render_backend",
+                                               "dataset_corpus_cache_policy")
+             if getattr(model_c, k) is None}
     model_c = dataclasses.replace(model_c, **{
         "logs_root_dir": root, "run_name": f"smoke_{run}", "allow_erase_run": True,
-        "dataset_corpus_render_backend": "cpp", "dataset_corpus_cache_policy": "disk",
-        **(model_kw or {})})
+        **unset, **(model_kw or {})})
     return model_c, dataclasses.replace(train_c, start_epoch=0, verbosity=0, **train_kw)
 
 
+def corpus_fm_launches(model_c, corpus) -> int:
+    """F1 and F2 launches of one corpus pass: on the 'jax' backend one per
+    note and ``RENDER_ROWS`` presets, else none."""
+    from preset_gen_vae_tpu_torch.data.dexed_dataset import RENDER_ROWS
+
+    if model_c.dataset_corpus_render_backend != "jax":
+        return 0
+    return len(model_c.midi_notes) * -(-corpus["n_synthetic_presets"] // RENDER_ROWS)
+
+
 def variant_train(counts, name, model_c, train_c, corpus, epochs, dim_z):
-    """One train path: K1 launched once per 64 presets and note, the input
-    shape (B, stacked notes, 257, 347), finite metrics; timings printed."""
+    """One train path: K1 launched once per 64 presets and note, F1 and F2
+    once per note on the 'jax' corpus backend, the input shape (B, stacked
+    notes, 257, 347), finite metrics; timings printed."""
     from preset_gen_vae_tpu_torch.data.dexed_dataset import CORPUS_CHUNK
     from preset_gen_vae_tpu_torch.training.loop import train_config
 
     summary, counts[name], wall, mem = drive(name, lambda: train_config(
-        model_c, train_c, dataset_kwargs=corpus, device="cuda", use_tensorboard=False))
+        model_c, train_c, dataset_kwargs=corpus, device="cuda", use_tensorboard=False),
+        fm=corpus_fm_launches(model_c, corpus))
     n_notes = len(model_c.midi_notes)
     channels = n_notes if model_c.stack_spectrograms else 1
     check_train_summary(name, summary, epochs, (train_c.minibatch_size, channels, 257, 347),
@@ -418,7 +673,9 @@ def variant_train(counts, name, model_c, train_c, corpus, epochs, dim_z):
     if counts[name]["logmel"] != k1:
         raise AssertionError(f"{name}: {counts[name]['logmel']} K1 launches, want {k1}")
     print(f"[{name} path] wall {wall:.2f} s, model build {summary['model_build_seconds']:.2f} s, "
-          f"K1 launches {counts[name]['logmel']}, {summary['train_steps']} steps, steady step "
+          f"corpus backend {model_c.dataset_corpus_render_backend!r} / "
+          f"{model_c.dataset_corpus_cache_policy!r}, launches {counts[name]}, "
+          f"{summary['train_steps']} steps, steady step "
           f"{summary['step_ms']:.2f} ms (first {summary['first_step_ms']:.1f} ms), corpus pass "
           f"{summary['corpus_seconds']:.3f} s (render {summary['corpus_render_seconds']:.3f} s), "
           f"{summary['n_params']} parameters, input {summary['input_size']}, peak device memory "
@@ -426,25 +683,29 @@ def variant_train(counts, name, model_c, train_c, corpus, epochs, dim_z):
     return summary
 
 
-def variant_eval(counts, name, model_c, run_dir, corpus, latents=None):
+def variant_eval(counts, name, model_c, run_dir, corpus, latents=None, backend="jax"):
     """One eval path on the run's last checkpoint: the validation items
     (one per preset, or per preset and note when the notes are not
-    stacked) inferred, re-rendered and scored, every metric finite."""
+    stacked) inferred, re-rendered (``backend``: 'jax', the default, one
+    F1 and one F2 launch per audio batch, or the C++ engine) and scored,
+    every metric finite."""
     from preset_gen_vae_tpu_torch import config as cfg
     from preset_gen_vae_tpu_torch.data.dexed_dataset import CORPUS_CHUNK
     from preset_gen_vae_tpu_torch.data.sampler import split_preset_indexes
     from preset_gen_vae_tpu_torch.evaluation.evaluate import evaluate_model_from_dir
 
-    phases = {}
-    _, counts[name], wall, mem = drive(name, lambda: evaluate_model_from_dir(
-        run_dir, cfg.EvalConfig(dataset="validation"), dataset_kwargs=corpus,
-        phase_seconds=phases, latents=latents))
-    with open(f"{run_dir}/eval_validation_summary.json") as f:
-        ev = json.load(f)
-    items = np.load(f"{run_dir}/eval_validation.items.npz")
+    eval_c = cfg.EvalConfig(dataset="validation", audio_render_backend=backend)
     P, n_notes = corpus["n_synthetic_presets"], len(model_c.midi_notes)
     n_items = len(split_preset_indexes(P)["validation"]) * (
         1 if model_c.stack_spectrograms else n_notes)
+    fm = corpus_fm_launches(model_c, corpus) + (
+        -(-n_items // eval_c.audio_batch_size) if backend == "jax" else 0)
+    phases = {}
+    _, counts[name], wall, mem = drive(name, lambda: evaluate_model_from_dir(
+        run_dir, eval_c, dataset_kwargs=corpus, phase_seconds=phases, latents=latents), fm=fm)
+    with open(f"{run_dir}/eval_validation_summary.json") as f:
+        ev = json.load(f)
+    items = np.load(f"{run_dir}/eval_validation.items.npz")
     if ev["n_items"] != n_items or len(items["preset_UID"]) != n_items:
         raise AssertionError(f"{name}: {ev['n_items']} items, want {n_items}")
     for k in ("num_eval_loss", "num_mae", "num_mae_dyn", "acc", "acc_dyn", "spec_mae",
@@ -456,31 +717,64 @@ def variant_eval(counts, name, model_c, run_dir, corpus, latents=None):
         raise AssertionError(f"{name}: {counts[name]['logmel']} K1 launches, want {k1}")
     print(f"[{name} path] {json.dumps(ev, sort_keys=True)}", flush=True)
     print(f"[{name} path] wall {wall:.2f} s, model build and restore {phases['model']:.2f} s, "
-          f"K1 launches {counts[name]['logmel']}, {n_items} items, seconds per phase "
-          f"{json.dumps(phases)}, peak device memory {mem:.2f} GiB", flush=True)
+          f"launches {counts[name]}, {n_items} items, re-render of {2 * n_items} notes "
+          f"({backend!r}) {phases['render']:.3f} s, corpus pass (dataset phase) "
+          f"{phases['dataset']:.3f} s, seconds per phase {json.dumps(phases)}, peak device "
+          f"memory {mem:.2f} GiB", flush=True)
     return items
+
+
+def corpus_pass_peak(model_c):
+    """The peak device memory of the corpus pass alone, on the run's saved
+    'jax' / 'device' settings and on 'cpp' / 'disk', same presets and notes,
+    the corpus kept in bf16 as the train path keeps it."""
+    from preset_gen_vae_tpu_torch.data.dexed_dataset import (
+        DexedDataset, model_config_to_dataset_kwargs)
+
+    peaks = {}
+    for backend, policy in (("jax", "device"), ("cpp", "disk")):
+        kw = dict(model_config_to_dataset_kwargs(model_c), **CORPUS_V2,
+                  corpus_render_backend=backend, corpus_cache_policy=policy)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ds = DexedDataset(device="cuda", corpus_dtype=torch.bfloat16, **kw)
+        corpus = ds.load_corpus()
+        peaks[backend] = ((torch.cuda.max_memory_allocated() - base) / 2**30,
+                          corpus.numel() * corpus.element_size() / 2**30, ds.corpus_seconds,
+                          ds.render_seconds)
+        del ds, corpus
+    print(f"[corpus pass peak] {len(model_c.midi_notes)} notes x "
+          f"{CORPUS_V2['n_synthetic_presets']} presets, bf16 corpus, (peak GiB above the "
+          f"start, corpus GiB, seconds, render seconds): " + ", ".join(
+              f"{k!r} {v[0]:.2f} / {v[1]:.2f} GiB, {v[2]:.3f} s (render {v[3]:.3f} s)"
+              for k, v in peaks.items()), flush=True)
 
 
 def phase_variant_paths(root: str):
     """The saved runs' other configurations through the same entry points.
-    At 1,024 presets: stack3 48 K1 launches a pass, 164 eval items; multi6
-    96 launches, 24 steps, 984 eval items; at 512 presets 8 launches."""
+    At 1,024 structured2 presets on their saved 'jax' / 'device' corpus
+    render: stack3 48 K1 and 3 F1/F2 launches a pass, 164 eval items (one
+    audio batch); multi6 96 K1 and 6 F1/F2 launches, 24 steps, 984 eval
+    items (4 audio batches); at 512 presets on the C++ corpus render 8 K1
+    launches."""
     from preset_gen_vae_tpu_torch.data.sampler import split_preset_indexes
 
     counts = {}
     # ---- the repo's best run: 3 stacked notes, full width, 2 epochs
     model_c, train_c = saved_run_configs("r5stack3_v2_20480", root, n_epochs=2)
-    summary = variant_train(counts, "stack3 train", model_c, train_c, CORPUS, 2, 610)
-    variant_eval(counts, "stack3 eval", model_c, summary["run_dir"], CORPUS)
+    summary = variant_train(counts, "stack3 train", model_c, train_c, CORPUS_V2, 2, 610)
+    variant_eval(counts, "stack3 eval", model_c, summary["run_dir"], CORPUS_V2)
 
     # ---- 6 un-stacked notes, MIDI in z0, 1800-channel mixers, 1 epoch
     model_c, train_c = saved_run_configs("r5multi6_v2_12288", root, n_epochs=1)
-    summary = variant_train(counts, "multi6 train", model_c, train_c, CORPUS, 1, 610)
-    n_train = len(split_preset_indexes(CORPUS["n_synthetic_presets"])["train"]) * 6
+    corpus_pass_peak(model_c)
+    summary = variant_train(counts, "multi6 train", model_c, train_c, CORPUS_V2, 1, 610)
+    n_train = len(split_preset_indexes(CORPUS_V2["n_synthetic_presets"])["train"]) * 6
     if summary["train_steps"] != n_train // train_c.minibatch_size:
         raise AssertionError(f"multi6: {summary['train_steps']} steps for {n_train} items")
     latents = {}
-    items = variant_eval(counts, "multi6 eval", model_c, summary["run_dir"], CORPUS, latents)
+    items = variant_eval(counts, "multi6 eval", model_c, summary["run_dir"], CORPUS_V2, latents)
     midi = -1.0 + 2.0 * np.stack([items["midi_pitch"], items["midi_velocity"]], 1) / 127.0
     err = float(np.abs(latents["z0"][:, :2] - midi).max())
     if err > 1e-6 or len(set(zip(items["midi_pitch"], items["midi_velocity"]))) != 6:
@@ -502,6 +796,8 @@ def phase_variant_paths(root: str):
     model_c, train_c = saved_run_configs("r2mlp400", root, n_epochs=1)
     summary = variant_train(counts, "mlp train", model_c, train_c, VARIANT_CORPUS, 1, 256)
     variant_eval(counts, "mlp eval", model_c, summary["run_dir"], VARIANT_CORPUS)
+    variant_eval(counts, "mlp eval cpp", model_c, summary["run_dir"], VARIANT_CORPUS,
+                 backend="cpp")
 
     # ---- BasicVAE (Dkl latent loss) with a MAF head, forward direction only
     model_c, train_c = saved_run_configs(
@@ -521,16 +817,21 @@ def main() -> int:
     print(card_line(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    build_kernels()
     k1 = phase_kernels()
+    f1, f2 = phase_fm_kernels()
     root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     try:
         counts = phase_main_path(root)
         counts.update(phase_variant_paths(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    k1["launches_by_path"] = {name: c["logmel"] for name, c in counts.items()}
-    k1["launches"] = sum(k1["launches_by_path"].values())
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    for entry, key in ((k1, "logmel"), (f1, "fm_control"), (f2, "fm_exact")):
+        entry["launches_by_path"] = {name: c[key] for name, c in counts.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        if entry["launches"] < 1:
+            raise AssertionError(f"{key} was launched on no path of the main path")
+    print(json.dumps({"kernels": [k1, f1, f2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,22 +1,37 @@
 """Dexed dataset: the seeded synthetic preset corpus, its constraints, the
 DX7 renders and the normalised log-mel corpus resident on the device.
 
-Counterparts: ``preset_gen_vae_tpu/data/dexed_dataset.py:32-192`` and the
+Counterparts: ``preset_gen_vae_tpu/data/dexed_dataset.py:32-244`` and the
 parts of ``data/abstract_dataset.py`` it needs (:42-74, 111-154, 272-281,
-548-556, 572-631); ``model_config_to_dataset_kwargs`` is ``data/build.py:18-41``.
+380-556, 572-631); ``model_config_to_dataset_kwargs`` is ``data/build.py:18-41``.
 
-The corpus pass (``load_corpus``) renders the presets in chunks with the
-C++ engine on the host, moves each chunk of waveforms to the device and
-runs kernel K1 there (``SpectrogramProcessor``; on the CPU its plain
-version), takes the corpus min/max on the device
-(abstract_dataset.py:272-281) and keeps the min/max-normalised corpus on
-the device as ``(P, n_notes, H, W)``. ``corpus_tensors`` serves it in the
-two multi-note layouts of abstract_dataset.py:609-631: stacked, one item
-per preset with its notes as channels, or un-stacked, one item per
-(preset, note), as a view of the same buffer. There is no disk cache, no SQLite
-preset database and no on-device ('jax') render backend in this slice; the
-128-lane chunked corpus layout of ``data/corpus_device.py`` is not needed
-by torch indexing and is not ported.
+``load_corpus`` builds the corpus once, on one of two render backends:
+
+- ``'cpp'``: the presets are rendered in chunks of 64 by the C++ engine on
+  the host; each chunk of waveforms goes to the device and through kernel
+  K1 (``SpectrogramProcessor``; on the CPU its plain version); the corpus
+  min/max are taken on the device (abstract_dataset.py:272-281) and the
+  min/max-normalised corpus stays there;
+- ``'jax'``: the on-device FM render of ``synth/fm_torch.py`` (on the card
+  kernels F1 and F2) renders a whole note of up to ``RENDER_ROWS`` presets
+  per launch, straight into the (rows, N) buffer K1 reads; K1 turns each
+  64 rows into log-mels; min, max, sum and sum of squares accumulate in f32
+  on the device over the real rows and the host combines them in f64
+  (``spec_stats`` with min/max/mean/std); the raw log-mels are stored once
+  in float16 and the min/max affine runs in float16, as the JAX package's
+  device-resident pass does (abstract_dataset.py:380-546, its
+  ``_finalize`` at :521-533), then becomes the corpus dtype in place when
+  that dtype has two bytes. The JAX package's column-chunked layout
+  (``data/corpus_device.py``) works around a TPU compiler limit and is not
+  ported.
+
+Both keep the normalised corpus on the device as ``(P, n_notes, H, W)``;
+``corpus_tensors`` serves it in the two multi-note layouts of
+abstract_dataset.py:609-631: stacked, one item per preset with its notes as
+channels, or un-stacked, one item per (preset, note), as a view of the same
+buffer. ``corpus_cache_policy`` takes the JAX package's values and checks
+('device' requires the 'jax' backend); neither persists anything yet: the
+disk cache and the SQLite preset database wait for a later slice.
 """
 
 from __future__ import annotations
@@ -30,21 +45,24 @@ import torch
 from ..ops.spectrogram import SpectrogramConfig, SpectrogramProcessor, normalize_min_max
 from ..synth import database as db
 from ..synth import dexed_params as dx
+from ..synth import fm_torch
 from ..synth.render import DexedRenderer
 from .dexed_spec import build_dexed_preset_spec
 from .preset import PresetIndexesHelper
 
-CORPUS_CHUNK = 64  # waveforms rendered and turned into log-mels per K1 launch
+CORPUS_CHUNK = 64  # waveforms turned into log-mels per K1 launch (and per C++ render)
+# presets of one note rendered per F1/F2 launch on the 'jax' backend: 8,192
+# rows of 4 s audio are 2.9 GB of f32
+RENDER_ROWS = 8192
+SYNTHETIC_STYLES = {
+    "structured": db.generate_structured_corpus,
+    "structured2": db.generate_structured_corpus_v2,
+    "uniform": db.generate_random_corpus,
+}
 
 
 def model_config_to_dataset_kwargs(model_config) -> Dict:
-    """(data/build.py:18-41; reference: data/dataset.py:18-25). Raises for
-    the on-device 'jax' render backend, which is not ported: the C++
-    engine's corpus would differ from the one that config asks for."""
-    if model_config.dataset_corpus_render_backend != "cpp":
-        raise NotImplementedError(
-            f"corpus render backend {model_config.dataset_corpus_render_backend!r}: "
-            "only 'cpp' is ported")
+    """(data/build.py:18-41; reference: data/dataset.py:18-25)"""
     return dict(
         note_duration=model_config.note_duration,
         n_fft=model_config.stft_args[0],
@@ -58,6 +76,8 @@ def model_config_to_dataset_kwargs(model_config) -> Dict:
         vst_params_learned_as_categorical=model_config.synth_vst_params_learned_as_categorical,
         restrict_to_labels=model_config.dataset_labels,
         sample_rate=model_config.sampling_rate,
+        corpus_render_backend=model_config.dataset_corpus_render_backend,
+        corpus_cache_policy=model_config.dataset_corpus_cache_policy,
     )
 
 
@@ -81,11 +101,29 @@ class DexedDataset:
         sample_rate: int = 22050,
         n_synthetic_presets: int = 4096,
         synthetic_seed: int = 0,
+        synthetic_style: str = "structured",
+        corpus_render_backend: str = "cpp",
+        corpus_render_feedback: str = "exact",
+        corpus_cache_policy: str = "disk",
         device="cuda",
         corpus_dtype: torch.dtype = torch.float32,
     ):
         if spectrogram_normalization not in ("min_max", None):
             raise NotImplementedError(f"normalization {spectrogram_normalization!r}")
+        # (dexed_dataset.py:85-100 there)
+        if corpus_render_backend not in ("cpp", "jax"):
+            raise ValueError(f"corpus_render_backend={corpus_render_backend!r}")
+        if corpus_cache_policy not in ("disk", "device"):
+            raise ValueError(f"corpus_cache_policy={corpus_cache_policy!r}")
+        if corpus_cache_policy == "device" and corpus_render_backend != "jax":
+            raise ValueError("corpus_cache_policy='device' requires corpus_render_backend='jax'")
+        if corpus_render_feedback not in ("exact", "unrolled"):
+            raise ValueError(f"corpus_render_feedback={corpus_render_feedback!r}")
+        if synthetic_style not in SYNTHETIC_STYLES:
+            raise ValueError(f"synthetic_style={synthetic_style!r}")
+        self.corpus_render_backend = corpus_render_backend
+        self.corpus_render_feedback = corpus_render_feedback
+        self.corpus_cache_policy = corpus_cache_policy
         self.note_duration = tuple(note_duration)
         self.midi_notes = tuple(tuple(n) for n in midi_notes)
         # (abstract_dataset.py:57)
@@ -104,7 +142,7 @@ class DexedDataset:
         self.restrict_to_labels = tuple(restrict_to_labels) if restrict_to_labels else None
 
         # ---- corpus (dexed_dataset.py:107-121) and constraints (:123-141)
-        presets, names, labels = db.generate_structured_corpus(
+        presets, names, labels = SYNTHETIC_STYLES[synthetic_style](
             n_synthetic_presets, seed=synthetic_seed, algos=self.algos)
         if constant_filter_and_tune_params:
             dx.set_default_general_filter_and_tune_params(presets)
@@ -132,7 +170,7 @@ class DexedDataset:
         self.renderer = DexedRenderer(sample_rate=sample_rate, note_duration=note_duration)
         self.spec_stats: Optional[Dict[str, float]] = None
         self.corpus_seconds: Optional[float] = None  # the whole corpus pass
-        self.render_seconds: Optional[float] = None  # its host renders
+        self.render_seconds: Optional[float] = None  # its renders
         self._corpus: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------
@@ -171,6 +209,19 @@ class DexedDataset:
         if self._corpus is not None:
             return self._corpus
         t0, self.render_seconds = time.perf_counter(), 0.0
+        if self.corpus_render_backend == "jax":
+            self._corpus = self._fm_corpus()
+        else:
+            self._corpus = self._cpp_corpus()
+        self._sync()
+        self.corpus_seconds = time.perf_counter() - t0
+        return self._corpus
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _cpp_corpus(self) -> torch.Tensor:
         P, (_, H, W) = len(self.uids), self.get_spectrogram_tensor_size()
         raw = torch.empty((P, len(self.midi_notes), H, W), dtype=torch.float32,
                           device=self.device)
@@ -186,11 +237,52 @@ class DexedDataset:
         self.spec_stats = {"min": float(mn), "max": float(mx)}
         if self.spectrogram_normalization == "min_max":  # abstract_dataset.py:548-556
             raw = normalize_min_max(raw, (mn, mx))
-        self._corpus = raw.to(self.corpus_dtype)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.corpus_seconds = time.perf_counter() - t0
-        return self._corpus
+        return raw.to(self.corpus_dtype)
+
+    def _fm_corpus(self) -> torch.Tensor:
+        """The 'jax' backend's pass (abstract_dataset.py:380-546 in meaning)."""
+        P, (_, H, W) = len(self.uids), self.get_spectrogram_tensor_size()
+        n_notes = len(self.midi_notes)
+        presets = torch.from_numpy(self.presets).to(self.device)
+        raw = torch.empty((P, n_notes, H, W), dtype=torch.float16, device=self.device)
+        parts = []
+        on_s, total_s = self.note_duration[0], sum(self.note_duration)
+        for note_i, (pitch, vel) in enumerate(self.midi_notes):
+            for s in range(0, P, RENDER_ROWS):
+                rows = presets[s:s + RENDER_ROWS]
+                n = rows.shape[0]
+                t_r = time.perf_counter()
+                wav = fm_torch.render_batch(rows, np.full(n, pitch), np.full(n, vel), on_s,
+                                            total_s, self.sample_rate,
+                                            feedback=self.corpus_render_feedback)
+                self._sync()
+                self.render_seconds += time.perf_counter() - t_r
+                for j in range(0, n, CORPUS_CHUNK):
+                    sp = self.spectrogram(wav[j:j + CORPUS_CHUNK])
+                    parts.append(torch.stack([sp.amin(), sp.amax(), sp.sum(), (sp * sp).sum()]))
+                    raw[s + j:s + j + sp.shape[0], note_i] = sp
+                del wav
+        st = torch.stack(parts).cpu().numpy().astype(np.float64)
+        n_el = float(P * n_notes * H * W)
+        mean = float(st[:, 2].sum() / n_el)
+        var = float(st[:, 3].sum() / n_el) - mean * mean
+        self.spec_stats = {"min": float(st[:, 0].min()), "max": float(st[:, 1].max()),
+                           "mean": mean, "std": float(np.sqrt(max(var, 0.0)))}
+        # the affine in float16, op for op (abstract_dataset.py:521-533)
+        f16 = {k: torch.tensor(v, dtype=torch.float16, device=self.device) for k, v in (
+            ("min", self.spec_stats["min"]),
+            ("half", (self.spec_stats["max"] - self.spec_stats["min"]) / 2.0))}
+        in_place = torch.empty((), dtype=self.corpus_dtype).element_size() == 2
+        corpus = raw.view(self.corpus_dtype) if in_place else torch.empty(
+            raw.shape, dtype=self.corpus_dtype, device=self.device)
+        # 64 presets at a time, so that the affine's temporaries stay small
+        # beside the one corpus buffer
+        for s in range(0, P, CORPUS_CHUNK):
+            x = raw[s:s + CORPUS_CHUNK]
+            if self.spectrogram_normalization == "min_max":
+                x = (x - f16["min"]).div_(f16["half"]).add_(-1.0)
+            corpus[s:s + CORPUS_CHUNK] = x.to(self.corpus_dtype)
+        return corpus
 
     def corpus_tensors(self) -> Dict[str, torch.Tensor]:
         """x, v (N, L) float32 and info (N, 3) int32 (uid, pitch, velocity),

@@ -6,9 +6,13 @@ rebuild the dataset (its corpus pass launches K1 on the card), restore a
 checkpoint, run the batched eval-mode forward (under the training's
 autocast), compute the per-item parameter metrics, full and on the
 MIDI-key-dependent subset, and the latent Spearman matrices of z0 and zK;
-re-render the ground-truth and inferred presets through the C++ DX7 engine,
-score the audio similarity on the device, and write the artifacts into the
-run dir:
+re-render the ground-truth and inferred presets, score the audio similarity
+on the device, and write the artifacts into the run dir. The re-render
+follows ``EvalConfig.audio_render_backend``: ``'jax'`` (the default, as in
+the JAX package) renders the ground-truth and inferred presets of a batch
+together in one call of ``synth/fm_torch.py`` (on the card kernels F1 and
+F2) with ``audio_render_feedback``; ``'cpp'`` renders them apart through the
+C++ engine on the host. The artifacts:
 
 - ``eval_<split>_summary.json``: the JAX package's keys, each metric's
   ``nanmean`` with ``n_nan_<metric>`` where it has NaNs (spectral
@@ -25,9 +29,10 @@ matrices, evaluate.py:190-191 there). ``evaluate_model`` returns the
 per-UID means (the JAX package's ``groupby('preset_UID').mean()``) as a
 dict of numpy columns.
 
-Not in this slice: the ``'jax'`` render backend (it waits for the port of
-``synth/fm_jax.py``) and the ground-truth audio cache (it waits for the
-disk corpus cache); both raise ``NotImplementedError``.
+The ground-truth audio cache waits for the disk corpus cache:
+``cache_gt_audio=True`` raises ``NotImplementedError`` under ``'cpp'`` and
+is ignored under ``'jax'``, as in the JAX package (GT and inferred audio
+then share one engine).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from ..logs.metrics import LatentMetric
 from ..losses.synth_params import CategoricalParamsAccuracy, QuantizedNumericalParamsLoss
 from ..models.build import build_extended_ae_model
 from ..synth import dexed_params as dx
+from ..synth import fm_torch
 from ..training.loop import prepare_dataset
 from ..training.train_step import autocast
 from .similarity import batched_audio_errors
@@ -123,10 +129,9 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
     ``z0`` and ``zK`` rows (N, dim_z) of the evaluated items, in the
     order of the per-item table."""
     dev = resolve_device(device)
-    if eval_config.audio_render_backend != "cpp":
-        raise NotImplementedError(
-            f"audio_render_backend={eval_config.audio_render_backend!r}: only 'cpp' is ported")
-    if eval_config.cache_gt_audio:
+    if eval_config.audio_render_backend not in ("jax", "cpp"):
+        raise ValueError(f"audio_render_backend={eval_config.audio_render_backend!r}")
+    if eval_config.cache_gt_audio and eval_config.audio_render_backend == "cpp":
         raise NotImplementedError("the ground-truth audio cache is not ported yet")
     times = {} if phase_seconds is None else phase_seconds
     t0 = time.perf_counter()
@@ -184,7 +189,6 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
     lap("inference")
 
     if render_audio:  # ---- re-render and score the audio (eval.py:211-323)
-        renderer = dataset.renderer
         inferred = helper.learnable_to_full_batch(cols["v_out"])
         pitch, vel = table["midi_pitch"], table["midi_velocity"]
         errs = {k: [] for k in AUDIO_METRICS}
@@ -193,11 +197,12 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
         for s in range(0, len(inferred), B):
             t_r = time.perf_counter()
             gt = np.stack([dataset.get_full_preset_params(u) for u in table["preset_UID"][s:s + B]])
-            gt = renderer.render_batch(gt, pitch[s:s + B], vel[s:s + B])
-            est = renderer.render_batch(inferred[s:s + B], pitch[s:s + B], vel[s:s + B])
+            gt, est = render_pairs(dataset, eval_config, gt, inferred[s:s + B], pitch[s:s + B],
+                                   vel[s:s + B], dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
             render_s += time.perf_counter() - t_r
-            e = batched_audio_errors(torch.from_numpy(gt).to(dev), torch.from_numpy(est).to(dev),
-                                     model_c.stft_args[0], model_c.stft_args[1],
+            e = batched_audio_errors(gt, est, model_c.stft_args[0], model_c.stft_args[1],
                                      model_c.sampling_rate)
             for k in AUDIO_METRICS:
                 errs[k].append(e[k])
@@ -225,3 +230,23 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
             json.dump(summary, f, indent=2)
     lap("artifacts")
     return per_uid_means(table)
+
+
+def render_pairs(dataset, eval_config: cfg.EvalConfig, gt_presets: np.ndarray,
+                 inferred: np.ndarray, pitches, velocities, dev: torch.device):
+    """(ground-truth, inferred) audio of one batch, each (n, N) float32 on
+    ``dev``. ``'jax'``: one ``fm_torch.render_batch`` call on the two sets
+    stacked (evaluate.py:294-304 there), so both go through one engine;
+    ``'cpp'``: two calls of the C++ engine on the host."""
+    renderer = dataset.renderer
+    if eval_config.audio_render_backend == "cpp":
+        gt = renderer.render_batch(gt_presets, pitches, velocities)
+        est = renderer.render_batch(inferred, pitches, velocities)
+        return torch.from_numpy(gt).to(dev), torch.from_numpy(est).to(dev)
+    n = len(gt_presets)
+    both = fm_torch.render_batch(
+        torch.from_numpy(np.concatenate([gt_presets, inferred]).astype(np.float32)).to(dev),
+        np.concatenate([pitches, pitches]), np.concatenate([velocities, velocities]),
+        note_on_s=float(renderer.note_duration[0]), total_s=float(renderer.total_seconds),
+        sample_rate=renderer.Fs, feedback=eval_config.audio_render_feedback)
+    return both[:n], both[n:]

@@ -40,6 +40,7 @@ from preset_gen_vae_tpu_torch.synth.render import DexedRenderer
 from preset_gen_vae_tpu_torch.training.loop import train_config
 
 DATASET_KWARGS = {"n_synthetic_presets": 64}
+CPP_EVAL = cfg.EvalConfig(audio_render_backend="cpp")
 
 
 def _waveforms():
@@ -140,7 +141,9 @@ def evaluated(tmp_path_factory):
     summary = train_config(model_c, train_c, device="cpu", dataset_kwargs=DATASET_KWARGS,
                            use_tensorboard=False)
     phases = {}
-    out = ev.evaluate_model_from_dir(summary["run_dir"], cfg.EvalConfig(), device="cpu",
+    # the C++ re-render: the plain 'jax' exact loop takes ~40 s a 4 s note on the CPU;
+    # tests/test_torch_port_fm_corpus.py drives the 'jax' backend
+    out = ev.evaluate_model_from_dir(summary["run_dir"], CPP_EVAL, device="cpu",
                                      dataset_kwargs=DATASET_KWARGS, phase_seconds=phases)
     return dict(root=root, run_dir=summary["run_dir"], out=out, phases=phases)
 
@@ -192,13 +195,18 @@ def test_per_uid_means_are_pandas_groupby(evaluated):
 
 
 def test_evaluate_all_models_skips_evaluated_runs(evaluated):
-    eval_c = cfg.EvalConfig(models_names=("FlVAE2/e0",))
+    eval_c = cfg.EvalConfig(models_names=("FlVAE2/e0",), audio_render_backend="cpp")
     assert ev.evaluate_all_models(eval_c, saved_root=evaluated["root"], device="cpu",
                                   dataset_kwargs=DATASET_KWARGS) == []
 
 
-@pytest.mark.parametrize("kwargs", [{"audio_render_backend": "jax"}, {"cache_gt_audio": True}])
+@pytest.mark.parametrize("kwargs", [{"audio_render_backend": "cpp", "cache_gt_audio": True},
+                                    {"audio_render_backend": "cpp", "cache_gt_audio": True,
+                                     "dataset": "test"}])
 def test_unported_backends_raise(evaluated, kwargs):
+    """The GT-audio cache of the C++ re-render waits for the disk corpus
+    cache, on either split (under 'jax' the flag is ignored, as in the JAX
+    package)."""
     with pytest.raises(NotImplementedError):
         ev.evaluate_model_from_dir(evaluated["run_dir"], cfg.EvalConfig(**kwargs), device="cpu",
                                    dataset_kwargs=DATASET_KWARGS)

@@ -109,10 +109,18 @@ def test_corpus_tensors_match_jax(datasets, stacked):
 
 
 def test_dataset_kwargs_pass_the_stacking_flag_and_refuse_the_jax_backend():
-    mc = cfg.ModelConfig(midi_notes=NOTES3, stack_spectrograms=True)
-    assert model_config_to_dataset_kwargs(mc)["multichannel_stacked_spectrograms"] is True
-    with pytest.raises(NotImplementedError, match="'jax'"):
-        model_config_to_dataset_kwargs(cfg.ModelConfig(dataset_corpus_render_backend="jax"))
+    """The stacking flag and the render backend and cache policy reach the
+    dataset; the dataset refuses what the JAX package refuses (the 'device'
+    policy without the on-device 'jax' render, an unknown backend)."""
+    mc = cfg.ModelConfig(midi_notes=NOTES3, stack_spectrograms=True,
+                         dataset_corpus_render_backend="jax", dataset_corpus_cache_policy="device")
+    kw = model_config_to_dataset_kwargs(mc)
+    assert kw["multichannel_stacked_spectrograms"] is True
+    assert (kw["corpus_render_backend"], kw["corpus_cache_policy"]) == ("jax", "device")
+    for backend, policy in (("cpp", "device"), ("vst", "disk")):
+        with pytest.raises(ValueError):
+            DexedDataset(n_synthetic_presets=4, device="cpu", corpus_render_backend=backend,
+                         corpus_cache_policy=policy)
 
 
 # ---------------------------------------------------------------- models
@@ -244,7 +252,8 @@ def test_train_and_evaluate_multi_note_on_cpu(tmp_path, stacked):
     vals = [v for v in summary.values() if isinstance(v, float)]
     assert all(np.isfinite(vals))
     latents = {}
-    means = ev.evaluate_model_from_dir(summary["run_dir"], cfg.EvalConfig(), device="cpu",
+    means = ev.evaluate_model_from_dir(summary["run_dir"],
+                                       cfg.EvalConfig(audio_render_backend="cpp"), device="cpu",
                                        dataset_kwargs=kw, latents=latents)
     items = np.load(f"{summary['run_dir']}/eval_validation.items.npz")
     with open(f"{summary['run_dir']}/eval_validation_summary.json") as f:

@@ -298,6 +298,7 @@ def test_variant_trains_and_evaluates_on_cpu(tmp_path, name):
     if name == "flowloss":
         assert 0.0 <= summary[f"{ts.FLOORED}/Train"] <= 1.0
     if name == "mlp":
-        means = ev.evaluate_model_from_dir(summary["run_dir"], cfg.EvalConfig(), device="cpu",
+        means = ev.evaluate_model_from_dir(summary["run_dir"],
+                                           cfg.EvalConfig(audio_render_backend="cpp"), device="cpu",
                                            dataset_kwargs=kw)
         assert len(means["preset_UID"]) == 2 and np.isfinite(means["spec_mae"]).all()
