@@ -5,7 +5,8 @@ checkout (K1, ``csrc/logmel.cu``; F1 and F2, ``csrc/fm_render.cu``, built
 at once, each by its own nvcc), holds each against its plain PyTorch
 version on the card (K1 on noise and on rendered DX7 notes, there also
 against a float64 rFFT witness; F1 and F2 on 32 mixed presets over two
-seeds, short renders, and F2 against the C++ engine at the full 4 s),
+seeds, short renders, again at the corpus pass's shape of 1,024 presets
+at 4 s, and F2 against the C++ engine at 4 s),
 times each beside its bound, its plain version and, where there is one, a
 library call, then drives the port's main path through its user entry
 points with the flagship FlVAE2 at full width (257x347 log-mels, dim_z 610,
@@ -40,6 +41,7 @@ non-zero exit code; without a GPU it fails before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -49,7 +51,6 @@ import shutil
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 import numpy as np
@@ -288,23 +289,10 @@ def build_kernels():
     from preset_gen_vae_tpu_torch.ops import spectrogram as sp
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
 
-    errors = []
-
-    def build(fn):
-        try:
-            fn()
-        except Exception as e:  # re-raised below, in the main thread
-            errors.append(e)
-
     t0 = time.time()
-    threads = [threading.Thread(target=build, args=(fn,))
-               for fn in (sp._logmel_library, ft._fm_library)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        for build in [pool.submit(fn) for fn in (sp._logmel_library, ft._fm_library)]:
+            build.result()  # re-raises a failed build
     print(f"[build] logmel.cu and fm_render.cu built in parallel in {time.time() - t0:.1f} s",
           flush=True)
 
@@ -337,6 +325,49 @@ def fm_notes(n: int):
     return pitch, vel
 
 
+F1_BARS = {"amps": 1e-5, "pitch_fact": 1e-5, "incs": 1e-6, "starts": 1e-4, "start_step": 1e-6}
+
+
+def f1_errors(got, want) -> dict:
+    """Max |F1 - control_pass| of each output, phase starts on the circle
+    (0.99999 and 0.0 lie 1e-5 apart), and ``start_step``: how far F1's
+    starts are from the plain recurrence on F1's own increments (each
+    tick's start is the previous one plus 32 increments, wrapped; the
+    first is 0), which the same f32 operations must give exactly. Over a
+    whole note the starts of the two also differ by the sum of the
+    increments' last-bit differences, which ``starts`` includes."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    def circ(a, b):
+        d = (a - b).abs()
+        return torch.minimum(d, 1.0 - d)
+
+    starts, incs = got[2], got[3]
+    nxt = starts[:-1] + incs[:-1] * ft.BLOCK
+    errs = {k: float((g - w).abs().max()) for k, g, w in zip(
+        ("amps", "pitch_fact", "incs"), (got[0], got[1], got[3]), (want[0], want[1], want[3]))}
+    errs["starts"] = float(circ(starts, want[2]).max())
+    errs["start_step"] = max(float(starts[0].abs().max()),
+                             float(circ(starts[1:], nxt - torch.floor(nxt)).max()))
+    return errs
+
+
+def feedback_loop_ops(a: int) -> int:
+    """Operators on algorithm ``a``'s feedback loop: the longest modulation
+    path from the feedback destination down to its source, both counted.
+    Only these run one sample after another; the other operators of a
+    sample depend on no earlier sample."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    src, dst = int(ft.ALGO_FB_SRC[a]), int(ft.ALGO_FB_DST[a])
+    path = [0] * ft.N_OPS
+    path[src] = 1
+    for x in range(src + 1, dst + 1):  # edges run from higher to lower operators
+        best = max((path[c] for c in range(x) if ft.ALGO_ADJ[a, c, x] and path[c]), default=0)
+        path[x] = best + 1 if best else 0
+    return path[dst]
+
+
 def fm_exact_work(B: int, n_samples: int):
     """(bytes, flops) that the exact render itself must move and compute,
     whatever computes it: each item's packed control row (94 f32) read
@@ -367,7 +398,8 @@ def phase_fm_kernels():
     """F1 and F2 against their plain versions on 32 mixed presets (two
     seeds, all 32 algorithms, short renders), F2 against the C++ engine at
     the full 4 s, then F1, F2 and the plain loops timed at the corpus
-    pass's shapes: (1,024, 88,576), and one note of 20,480 presets."""
+    pass's shapes, (1,024, 88,576) and one note of 20,480 presets, and at
+    (1,024, 88,576) the kernels held against the plain loops' outputs."""
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
     from preset_gen_vae_tpu_torch.synth import database as db
     from preset_gen_vae_tpu_torch.synth.render import DexedRenderer
@@ -384,11 +416,9 @@ def phase_fm_kernels():
         got = ft.fm_control(ctl, FM_SHORT // ft.BLOCK, int(0.1 * sr), sr)
         want = ft.control_pass(ctl, FM_SHORT // ft.BLOCK, int(0.1 * sr), sr)
         torch.cuda.synchronize()
-        errs = {k: float((g - w).abs().max()) for k, g, w in zip(
-            ("amps", "pitch_fact", "starts", "incs"), got, want)}
-        bars = {"amps": 1e-5, "pitch_fact": 1e-5, "starts": 1e-4, "incs": 1e-6}
-        if any(errs[k] > bars[k] for k in errs):
-            raise AssertionError(f"F1 against control_pass, seed {seed}: {errs}, bars {bars}")
+        errs = f1_errors(got, want)
+        if any(errs[k] > F1_BARS[k] for k in errs):
+            raise AssertionError(f"F1 against control_pass, seed {seed}: {errs}, bars {F1_BARS}")
         err_f1 = max(err_f1, errs["amps"])
         # F2 on F1's own outputs against the plain exact loop on the same
         # inputs: the same f32 operations in the same order, so even a
@@ -448,7 +478,7 @@ def phase_fm_kernels():
                                 22050)
         note_off = int(3.0 * 22050)
         f1_ms = cuda_ms(lambda c: ft.fm_control(c, n_ticks, note_off, 22050), [ctl], reps=3)
-        amps, _, starts, incs = ft.fm_control(ctl, n_ticks, note_off, 22050)
+        amps, pitch_fact, starts, incs = ft.fm_control(ctl, n_ticks, note_off, 22050)
         alg, fb_amt = d["algorithm"].to(torch.int32), ft.feedback_amount(d)
         nc = torch.clamp(torch.from_numpy(ft.ALGO_CARRIER).cuda()[alg.long()].sum(-1), min=1.0)
         args = (amps, starts, incs, alg, fb_amt, nc, d["master_volume"], 22050)
@@ -459,20 +489,43 @@ def phase_fm_kernels():
             raise AssertionError(f"F2 at ({B}, {SAMPLES}): non-finite or out of [-1, 1]")
         row = {"F1": f1_ms, "F2": f2_ms}
         if B == 1024:
+            # the plain loops at the corpus pass's shape, timed, and each
+            # kernel held against them there: F1 on every output, F2 on
+            # F1's outputs on every item
             t0 = time.perf_counter()
-            ft.control_pass(ctl, n_ticks, note_off, 22050)
+            want = ft.control_pass(ctl, n_ticks, note_off, 22050)
             torch.cuda.synchronize()
             row["F1 plain"] = (time.perf_counter() - t0) * 1e3
             phases, amps_s = ft.sample_phases(starts, incs), ft.upsample_amps(amps)
             t0 = time.perf_counter()
-            ft.exact_pass(phases, amps_s, alg, fb_amt)
+            ref = ft.exact_pass(phases, amps_s, alg, fb_amt)
             torch.cuda.synchronize()
             row["F2 plain"] = (time.perf_counter() - t0) * 1e3
             del phases, amps_s
-            # the serial floor: one warp of 32 items alone on the card
+            errs = f1_errors((amps, pitch_fact, starts, incs), want)
+            per_item = (wav - ft.fade_and_volume(ref, nc, d["master_volume"], 22050)).abs().amax(1)
+            # the starts part by the increments' summed last-bit differences
+            # over 2,768 ticks: reported; start_step holds F1's recurrence
+            gated = {k: v for k, v in F1_BARS.items() if k != "starts"}
+            print(f"[F1/F2 at ({B}, {SAMPLES})] F1 against control_pass max|err| {errs} (bars "
+                  f"{gated}); F2 on F1's outputs against exact_pass max|err| "
+                  f"{float(per_item.max()):.3e} over all {B} items (bar 1e-4)", flush=True)
+            if any(errs[k] > bar for k, bar in gated.items()) or float(per_item.max()) > 1e-4:
+                raise AssertionError(f"F1/F2 at ({B}, {SAMPLES}) against the plain loops: F1 "
+                                     f"{errs}, F2 by item {per_item.tolist()}")
+            err_f1, err_f2 = max(err_f1, errs["amps"]), max(err_f2, float(per_item.max()))
+            del want, ref
+            # one warp of 32 items alone on the card: the time of F2's
+            # design, which walks each item's samples in one thread
             one = tuple(t[:, :32].contiguous() for t in args[:3]) + tuple(
                 t[:32].contiguous() for t in args[3:7]) + (22050,)
             row["F2 one warp"] = cuda_ms(lambda a: ft.fm_exact(*a), [one], reps=3)
+            # the work's serial chain: the feedback loop's operators a
+            # sample, on the items with feedback only
+            loop_ops = [feedback_loop_ops(a) if f > 0 else 0
+                        for a, f in zip(alg.tolist(), fb_amt.tolist())]
+            row["F2 serial sines"] = max(loop_ops) * SAMPLES
+            row["F2 items by loop operators"] = {n: loop_ops.count(n) for n in sorted(set(loop_ops))}
         for name, (nbytes, flops) in (("F1", fm_control_work(B, n_ticks)),
                                       ("F2", fm_exact_work(B, SAMPLES))):
             t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
@@ -481,7 +534,7 @@ def phase_fm_kernels():
         entries[B] = row
         print(f"[F1/F2 timing] ({B}, {SAMPLES}), {-(-B // 32)} warps on {props.multi_processor_count}"
               f" SMs: {json.dumps(row)}", flush=True)
-        del p, ctl, amps, starts, incs, args, wav
+        del p, ctl, amps, pitch_fact, starts, incs, args, wav
         gc.collect()
         torch.cuda.empty_cache()
     main = entries[1024]
@@ -496,7 +549,8 @@ def phase_fm_kernels():
     f2 = dict(common, name="fm_exact", replaces="preset_gen_vae_tpu/synth/fm_jax.py:489",
               max_abs_err=err_f2, ms=main["F2"],
               plain_ms=main["F2 plain"], bound_ms=main["F2 bound"],
-              bound_by=main["F2 bound_by"], serial_floor_ms=main["F2 one warp"],
+              bound_by=main["F2 bound_by"], one_warp_ms=main["F2 one warp"],
+              serial_chain_sines=main["F2 serial sines"],
               ms_20480=entries[20480]["F2"], bound_ms_20480=entries[20480]["F2 bound"],
               mae_vs_cpp_engine=cpp_mae)
     return f1, f2
@@ -724,33 +778,6 @@ def variant_eval(counts, name, model_c, run_dir, corpus, latents=None, backend="
     return items
 
 
-def corpus_pass_peak(model_c):
-    """The peak device memory of the corpus pass alone, on the run's saved
-    'jax' / 'device' settings and on 'cpp' / 'disk', same presets and notes,
-    the corpus kept in bf16 as the train path keeps it."""
-    from preset_gen_vae_tpu_torch.data.dexed_dataset import (
-        DexedDataset, model_config_to_dataset_kwargs)
-
-    peaks = {}
-    for backend, policy in (("jax", "device"), ("cpp", "disk")):
-        kw = dict(model_config_to_dataset_kwargs(model_c), **CORPUS_V2,
-                  corpus_render_backend=backend, corpus_cache_policy=policy)
-        gc.collect()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        ds = DexedDataset(device="cuda", corpus_dtype=torch.bfloat16, **kw)
-        corpus = ds.load_corpus()
-        peaks[backend] = ((torch.cuda.max_memory_allocated() - base) / 2**30,
-                          corpus.numel() * corpus.element_size() / 2**30, ds.corpus_seconds,
-                          ds.render_seconds)
-        del ds, corpus
-    print(f"[corpus pass peak] {len(model_c.midi_notes)} notes x "
-          f"{CORPUS_V2['n_synthetic_presets']} presets, bf16 corpus, (peak GiB above the "
-          f"start, corpus GiB, seconds, render seconds): " + ", ".join(
-              f"{k!r} {v[0]:.2f} / {v[1]:.2f} GiB, {v[2]:.3f} s (render {v[3]:.3f} s)"
-              for k, v in peaks.items()), flush=True)
-
-
 def phase_variant_paths(root: str):
     """The saved runs' other configurations through the same entry points.
     At 1,024 structured2 presets on their saved 'jax' / 'device' corpus
@@ -768,7 +795,6 @@ def phase_variant_paths(root: str):
 
     # ---- 6 un-stacked notes, MIDI in z0, 1800-channel mixers, 1 epoch
     model_c, train_c = saved_run_configs("r5multi6_v2_12288", root, n_epochs=1)
-    corpus_pass_peak(model_c)
     summary = variant_train(counts, "multi6 train", model_c, train_c, CORPUS_V2, 1, 610)
     n_train = len(split_preset_indexes(CORPUS_V2["n_synthetic_presets"])["train"]) * 6
     if summary["train_steps"] != n_train // train_c.minibatch_size:

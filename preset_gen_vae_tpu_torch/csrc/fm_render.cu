@@ -8,13 +8,15 @@
 // (:370-379), the per-sample phases (:395-397) and the fade, volume and
 // clip (:400-413).
 //
-// What bounds them: each item is a serial chain. F2's state for sample n+1
-// needs the feedback operator's output at samples n and n-1, so an item's
-// samples run one after another in one thread, and the only parallelism is
-// across items (one thread per item). With fewer than a few thousand items
-// the card is far from full and the time is the serial chain's: samples x
-// the latency of six dependent sines. With many items the bound is the
-// f32 arithmetic (~170 operations per item and sample). The design keeps
+// What bounds them: F2's sample n+1 needs the feedback loop's output at
+// samples n and n-1. Only that loop (the operators from the feedback
+// destination down to its source, one to three; none at feedback 0) is
+// serial in the work; the other operators depend on no earlier sample.
+// This design runs all six operators of an item's samples one after
+// another in one thread, one thread per item, so with fewer than a few
+// thousand items the card is far from full and the time is one thread's:
+// samples x the latency of six dependent sines. With many items the bound
+// is the f32 arithmetic (~200 operations per item and sample). It keeps
 // everything of an item in registers (the feedback history, the previous
 // tick's amplitudes, the algorithm's bitmasks from constant memory), reads
 // F1's (T, B, 6) arrays so that a warp's 32 items touch 768 contiguous
