@@ -4,11 +4,14 @@ Builds every hand-written kernel of the port from the sources in this
 checkout (K1, ``csrc/logmel.cu``; F1 and F2, ``csrc/fm_render.cu``, built
 at once, each by its own nvcc), holds each against its plain PyTorch
 version on the card (K1 on noise and on rendered DX7 notes, there also
-against a float64 rFFT witness; F1 and F2 on 32 mixed presets over two
-seeds, short renders, again at the corpus pass's shape of 1,024 presets
-at 4 s, and F2 against the C++ engine at 4 s),
-times each beside its bound, its plain version and, where there is one, a
-library call, then drives the port's main path through its user entry
+against a float64 rFFT witness; F1, F2 and F2's two phases, the
+feedback loop and the feed-forward operators, on 32 mixed presets and 12
+with loops of 1-3 operators over two seeds, short renders, again at the
+corpus pass's shape of 1,024 presets at 4 s, and F2 against the C++
+engine at 4 s), times each beside its bound, its plain version and, where
+there is one, a library call, times the FM kernels' serial chains (F2 on
+32 items of each loop length, its loop phase alone, F1 on 8 items), then
+drives the port's main path through its user entry
 points with the flagship FlVAE2 at full width (257x347 log-mels, dim_z 610,
 batch 160) on a seeded synthetic 1,024-preset corpus, in three paths, each
 with its own corpus pass: ``training.loop.train_config`` trains 2 epochs
@@ -352,22 +355,6 @@ def f1_errors(got, want) -> dict:
     return errs
 
 
-def feedback_loop_ops(a: int) -> int:
-    """Operators on algorithm ``a``'s feedback loop: the longest modulation
-    path from the feedback destination down to its source, both counted.
-    Only these run one sample after another; the other operators of a
-    sample depend on no earlier sample."""
-    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
-
-    src, dst = int(ft.ALGO_FB_SRC[a]), int(ft.ALGO_FB_DST[a])
-    path = [0] * ft.N_OPS
-    path[src] = 1
-    for x in range(src + 1, dst + 1):  # edges run from higher to lower operators
-        best = max((path[c] for c in range(x) if ft.ALGO_ADJ[a, c, x] and path[c]), default=0)
-        path[x] = best + 1 if best else 0
-    return path[dst]
-
-
 def fm_exact_work(B: int, n_samples: int):
     """(bytes, flops) that the exact render itself must move and compute,
     whatever computes it: each item's packed control row (94 f32) read
@@ -383,6 +370,30 @@ def fm_exact_work(B: int, n_samples: int):
     return 4 * B * (ft.CTL_WIDTH + n_samples), B * n_samples * (6 * 31 + 12)
 
 
+def fm_loop_work(lengths, n_ticks: int):
+    """(bytes, flops) of F2's loop phase on this run's items: on each item
+    with feedback, its L loop operators' amplitudes, starts and increments
+    read once (3 L f32 a tick) and the source's output written once (f32 a
+    sample); per sample L operators (31 operations each) and the feedback
+    term (3)."""
+    n = 32 * n_ticks
+    ls = [x for x in lengths.tolist() if x]
+    return 4 * sum(3 * x * n_ticks + n for x in ls), sum(n * (31 * x + 3) for x in ls)
+
+
+def fm_ff_work(lengths, n_ticks: int):
+    """(bytes, flops) of F2's feed-forward phase on this run's items: F1's
+    three (T, B, 6) arrays, the loop's output on the items with feedback
+    and the fade table read once, the waveforms written once; per sample
+    the operators off the loop (31 operations each) and the carrier sum,
+    normalisation, clip and fade (12)."""
+    n, B = 32 * n_ticks, len(lengths)
+    ls = lengths.tolist()
+    n_fb = sum(1 for x in ls if x)
+    nbytes = 4 * (3 * n_ticks * B * 6 + n_fb * n + B * n + n)
+    return nbytes, sum(n * (31 * (6 - x) + 12) for x in ls)
+
+
 def fm_control_work(B: int, n_ticks: int):
     """(bytes, flops) of the control pass: the packed rows read once, the
     (T, B, 6) amplitudes, phase starts and increments and the (T, B) pitch
@@ -394,12 +405,80 @@ def fm_control_work(B: int, n_ticks: int):
     return 4 * B * (ft.CTL_WIDTH + n_ticks * 19), B * n_ticks * 205
 
 
+def bound(work):
+    """(bound ms, bound_by) of (bytes, flops) at the card's peaks."""
+    nbytes, flops = work
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return max(t_b, t_o), "operations" if t_o >= t_b else "bytes"
+
+
+def loop_length_presets(seed: int, n: int, length: int) -> np.ndarray:
+    """``n`` structured2 presets whose feedback loop has ``length``
+    operators: feedback 0 for 0, else feedback 7 on algorithm 1, 6 or 4
+    (loops of 1, 2, 3)."""
+    from preset_gen_vae_tpu_torch.synth import database as db
+
+    p, _, _ = db.generate_structured_corpus_v2(n, seed=seed)
+    if length == 0:
+        p[:, 5] = 0.0
+    else:
+        p[:, 4] = {1: 0, 2: 5, 3: 3}[length] / 31.0
+        p[:, 5] = 1.0
+    return p.astype(np.float32)
+
+
+def fm_inputs(p: torch.Tensor, pitch, vel, sr: int, n_ticks: int, note_off: int):
+    """F1's outputs for presets ``p`` on the card, and F2's other arguments:
+    -> (F1's four outputs, F2's argument tuple, ctl)."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    d = ft.decode_presets(p)
+    ctl = ft.control_params(d, torch.as_tensor(pitch).cuda(), torch.as_tensor(vel).cuda(), sr)
+    got = ft.fm_control(ctl, n_ticks, note_off, sr)
+    amps, _, starts, incs = got
+    alg, fb_amt = d["algorithm"].to(torch.int32), ft.feedback_amount(d)
+    nc = torch.clamp(torch.from_numpy(ft.ALGO_CARRIER).cuda()[alg.long()].sum(-1), min=1.0)
+    return got, (amps, starts, incs, alg, fb_amt, nc, d["master_volume"], sr), ctl
+
+
+def f2_phase_errors(args, ref_sample=None):
+    """F2 and its two phases against their plain versions on the same F1
+    outputs: -> (max |err| by item of fm_exact against exact_pass, of the
+    loop phase against feedback_loop_pass on the items with feedback, and
+    of the feed-forward phase, run on the plain loop's output, against
+    feedforward_pass; each finished by fade_and_volume where it is a
+    waveform). ``ref_sample`` is exact_pass's carrier sum if already made."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    amps, starts, incs, alg, fb_amt, nc, mv, sr = args
+    phases, amps_s = ft.sample_phases(starts, incs), ft.upsample_amps(amps)
+    if ref_sample is None:
+        ref_sample = ft.exact_pass(phases, amps_s, alg, fb_amt)
+    out = ft.fm_exact(*args)
+    e_f2 = (out - ft.fade_and_volume(ref_sample, nc, mv, sr)).abs().amax(1)
+    del out
+    on = fb_amt != 0
+    loop_ref = ft.feedback_loop_pass(phases, amps_s, alg, fb_amt)
+    loop = ft.fm_fb_loop(*args[:5])
+    e_loop = torch.where(on[:, None], loop - loop_ref, 0.0).abs().amax(1)
+    del loop
+    ff_ref = ft.fade_and_volume(ft.feedforward_pass(phases, amps_s, alg, fb_amt, loop_ref), nc,
+                                mv, sr)
+    e_ff = (ft.fm_exact_ff(loop_ref, *args) - ff_ref).abs().amax(1)
+    torch.cuda.synchronize()
+    return e_f2, e_loop, e_ff
+
+
 def phase_fm_kernels():
-    """F1 and F2 against their plain versions on 32 mixed presets (two
-    seeds, all 32 algorithms, short renders), F2 against the C++ engine at
-    the full 4 s, then F1, F2 and the plain loops timed at the corpus
-    pass's shapes, (1,024, 88,576) and one note of 20,480 presets, and at
-    (1,024, 88,576) the kernels held against the plain loops' outputs."""
+    """F1 and F2 against their plain versions on 32 mixed presets and 12
+    with loops of 1-3 operators at feedback 0 and 7 (two seeds, all 32
+    algorithms, short renders), F2's loop and feed-forward phases against
+    theirs, F2 against the C++ engine at the full 4 s, then F1, F2, its two
+    phases and the plain versions timed at the corpus pass's shapes,
+    (1,024, 88,576) and one note of 20,480 presets, every kernel held
+    against its plain version at (1,024, 88,576), and the serial chains
+    timed: F2 on 32 items of each loop length, the loop phase alone at
+    (1,024, 88,576), F1 on 8 items."""
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
     from preset_gen_vae_tpu_torch.synth import database as db
     from preset_gen_vae_tpu_torch.synth.render import DexedRenderer
@@ -407,30 +486,25 @@ def phase_fm_kernels():
     print(f"[build] fm_render\n{ptxas_report('fm_render', ft.fm_build_command(), ft.FM_SOURCE)}",
           flush=True)
     sr, total = 22050, FM_SHORT / 22050
-    err_f2, err_f1 = 0.0, 0.0
+    err = {"F1": 0.0, "F2": 0.0, "loop": 0.0, "ff": 0.0}
     for seed in (0, 1):
-        p = torch.from_numpy(mixed_fm_presets(seed)).cuda()
+        pr = np.concatenate([mixed_fm_presets(seed)] + [
+            loop_length_presets(seed, 2, n) for n in (1, 2, 3)])
+        pr[16::2, 5] = 0.0  # each loop length at feedback 0 too
+        p = torch.from_numpy(pr).cuda()
         pitch, vel = fm_notes(len(p))
-        d = ft.decode_presets(p)
-        ctl = ft.control_params(d, torch.from_numpy(pitch).cuda(), torch.from_numpy(vel).cuda(), sr)
-        got = ft.fm_control(ctl, FM_SHORT // ft.BLOCK, int(0.1 * sr), sr)
+        got, args, ctl = fm_inputs(p, pitch, vel, sr, FM_SHORT // ft.BLOCK, int(0.1 * sr))
         want = ft.control_pass(ctl, FM_SHORT // ft.BLOCK, int(0.1 * sr), sr)
         torch.cuda.synchronize()
         errs = f1_errors(got, want)
         if any(errs[k] > F1_BARS[k] for k in errs):
             raise AssertionError(f"F1 against control_pass, seed {seed}: {errs}, bars {F1_BARS}")
-        err_f1 = max(err_f1, errs["amps"])
+        err["F1"] = max(err["F1"], errs["amps"])
         # F2 on F1's own outputs against the plain exact loop on the same
         # inputs: the same f32 operations in the same order, so even a
         # chaotic feedback-7 item (whose samples part after ~100 steps from
-        # a last-bit difference) must agree
-        amps, _, starts, incs = got
-        alg, fb_amt = d["algorithm"].to(torch.int32), ft.feedback_amount(d)
-        nc = torch.clamp(torch.from_numpy(ft.ALGO_CARRIER).cuda()[alg.long()].sum(-1), min=1.0)
-        out = ft.fm_exact(amps, starts, incs, alg, fb_amt, nc, d["master_volume"], sr)
-        ref = ft.fade_and_volume(ft.exact_pass(ft.sample_phases(starts, incs),
-                                               ft.upsample_amps(amps), alg, fb_amt),
-                                 nc, d["master_volume"], sr)
+        # a last-bit difference) must agree; likewise each phase
+        e_f2, e_loop, e_ff = f2_phase_errors(args)
         # end to end, F1 and F2 against the plain loops, where F1's last-bit
         # differences (exp2) reach the audio: held on the items without feedback
         e2e = ft.render_batch(p, pitch, vel, note_on_s=0.1, total_s=total, sample_rate=sr,
@@ -438,20 +512,26 @@ def phase_fm_kernels():
         e2e_ref = ft.plain_render(p, pitch, vel, note_on_s=0.1, total_s=total, sample_rate=sr,
                                   feedback="exact")
         torch.cuda.synchronize()
-        per_item = (out - ref).abs().amax(1)
         no_fb = p[:, 5] == 0
         e_nofb = float((e2e - e2e_ref).abs()[no_fb].max())
         e2e_items = [f"{v:.1e}" for v in (e2e - e2e_ref).abs().mean(1).tolist()]
-        err_f2 = max(err_f2, float(per_item.max()))
-        if not torch.isfinite(out).all() or float(per_item.max()) > 1e-4 or e_nofb > 1e-4:
+        worst = {k: float(e.max()) for k, e in (("F2", e_f2), ("loop", e_loop), ("ff", e_ff))}
+        for k, v in worst.items():
+            err[k] = max(err[k], v)
+        lengths = ft.loop_lengths(args[3], args[4]).tolist()
+        if not torch.isfinite(e2e).all() or max(worst.values()) > 1e-4 or e_nofb > 1e-4 or \
+                set(lengths) != {0, 1, 2, 3}:
             raise AssertionError(
-                f"F2, seed {seed}: max |err| on F1's outputs {per_item.tolist()} (bar 1e-4); "
-                f"end to end without feedback {e_nofb} (bar 1e-4); MAE by item {e2e_items}")
-        print(f"[F1/F2 seed {seed}] algorithms {16 * seed + 1}-{16 * seed + 16}, {FM_SHORT} "
-              f"samples: F1 max|err| {errs}; F2 on F1's outputs max|err| "
-              f"{float(per_item.max()):.3e}; end to end max|err| without feedback {e_nofb:.3e}, "
-              f"MAE by item {e2e_items} (feedback {[round(v * 7) for v in p[:, 5].tolist()]})",
-              flush=True)
+                f"F2, seed {seed}: max |err| on F1's outputs by item {e_f2.tolist()}, loop phase "
+                f"{e_loop.tolist()}, feed-forward phase {e_ff.tolist()} (bar 1e-4); end to end "
+                f"without feedback {e_nofb} (bar 1e-4); MAE by item {e2e_items}; loop lengths "
+                f"{lengths}")
+        print(f"[F1/F2 seed {seed}] algorithms {16 * seed + 1}-{16 * seed + 16} and 1, 6, 4, "
+              f"{FM_SHORT} samples: F1 max|err| {errs}; on F1's outputs max|err| F2 "
+              f"{worst['F2']:.3e}, loop phase {worst['loop']:.3e}, feed-forward phase "
+              f"{worst['ff']:.3e}; end to end max|err| without feedback {e_nofb:.3e}, MAE by "
+              f"item {e2e_items} (feedback {[round(v * 7) for v in p[:, 5].tolist()]}, loop "
+              f"lengths {lengths})", flush=True)
 
     # ---- F2 against the C++ engine at 4 s (tests/test_fm_jax.py:54-55's limits)
     presets, _, _ = db.generate_structured_corpus_v2(16, seed=0)
@@ -467,93 +547,127 @@ def phase_fm_kernels():
 
     # ---- timing at the corpus pass's shapes
     n_ticks = SAMPLES // ft.BLOCK
+    note_off = int(3.0 * 22050)
     entries = {}
     props = torch.cuda.get_device_properties(0)
     for B in (1024, 20480):
         pr, _, _ = db.generate_structured_corpus_v2(B, seed=0)
         p = torch.from_numpy(pr).cuda()
         pitch, vel = np.full(B, 60), np.full(B, 85)
-        d = ft.decode_presets(p)
-        ctl = ft.control_params(d, torch.from_numpy(pitch).cuda(), torch.from_numpy(vel).cuda(),
-                                22050)
-        note_off = int(3.0 * 22050)
+        (amps, pitch_fact, starts, incs), args, ctl = fm_inputs(p, pitch, vel, 22050, n_ticks,
+                                                               note_off)
+        lengths = ft.loop_lengths(args[3], args[4])
         f1_ms = cuda_ms(lambda c: ft.fm_control(c, n_ticks, note_off, 22050), [ctl], reps=3)
-        amps, pitch_fact, starts, incs = ft.fm_control(ctl, n_ticks, note_off, 22050)
-        alg, fb_amt = d["algorithm"].to(torch.int32), ft.feedback_amount(d)
-        nc = torch.clamp(torch.from_numpy(ft.ALGO_CARRIER).cuda()[alg.long()].sum(-1), min=1.0)
-        args = (amps, starts, incs, alg, fb_amt, nc, d["master_volume"], 22050)
         f2_ms = cuda_ms(lambda a: ft.fm_exact(*a), [args], reps=3)
+        loop_ms = cuda_ms(lambda a: ft.fm_fb_loop(*a[:5]), [args], reps=3)
+        buf = ft.fm_fb_loop(*args[:5])
+        ff_ms = cuda_ms(lambda a: ft.fm_exact_ff(buf, *a), [args], reps=3)
+        # the two phases one after the other on one stream: what the
+        # pipeline of fm_exact gains by overlapping them
+        in_turn_ms = cuda_ms(lambda a: ft.fm_exact_ff(ft.fm_fb_loop(*a[:5]), *a), [args], reps=3)
         wav = ft.fm_exact(*args)
         torch.cuda.synchronize()
         if not torch.isfinite(wav).all() or float(wav.abs().max()) > 1.0:
             raise AssertionError(f"F2 at ({B}, {SAMPLES}): non-finite or out of [-1, 1]")
-        row = {"F1": f1_ms, "F2": f2_ms}
+        del buf, wav
+        row = {"F1": f1_ms, "F2": f2_ms, "F2 loop phase": loop_ms, "F2 feed-forward phase": ff_ms,
+               "F2 phases in turn": in_turn_ms}
         if B == 1024:
-            # the plain loops at the corpus pass's shape, timed, and each
-            # kernel held against them there: F1 on every output, F2 on
-            # F1's outputs on every item
+            # the plain versions at the corpus pass's shape, timed, and each
+            # kernel held against them there: F1 on every output, F2 and
+            # its phases on F1's outputs on every item
             t0 = time.perf_counter()
             want = ft.control_pass(ctl, n_ticks, note_off, 22050)
             torch.cuda.synchronize()
             row["F1 plain"] = (time.perf_counter() - t0) * 1e3
             phases, amps_s = ft.sample_phases(starts, incs), ft.upsample_amps(amps)
+            alg, fb_amt = args[3], args[4]
             t0 = time.perf_counter()
             ref = ft.exact_pass(phases, amps_s, alg, fb_amt)
             torch.cuda.synchronize()
             row["F2 plain"] = (time.perf_counter() - t0) * 1e3
-            del phases, amps_s
+            t0 = time.perf_counter()
+            loop_ref = ft.feedback_loop_pass(phases, amps_s, alg, fb_amt)
+            torch.cuda.synchronize()
+            row["F2 loop phase plain"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ft.feedforward_pass(phases, amps_s, alg, fb_amt, loop_ref)
+            torch.cuda.synchronize()
+            row["F2 feed-forward phase plain"] = (time.perf_counter() - t0) * 1e3
+            del phases, amps_s, loop_ref
             errs = f1_errors((amps, pitch_fact, starts, incs), want)
-            per_item = (wav - ft.fade_and_volume(ref, nc, d["master_volume"], 22050)).abs().amax(1)
+            e_f2, e_loop, e_ff = (float(e.max()) for e in f2_phase_errors(args, ref))
             # the starts part by the increments' summed last-bit differences
             # over 2,768 ticks: reported; start_step holds F1's recurrence
             gated = {k: v for k, v in F1_BARS.items() if k != "starts"}
             print(f"[F1/F2 at ({B}, {SAMPLES})] F1 against control_pass max|err| {errs} (bars "
-                  f"{gated}); F2 on F1's outputs against exact_pass max|err| "
-                  f"{float(per_item.max()):.3e} over all {B} items (bar 1e-4)", flush=True)
-            if any(errs[k] > bar for k, bar in gated.items()) or float(per_item.max()) > 1e-4:
-                raise AssertionError(f"F1/F2 at ({B}, {SAMPLES}) against the plain loops: F1 "
-                                     f"{errs}, F2 by item {per_item.tolist()}")
-            err_f1, err_f2 = max(err_f1, errs["amps"]), max(err_f2, float(per_item.max()))
+                  f"{gated}); on F1's outputs over all {B} items (bar 1e-4), F2 against "
+                  f"exact_pass max|err| {e_f2:.3e}, loop phase against feedback_loop_pass "
+                  f"{e_loop:.3e}, feed-forward phase against feedforward_pass {e_ff:.3e}",
+                  flush=True)
+            if any(errs[k] > bar for k, bar in gated.items()) or max(e_f2, e_loop, e_ff) > 1e-4:
+                raise AssertionError(f"F1/F2 at ({B}, {SAMPLES}) against the plain versions: F1 "
+                                     f"{errs}, F2 {e_f2}, loop {e_loop}, feed-forward {e_ff}")
+            err["F1"], err["F2"] = max(err["F1"], errs["amps"]), max(err["F2"], e_f2)
+            err["loop"], err["ff"] = max(err["loop"], e_loop), max(err["ff"], e_ff)
             del want, ref
-            # one warp of 32 items alone on the card: the time of F2's
-            # design, which walks each item's samples in one thread
-            one = tuple(t[:, :32].contiguous() for t in args[:3]) + tuple(
-                t[:32].contiguous() for t in args[3:7]) + (22050,)
-            row["F2 one warp"] = cuda_ms(lambda a: ft.fm_exact(*a), [one], reps=3)
-            # the work's serial chain: the feedback loop's operators a
-            # sample, on the items with feedback only
-            loop_ops = [feedback_loop_ops(a) if f > 0 else 0
-                        for a, f in zip(alg.tolist(), fb_amt.tolist())]
-            row["F2 serial sines"] = max(loop_ops) * SAMPLES
-            row["F2 items by loop operators"] = {n: loop_ops.count(n) for n in sorted(set(loop_ops))}
-        for name, (nbytes, flops) in (("F1", fm_control_work(B, n_ticks)),
-                                      ("F2", fm_exact_work(B, SAMPLES))):
-            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-            row[f"{name} bound"] = max(t_b, t_o)
-            row[f"{name} bound_by"] = "operations" if t_o >= t_b else "bytes"
+            # the serial chains: F2 on 32 items of each loop length alone on
+            # the card (loop length 0 is the feed-forward phase only), and
+            # F1 on 8 items (two warps)
+            for n in (0, 1, 2, 3):
+                q = torch.from_numpy(loop_length_presets(0, 32, n)).cuda()
+                _, a32, _ = fm_inputs(q, np.full(32, 60), np.full(32, 85), 22050, n_ticks,
+                                      note_off)
+                got_lengths = set(ft.loop_lengths(a32[3], a32[4]).tolist())
+                if got_lengths != {n}:
+                    raise AssertionError(f"loop-length-{n} presets: lengths {got_lengths}")
+                row[f"F2 32 items loop {n}"] = cuda_ms(lambda a: ft.fm_exact(*a), [a32], reps=3)
+            c8 = ctl[:8].contiguous()
+            row["F1 8 items"] = cuda_ms(lambda c: ft.fm_control(c, n_ticks, note_off, 22050),
+                                        [c8], reps=3)
+            ls = lengths.tolist()
+            row["F2 items by loop length"] = {n: ls.count(n) for n in sorted(set(ls))}
+        for name, work in (("F1", fm_control_work(B, n_ticks)), ("F2", fm_exact_work(B, SAMPLES)),
+                           ("F2 loop phase", fm_loop_work(lengths, n_ticks)),
+                           ("F2 feed-forward phase", fm_ff_work(lengths, n_ticks))):
+            row[f"{name} bound"], row[f"{name} bound_by"] = bound(work)
         entries[B] = row
-        print(f"[F1/F2 timing] ({B}, {SAMPLES}), {-(-B // 32)} warps on {props.multi_processor_count}"
-              f" SMs: {json.dumps(row)}", flush=True)
-        del p, ctl, amps, pitch_fact, starts, incs, args, wav
+        print(f"[F1/F2 timing] ({B}, {SAMPLES}), {props.multi_processor_count} SMs: "
+              f"{json.dumps(row)}", flush=True)
+        del p, ctl, amps, pitch_fact, starts, incs, args
         gc.collect()
         torch.cuda.empty_cache()
-    main = entries[1024]
+    main, big = entries[1024], entries[20480]
+    print(f"[F1/F2 chains] at (1,024, {SAMPLES}): F2 {main['F2']:.3f} ms = "
+          f"{main['F2'] / main['F2 loop phase']:.3f} x its loop phase alone "
+          f"({main['F2 loop phase']:.3f} ms, the measured serial chain; throughput bound "
+          f"{main['F2 bound']:.4f} ms); F2 on 32 items by loop length 0/1/2/3: "
+          + " / ".join(f"{main[f'F2 32 items loop {n}']:.3f}" for n in range(4))
+          + f" ms; F1 {main['F1']:.3f} ms = {main['F1'] / main['F1 8 items']:.3f} x its chain "
+          f"(8 items alone, {main['F1 8 items']:.3f} ms)", flush=True)
     # no Pallas kernel stands behind F1 and F2: they replace the JAX
     # package's XLA scans, and no PyTorch call computes an FM render
     common = {"route": "cuda", "source": "preset_gen_vae_tpu_torch/csrc/fm_render.cu",
               "library_ms": None, "launches": None}
-    f1 = dict(common, name="fm_control", replaces="preset_gen_vae_tpu/synth/fm_jax.py:299",
-              max_abs_err=err_f1, ms=main["F1"],
-              plain_ms=main["F1 plain"], bound_ms=main["F1 bound"],
-              bound_by=main["F1 bound_by"], ms_20480=entries[20480]["F1"])
-    f2 = dict(common, name="fm_exact", replaces="preset_gen_vae_tpu/synth/fm_jax.py:489",
-              max_abs_err=err_f2, ms=main["F2"],
-              plain_ms=main["F2 plain"], bound_ms=main["F2 bound"],
-              bound_by=main["F2 bound_by"], one_warp_ms=main["F2 one warp"],
-              serial_chain_sines=main["F2 serial sines"],
-              ms_20480=entries[20480]["F2"], bound_ms_20480=entries[20480]["F2 bound"],
-              mae_vs_cpp_engine=cpp_mae)
-    return f1, f2
+
+    def entry(name, key, replaces, plain, **kw):
+        return dict(common, name=name, replaces=replaces, max_abs_err=err[key[0]],
+                    ms=main[key[1]], plain_ms=main[plain], bound_ms=main[f"{key[1]} bound"],
+                    bound_by=main[f"{key[1]} bound_by"], ms_20480=big[key[1]],
+                    bound_ms_20480=big[f"{key[1]} bound"], **kw)
+
+    f1 = entry("fm_control", ("F1", "F1"), "preset_gen_vae_tpu/synth/fm_jax.py:299", "F1 plain",
+               serial_chain_ms=main["F1 8 items"])
+    f2 = entry("fm_exact", ("F2", "F2"), "preset_gen_vae_tpu/synth/fm_jax.py:489", "F2 plain",
+               serial_chain_ms=main["F2 loop phase"], phases_in_turn_ms=main["F2 phases in turn"],
+               phases_in_turn_ms_20480=big["F2 phases in turn"],
+               ms_32_items_by_loop_length=[main[f"F2 32 items loop {n}"] for n in range(4)],
+               mae_vs_cpp_engine=cpp_mae)
+    loop = entry("fm_fb_loop", ("loop", "F2 loop phase"), "preset_gen_vae_tpu/synth/fm_jax.py:489",
+                 "F2 loop phase plain")
+    ff = entry("fm_exact_ff", ("ff", "F2 feed-forward phase"),
+               "preset_gen_vae_tpu/synth/fm_jax.py:370", "F2 feed-forward phase plain")
+    return [f1, f2, loop, ff]
 
 
 CORPUS = {"n_synthetic_presets": 1024}  # the main path's synthetic corpus
@@ -566,7 +680,9 @@ def drive(name: str, fn, fm: int = 0):
     """Runs one path of the main path with every kernel's launch count set
     to 0 just before it and read just after; fails unless K1 launched, and
     unless F1 and F2 each launched ``fm`` times (the path's on-device
-    renders: one per note of a 'jax' corpus pass, one per eval batch).
+    renders: one per note of a 'jax' corpus pass, one per eval batch) and
+    F2's two phases (``fm_fb_loop``, ``fm_exact_ff``) once per segment of
+    each F2 call.
     -> (result, launches, wall seconds, peak device GiB)."""
     from preset_gen_vae_tpu_torch.ops import spectrogram as sp
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
@@ -583,8 +699,10 @@ def drive(name: str, fn, fm: int = 0):
     launches = {**sp.LAUNCHES, **ft.LAUNCHES}
     if launches["logmel"] < 1:
         raise AssertionError(f"K1 was not launched on the {name} path: {launches}")
-    if launches["fm_control"] != fm or launches["fm_exact"] != fm:
-        raise AssertionError(f"{name} path: F1/F2 launched {launches}, want {fm} each")
+    n_seg = len(ft.exact_segments(SAMPLES // ft.BLOCK))  # every path renders 4 s notes
+    want = {"fm_control": fm, "fm_exact": fm, "fm_fb_loop": fm * n_seg, "fm_exact_ff": fm * n_seg}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{name} path: F1/F2 launched {launches}, want {want}")
     return result, launches, wall, torch.cuda.max_memory_allocated() / 2**30
 
 
@@ -845,19 +963,20 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     build_kernels()
     k1 = phase_kernels()
-    f1, f2 = phase_fm_kernels()
+    fm = phase_fm_kernels()
     root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     try:
         counts = phase_main_path(root)
         counts.update(phase_variant_paths(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    for entry, key in ((k1, "logmel"), (f1, "fm_control"), (f2, "fm_exact")):
-        entry["launches_by_path"] = {name: c[key] for name, c in counts.items()}
+    kernels = [k1, *fm]
+    for entry in kernels:
+        entry["launches_by_path"] = {name: c[entry["name"]] for name, c in counts.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
         if entry["launches"] < 1:
-            raise AssertionError(f"{key} was launched on no path of the main path")
-    print(json.dumps({"kernels": [k1, f1, f2]}), flush=True)
+            raise AssertionError(f"{entry['name']} was launched on no path of the main path")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,31 +8,55 @@
 // (:370-379), the per-sample phases (:395-397) and the fade, volume and
 // clip (:400-413).
 //
-// What bounds them: F2's sample n+1 needs the feedback loop's output at
-// samples n and n-1. Only that loop (the operators from the feedback
-// destination down to its source, one to three; none at feedback 0) is
-// serial in the work; the other operators depend on no earlier sample.
-// This design runs all six operators of an item's samples one after
-// another in one thread, one thread per item, so with fewer than a few
-// thousand items the card is far from full and the time is one thread's:
-// samples x the latency of six dependent sines. With many items the bound
-// is the f32 arithmetic (~200 operations per item and sample). It keeps
-// everything of an item in registers (the feedback history, the previous
-// tick's amplitudes, the algorithm's bitmasks from constant memory), reads
-// F1's (T, B, 6) arrays so that a warp's 32 items touch 768 contiguous
-// bytes a tick, and writes four samples at a time as one 16-byte store.
+// What bounds them. F1 carries, from one tick to the next, only short
+// chains per item: the EG states, the LFO phase and its LCG, the six
+// wrapped phases. Everything else of a tick is independent per operator,
+// so F1 puts the operators of an item on lanes (8 lanes an item, 4 items
+// a warp): each lane steps the LFO and the pitch EG itself, with the same
+// arithmetic, and then its own operator's EG, amplitude, increment and
+// phase; lane 6 writes the pitch factor. No lane waits on another.
+//
+// F2's sample n+1 needs the feedback loop's output at samples n and n-1.
+// In every algorithm that loop is one modulation chain from the feedback
+// destination down to its source (1-3 operators), nothing outside the
+// loop modulates it, and only the source's output leaves it (the Python
+// loader asserts this of the table). So only the loop is serial in the
+// work, and F2 is two kernels that share the output buffer:
+//  - fm_fb_loop: one thread per item with feedback runs only the loop's
+//    operators, sample after sample, the two-sample history in registers,
+//    and writes the source's output of every sample into out[b, :]. The
+//    wrapper groups the items by loop length, each group from a warp
+//    boundary, so that a warp's items take the same time; items without
+//    feedback exit at once. Bound by its dependent chain: one to three
+//    accurate sines a sample;
+//  - fm_exact_ff: one thread per sample (a block is 8 ticks of one item,
+//    their amplitudes, starts and increments staged in shared memory)
+//    computes every operator off the loop (all six at feedback 0, where
+//    the feedback term is +0), reads the loop's output from out where it
+//    feeds them, and overwrites that element with the finished sample.
+//    Bound by f32 arithmetic, the accurate sines first.
+// Both take a range of ticks, so that the wrapper runs them as a pipeline
+// over segments of ticks: the loop's segments on a high-priority stream,
+// carrying the history from one to the next through a (B, 2) buffer, and
+// each feed-forward segment on the caller's stream once its loop segment
+// is done, overlapping the next one.
 //
 // Numerics follow the plain version op for op: the build passes
 // -fmad=false (no multiply-add contraction) and no --use_fast_math, so
 // sinf, expf and exp2f are the accurate library functions and every
-// product and sum rounds where the torch ops round.
+// product and sum rounds where the torch ops round. Both phases keep the
+// one-thread design's order of operations, so they produce its floats.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define N_OPS 6
 #define BLOCK 32
-#define THREADS 32  // one warp per block, so that few items still spread over many SMs
+#define F1_LANES 8        // lanes per item in F1: 6 operators, the pitch factor, one idle
+#define F1_THREADS 32     // one warp (4 items) per block, so that few items spread over many SMs
+#define LOOP_THREADS 32
+#define FF_TICKS 8        // ticks of one item per feed-forward block
+#define FF_THREADS (FF_TICKS * BLOCK)
 
 // the packed control row, fm_torch.CTL_FIELDS (the CPU tests hold the two equal)
 #define CTL_OP_GAIN_DB 0
@@ -54,14 +78,25 @@
 #define CTL_FREQS 88
 #define CTL_WIDTH 94
 
+// the columns of one algorithm row, fm_torch.ALG_COLUMNS (held equal by the CPU tests)
+#define ALG_MODS 0
+#define ALG_CARRIERS 6
+#define ALG_FB_SRC 7
+#define ALG_FB_DST 8
+#define ALG_LOOP_LEN 9
+#define ALG_LOOP_OPS 10
+#define ALG_LOOP_MASK 13
+#define ALG_WIDTH 14
+
 #define TWO_PI_F 6.2831855f       // float32(2 pi)
 #define MOD_SCALE_F 0.63661975f   // float32(4 / (2 pi))
 #define SH_SEED 0x12345678u
 
 // per algorithm: the modulator bitmask of each operator, the carrier
-// bitmask, the feedback source and destination (fm_torch.algorithm_rows)
-__constant__ int c_alg[32][9];
-static int h_alg[32][9];
+// bitmask, the feedback source and destination, and the feedback loop's
+// length, operators (destination first) and bitmask (fm_torch.algorithm_rows)
+__constant__ int c_alg[32][ALG_WIDTH];
+static int h_alg[32][ALG_WIDTH];
 
 __device__ __forceinline__ float pick4(const float* v, int i) {
   return i == 0 ? v[0] : (i == 1 ? v[1] : (i == 2 ? v[2] : v[3]));
@@ -93,37 +128,33 @@ __device__ __forceinline__ float lfo_wave_value(int wave, float phase, float sh)
   }
 }
 
-// F1: one thread per item walks the T ticks: LFO (S&H LCG in uint32), the
-// pitch EG and the six operator EGs, the AM term and amplitude floor, and
-// the wrapped phase start of each operator. Writes amps, starts and incs as
-// (T, B, 6) and pitch_fact as (T, B).
-__global__ void __launch_bounds__(THREADS)
+// F1: 8 lanes per item walk the T ticks. Every lane steps the LFO (S&H LCG
+// in uint32) and the pitch EG; lane i < 6 then steps operator i's EG, the
+// AM term and amplitude floor, the increment and the wrapped phase start,
+// and writes them into the (T, B, 6) arrays (a warp's 4 items write 96
+// contiguous bytes a tick); lane 6 writes pitch_fact (T, B).
+__global__ void __launch_bounds__(F1_THREADS)
 fm_control_kernel(const float* __restrict__ ctl, int B, int T, int note_off, float fs,
                   float tick_s, float ln10_over_20, float* __restrict__ amps,
                   float* __restrict__ pitch_fact, float* __restrict__ starts,
                   float* __restrict__ incs) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = g / F1_LANES, op = g % F1_LANES;
+  if (b >= B || op > N_OPS) return;
   const float* c = ctl + (size_t)b * CTL_WIDTH;
-  float targets[N_OPS][4], slews[N_OPS][4], gain[N_OPS], ams[N_OPS], freq[N_OPS];
-  float eg[N_OPS], phase[N_OPS];
-  int stage[N_OPS];
-  bool on[N_OPS];
+  const bool is_op = op < N_OPS;
+  const int k_op = is_op ? op : 0;  // lane 6 reads operator 0's row and never uses it
+  float targets[4], slews[4];
 #pragma unroll
-  for (int i = 0; i < N_OPS; ++i) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      targets[i][k] = c[CTL_TARGETS + 4 * i + k];
-      slews[i][k] = c[CTL_SLEWS + 4 * i + k];
-    }
-    gain[i] = c[CTL_OP_GAIN_DB + i];
-    ams[i] = c[CTL_AMS_DB + i];
-    freq[i] = c[CTL_FREQS + i];
-    on[i] = c[CTL_ON + i] > 0.f;
-    eg[i] = c[CTL_EG0 + i];
-    stage[i] = 0;
-    phase[i] = 0.f;
+  for (int k = 0; k < 4; ++k) {
+    targets[k] = c[CTL_TARGETS + 4 * k_op + k];
+    slews[k] = c[CTL_SLEWS + 4 * k_op + k];
   }
+  const float gain = c[CTL_OP_GAIN_DB + k_op], ams = c[CTL_AMS_DB + k_op];
+  const float freq = c[CTL_FREQS + k_op];
+  const bool on = c[CTL_ON + k_op] > 0.f;
+  float eg = c[CTL_EG0 + k_op], phase = 0.f;
+  int stage = 0;
   float peg_targets[4], peg_slews[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -154,62 +185,68 @@ fm_control_kernel(const float* __restrict__ ctl, int B, int T, int note_off, flo
 
     eg_tick(peg, peg_stage, peg_targets, peg_slews, off);
     const float pf = exp2f((peg * 0.08f + lfo * pmd * pms) / 12.f);
-    pitch_fact[(size_t)t * B + b] = pf;
-
-    const float am_lfo = -0.5f * (1.f + lfo) * amd;
-    const size_t row = ((size_t)t * B + b) * N_OPS;
-#pragma unroll
-    for (int i = 0; i < N_OPS; ++i) {
-      eg_tick(eg[i], stage[i], targets[i], slews[i], off);
-      const float tot = fminf(eg[i] + gain[i] + am_lfo * ams[i], 0.f);
-      float amp = on[i] ? expf(tot * ln10_over_20) : 0.f;
-      amp = amp < 1e-6f ? 0.f : amp;
-      const float inc = freq[i] * pf / fs;
-      amps[row + i] = amp;
-      starts[row + i] = phase[i];
-      incs[row + i] = inc;
-      const float nxt = phase[i] + inc * (float)BLOCK;
-      phase[i] = nxt - floorf(nxt);
+    if (!is_op) {
+      pitch_fact[(size_t)t * B + b] = pf;
+      continue;
     }
+    const float am_lfo = -0.5f * (1.f + lfo) * amd;
+    const size_t at = ((size_t)t * B + b) * N_OPS + op;
+    eg_tick(eg, stage, targets, slews, off);
+    const float tot = fminf(eg + gain + am_lfo * ams, 0.f);
+    float amp = on ? expf(tot * ln10_over_20) : 0.f;
+    amp = amp < 1e-6f ? 0.f : amp;
+    const float inc = freq * pf / fs;
+    amps[at] = amp;
+    starts[at] = phase;
+    incs[at] = inc;
+    const float nxt = phase + inc * (float)BLOCK;
+    phase = nxt - floorf(nxt);
   }
 }
 
-// F2: one thread per item walks the N = 32 T samples with the two-sample
-// feedback history in registers; operators run from high to low over the
-// algorithm's modulator bitmasks; the carrier sum is normalised, scaled by
-// the master volume, clipped and faded, and written as (B, N).
-__global__ void __launch_bounds__(THREADS)
-fm_exact_kernel(const float* __restrict__ amps, const float* __restrict__ starts,
-                const float* __restrict__ incs, const int* __restrict__ alg,
-                const float* __restrict__ fb_amt, const float* __restrict__ n_carriers,
-                const float* __restrict__ master_volume, const float* __restrict__ scale,
-                int B, int T, float* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int a = alg[b];
-  int mods[N_OPS];
+// F2, loop phase: the L operators of the feedback loop (ops[0] the
+// destination, ops[L-1] the source) of one item over ticks t0 .. t1-1.
+// The destination's modulation is 0 + the feedback term, each later
+// operator's 0 + the previous one's output, exactly as the one-thread
+// design summed them; the source's output goes to row[n]. The two-sample
+// history enters and leaves through fb (zero at t0 = 0), and the previous
+// tick's amplitudes are read back (zero before tick 0), so that segments
+// run one after another give the floats of one run over all ticks.
+template <int L>
+__device__ __forceinline__ void run_loop(const float* __restrict__ amps,
+                                         const float* __restrict__ starts,
+                                         const float* __restrict__ incs, const int* ops, int b,
+                                         int B, int t0, int t1, float fba, float2* fb,
+                                         float* __restrict__ row) {
+  float4* row4 = reinterpret_cast<float4*>(row);
+  float prev[L], cur[L], st[L], in[L];
 #pragma unroll
-  for (int i = 0; i < N_OPS; ++i) mods[i] = c_alg[a][i];
-  const int carriers = c_alg[a][6], fb_src = c_alg[a][7], fb_dst = c_alg[a][8];
-  const float fba = fb_amt[b], nc = n_carriers[b], mv = master_volume[b];
-  const size_t N = (size_t)T * BLOCK;
-  float4* row_out = reinterpret_cast<float4*>(out + (size_t)b * N);
-
-  float prev[N_OPS];
-#pragma unroll
-  for (int i = 0; i < N_OPS; ++i) prev[i] = 0.f;
+  for (int j = 0; j < L; ++j) {
+    prev[j] = t0 > 0 ? amps[((size_t)(t0 - 1) * B + b) * N_OPS + ops[j]] : 0.f;
+    const size_t at = ((size_t)t0 * B + b) * N_OPS + ops[j];
+    cur[j] = amps[at];
+    st[j] = starts[at];
+    in[j] = incs[at];
+  }
   float fb1 = 0.f, fb2 = 0.f;
-
-  for (int t = 0; t < T; ++t) {
-    const size_t row = ((size_t)t * B + b) * N_OPS;
-    float cur[N_OPS], st[N_OPS], in[N_OPS], dif[N_OPS];
+  if (t0 > 0) {
+    fb1 = fb->x;
+    fb2 = fb->y;
+  }
+  for (int t = t0; t < t1; ++t) {
+    // next tick's loads are issued before this tick's 32 samples
+    float ncur[L], nst[L], nin[L];
+    const int tn = t + 1 < t1 ? t + 1 : t;
 #pragma unroll
-    for (int i = 0; i < N_OPS; ++i) {
-      cur[i] = amps[row + i];
-      st[i] = starts[row + i];
-      in[i] = incs[row + i];
-      dif[i] = cur[i] - prev[i];
+    for (int j = 0; j < L; ++j) {
+      const size_t at = ((size_t)tn * B + b) * N_OPS + ops[j];
+      ncur[j] = amps[at];
+      nst[j] = starts[at];
+      nin[j] = incs[at];
     }
+    float dif[L];
+#pragma unroll
+    for (int j = 0; j < L; ++j) dif[j] = cur[j] - prev[j];
     for (int q = 0; q < BLOCK / 4; ++q) {
       float v[4];
 #pragma unroll
@@ -217,66 +254,181 @@ fm_exact_kernel(const float* __restrict__ amps, const float* __restrict__ starts
         const float s = (float)(4 * q + k + 1);
         const float w = s / (float)BLOCK;
         const float fb_term = 0.5f * (fb1 + fb2) * fba;
-        float y[N_OPS];
+        float y = 0.f;
 #pragma unroll
-        for (int i = N_OPS - 1; i >= 0; --i) {
+        for (int j = 0; j < L; ++j) {
           float mod = 0.f;
-#pragma unroll
-          for (int m = i + 1; m < N_OPS; ++m)
-            if ((mods[i] >> m) & 1) mod = mod + y[m];
-          if (fb_dst == i) mod = mod + fb_term;
-          const float amp = prev[i] + dif[i] * w;
-          const float ph = st[i] + in[i] * s;
-          y[i] = sinf(TWO_PI_F * (ph + mod * MOD_SCALE_F)) * amp;
-        }
-        float sample = 0.f, fb_new = 0.f;
-#pragma unroll
-        for (int i = 0; i < N_OPS; ++i) {
-          if ((carriers >> i) & 1) sample = sample + y[i];
-          if (fb_src == i) fb_new = y[i];
+          mod = mod + (j == 0 ? fb_term : y);
+          const float amp = prev[j] + dif[j] * w;
+          const float ph = st[j] + in[j] * s;
+          y = sinf(TWO_PI_F * (ph + mod * MOD_SCALE_F)) * amp;
         }
         fb2 = fb1;
-        fb1 = fb_new;
-        const float o = fminf(fmaxf(sample / nc * mv, -1.f), 1.f);
-        v[k] = o * scale[(size_t)t * BLOCK + 4 * q + k];
+        fb1 = y;
+        v[k] = y;
       }
-      row_out[(size_t)t * (BLOCK / 4) + q] = make_float4(v[0], v[1], v[2], v[3]);
+      row4[(size_t)t * (BLOCK / 4) + q] = make_float4(v[0], v[1], v[2], v[3]);
     }
 #pragma unroll
-    for (int i = 0; i < N_OPS; ++i) prev[i] = cur[i];
+    for (int j = 0; j < L; ++j) {
+      prev[j] = cur[j];
+      cur[j] = ncur[j];
+      st[j] = nst[j];
+      in[j] = nin[j];
+    }
   }
+  *fb = make_float2(fb1, fb2);
+}
+
+// F2, loop phase: thread i takes item slots[i]. The wrapper groups the
+// items by loop length, each group starting at a warp boundary, so that
+// every warp runs one length; -1 slots (the padding) and items without
+// feedback exit at once.
+__global__ void __launch_bounds__(LOOP_THREADS)
+fm_fb_loop_kernel(const float* __restrict__ amps, const float* __restrict__ starts,
+                  const float* __restrict__ incs, const int* __restrict__ alg,
+                  const float* __restrict__ fb_amt, const int* __restrict__ slots, int n_slots,
+                  int B, int T, int t0, int t1, float2* __restrict__ fb,
+                  float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_slots) return;
+  const int b = slots[i];
+  if (b < 0) return;
+  const float fba = fb_amt[b];
+  if (fba == 0.f) return;
+  const int a = alg[b];
+  const int len = c_alg[a][ALG_LOOP_LEN];
+  const int ops[3] = {c_alg[a][ALG_LOOP_OPS], c_alg[a][ALG_LOOP_OPS + 1],
+                      c_alg[a][ALG_LOOP_OPS + 2]};
+  float* row = out + (size_t)b * T * BLOCK;
+  if (len == 1) run_loop<1>(amps, starts, incs, ops, b, B, t0, t1, fba, fb + b, row);
+  else if (len == 2) run_loop<2>(amps, starts, incs, ops, b, B, t0, t1, fba, fb + b, row);
+  else run_loop<3>(amps, starts, incs, ops, b, B, t0, t1, fba, fb + b, row);
+}
+
+// F2, feed-forward phase: block (b, j) takes ticks t_begin + 8j .. +7 of
+// item b (below t_end), one sample a thread. Operators run from high to
+// low over the algorithm's modulator bitmasks; on an item with feedback
+// the loop's operators are not computed and the source's output is read
+// from out. The carrier sum is normalised, scaled by the master volume,
+// clipped and faded, and written over the same element of out.
+__global__ void __launch_bounds__(FF_THREADS)
+fm_exact_ff_kernel(const float* __restrict__ amps, const float* __restrict__ starts,
+                   const float* __restrict__ incs, const int* __restrict__ alg,
+                   const float* __restrict__ fb_amt, const float* __restrict__ n_carriers,
+                   const float* __restrict__ master_volume, const float* __restrict__ scale,
+                   int B, int T, int t_begin, int t_end, int n_tblk,
+                   float* __restrict__ out) {
+  const int b = blockIdx.x / n_tblk;
+  const int t0 = t_begin + (blockIdx.x % n_tblk) * FF_TICKS;
+  // s_amp[k] is tick t0 + k - 1's amplitudes (zero before tick 0)
+  __shared__ float s_amp[FF_TICKS + 1][N_OPS], s_st[FF_TICKS][N_OPS], s_in[FF_TICKS][N_OPS];
+  const int tid = threadIdx.x;
+  if (tid < (FF_TICKS + 1) * N_OPS) {
+    const int t = t0 + tid / N_OPS - 1;
+    s_amp[tid / N_OPS][tid % N_OPS] =
+        (t >= 0 && t < t_end) ? amps[((size_t)t * B + b) * N_OPS + tid % N_OPS] : 0.f;
+  } else if (tid < (2 * FF_TICKS + 1) * N_OPS) {
+    const int e = tid - (FF_TICKS + 1) * N_OPS, t = t0 + e / N_OPS;
+    s_st[e / N_OPS][e % N_OPS] = t < t_end ? starts[((size_t)t * B + b) * N_OPS + e % N_OPS] : 0.f;
+  } else if (tid < (3 * FF_TICKS + 1) * N_OPS) {
+    const int e = tid - (2 * FF_TICKS + 1) * N_OPS, t = t0 + e / N_OPS;
+    s_in[e / N_OPS][e % N_OPS] = t < t_end ? incs[((size_t)t * B + b) * N_OPS + e % N_OPS] : 0.f;
+  }
+  __syncthreads();
+  const int k = tid / BLOCK;
+  if (t0 + k >= t_end) return;
+  const int a = alg[b];
+  int mods[N_OPS];
+#pragma unroll
+  for (int i = 0; i < N_OPS; ++i) mods[i] = c_alg[a][ALG_MODS + i];
+  const int carriers = c_alg[a][ALG_CARRIERS], fb_src = c_alg[a][ALG_FB_SRC];
+  const int fb_dst = c_alg[a][ALG_FB_DST];
+  const int loop = fb_amt[b] != 0.f ? c_alg[a][ALG_LOOP_MASK] : 0;
+  const size_t n = (size_t)(t0 + k) * BLOCK + tid % BLOCK;
+  float* at = out + (size_t)b * T * BLOCK + n;
+  const float s = (float)(tid % BLOCK + 1);
+  const float w = s / (float)BLOCK;
+
+  float y[N_OPS];
+#pragma unroll
+  for (int i = N_OPS - 1; i >= 0; --i) {
+    if ((loop >> i) & 1) {
+      // only the source's output leaves the loop; the others feed no one here
+      y[i] = i == fb_src ? *at : 0.f;
+      continue;
+    }
+    float mod = 0.f;
+#pragma unroll
+    for (int m = i + 1; m < N_OPS; ++m)
+      if ((mods[i] >> m) & 1) mod = mod + y[m];
+    if (fb_dst == i) mod = mod + 0.f;  // feedback 0: the term is +0
+    const float prev = s_amp[k][i];
+    const float dif = s_amp[k + 1][i] - prev;
+    const float amp = prev + dif * w;
+    const float ph = s_st[k][i] + s_in[k][i] * s;
+    y[i] = sinf(TWO_PI_F * (ph + mod * MOD_SCALE_F)) * amp;
+  }
+  float sample = 0.f;
+#pragma unroll
+  for (int i = 0; i < N_OPS; ++i)
+    if ((carriers >> i) & 1) sample = sample + y[i];
+  const float o = fminf(fmaxf(sample / n_carriers[b] * master_volume[b], -1.f), 1.f);
+  *at = o * scale[n];
+}
+
+static cudaError_t upload_algorithms(cudaStream_t stream) {
+  return cudaMemcpyToSymbolAsync(c_alg, h_alg, sizeof(h_alg), 0, cudaMemcpyHostToDevice, stream);
 }
 
 extern "C" {
 
 int fm_ctl_width() { return CTL_WIDTH; }
+int fm_alg_width() { return ALG_WIDTH; }
 
-// keeps the (32, 9) algorithm table on the host; each F2 launch copies it
-// into constant memory on its stream, so every device gets it
+// keeps the (32, ALG_WIDTH) algorithm table on the host; each F2 launch
+// copies it into constant memory on its stream, so every device gets it
 int fm_set_algorithms(const int* table) {
   for (int a = 0; a < 32; ++a)
-    for (int k = 0; k < 9; ++k) h_alg[a][k] = table[9 * a + k];
+    for (int k = 0; k < ALG_WIDTH; ++k) h_alg[a][k] = table[ALG_WIDTH * a + k];
   return 0;
 }
 
 int fm_control_launch(const float* ctl, int B, int T, int note_off, float fs, float tick_s,
                       float ln10_over_20, float* amps, float* pitch_fact, float* starts,
                       float* incs, cudaStream_t stream) {
-  const int grid = (B + THREADS - 1) / THREADS;
-  fm_control_kernel<<<grid, THREADS, 0, stream>>>(ctl, B, T, note_off, fs, tick_s,
-                                                   ln10_over_20, amps, pitch_fact, starts, incs);
+  const long threads = (long)B * F1_LANES;
+  const int grid = (int)((threads + F1_THREADS - 1) / F1_THREADS);
+  fm_control_kernel<<<grid, F1_THREADS, 0, stream>>>(ctl, B, T, note_off, fs, tick_s,
+                                                     ln10_over_20, amps, pitch_fact, starts,
+                                                     incs);
   return (int)cudaGetLastError();
 }
 
-int fm_exact_launch(const float* amps, const float* starts, const float* incs, const int* alg,
-                    const float* fb_amt, const float* n_carriers, const float* master_volume,
-                    const float* scale, int B, int T, float* out, cudaStream_t stream) {
-  cudaError_t err = cudaMemcpyToSymbolAsync(c_alg, h_alg, sizeof(h_alg), 0,
-                                            cudaMemcpyHostToDevice, stream);
+int fm_fb_loop_launch(const float* amps, const float* starts, const float* incs, const int* alg,
+                      const float* fb_amt, const int* slots, int n_slots, int B, int T, int t0,
+                      int t1, float* fb, float* out, cudaStream_t stream) {
+  cudaError_t err = upload_algorithms(stream);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (B + THREADS - 1) / THREADS;
-  fm_exact_kernel<<<grid, THREADS, 0, stream>>>(amps, starts, incs, alg, fb_amt, n_carriers,
-                                                 master_volume, scale, B, T, out);
+  const int grid = (n_slots + LOOP_THREADS - 1) / LOOP_THREADS;
+  fm_fb_loop_kernel<<<grid, LOOP_THREADS, 0, stream>>>(amps, starts, incs, alg, fb_amt, slots,
+                                                       n_slots, B, T, t0, t1,
+                                                       reinterpret_cast<float2*>(fb), out);
+  return (int)cudaGetLastError();
+}
+
+int fm_exact_ff_launch(const float* amps, const float* starts, const float* incs, const int* alg,
+                       const float* fb_amt, const float* n_carriers, const float* master_volume,
+                       const float* scale, int B, int T, int t_begin, int t_end, float* out,
+                       cudaStream_t stream) {
+  cudaError_t err = upload_algorithms(stream);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tblk = (t_end - t_begin + FF_TICKS - 1) / FF_TICKS;
+  const long grid = (long)B * n_tblk;
+  if (grid > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
+  fm_exact_ff_kernel<<<(unsigned)grid, FF_THREADS, 0, stream>>>(
+      amps, starts, incs, alg, fb_amt, n_carriers, master_volume, scale, B, T, t_begin, t_end,
+      n_tblk, out);
   return (int)cudaGetLastError();
 }
 

@@ -235,9 +235,17 @@ class DexedDataset:
                 raw[s:s + n, note_i] = self.spectrogram(torch.from_numpy(wav).to(self.device))
         mn, mx = torch.aminmax(raw)
         self.spec_stats = {"min": float(mn), "max": float(mx)}
-        if self.spectrogram_normalization == "min_max":  # abstract_dataset.py:548-556
-            raw = normalize_min_max(raw, (mn, mx))
-        return raw.to(self.corpus_dtype)
+        if self.spectrogram_normalization is None:
+            return raw.to(self.corpus_dtype)
+        # the JAX package serves the normalised corpus rounded through its
+        # float16 disk tier (abstract_dataset.py:371-377), so the values
+        # cast to the corpus dtype are those f16 values; 64 presets at a
+        # time, so that the temporaries stay small beside the two buffers
+        corpus = torch.empty(raw.shape, dtype=self.corpus_dtype, device=self.device)
+        for s in range(0, P, CORPUS_CHUNK):
+            x = normalize_min_max(raw[s:s + CORPUS_CHUNK], (mn, mx))  # abstract_dataset.py:548-556
+            corpus[s:s + CORPUS_CHUNK] = x.to(torch.float16).to(self.corpus_dtype)
+        return corpus
 
     def _fm_corpus(self) -> torch.Tensor:
         """The 'jax' backend's pass (abstract_dataset.py:380-546 in meaning)."""

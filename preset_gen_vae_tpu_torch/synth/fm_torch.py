@@ -14,13 +14,20 @@ not the C++ engine's interpolated table.
   and the ``'exact'`` one as a Python loop over the samples
   (``exact_pass``). They stay differentiable, and run on any device, so
   that the kernels can be held against them on the card;
-- a tensor on the card launches F1 (``fm_control``: one thread per item
-  walks the ticks) and then F2 (``fm_exact``: one thread per item walks the
-  samples, carrying the two-sample feedback history in registers), or, for
-  ``'unrolled'``, F1 and the vectorized pass in torch ops. Both kernels live
-  in ``csrc/fm_render.cu``, are built with nvcc at first use and bound with
-  ctypes. They are forward-only: an input that requires a gradient raises,
-  as does a failed build or launch. Nothing falls back to the plain loops.
+- a tensor on the card launches F1 (``fm_control``: 8 lanes per item, one
+  per operator, walk the ticks) and then F2 (``fm_exact``), or, for
+  ``'unrolled'``, F1 and the vectorized pass in torch ops. F2 is two
+  kernels on one output buffer: ``fm_fb_loop`` runs only the feedback
+  loop's operators (1-3; the one part of the work that is serial over
+  samples) in one thread per item with feedback, and ``fm_exact_ff`` runs
+  every other operator, the carrier sum, the volume, clip and fade, one
+  thread per sample; ``fm_exact`` pipelines them over segments of ticks
+  on two streams. Their plain versions are ``feedback_loop_pass`` and
+  ``feedforward_pass``, which together compute ``exact_pass``. The kernels
+  live in ``csrc/fm_render.cu``, are built with nvcc at first use and
+  bound with ctypes. They are forward-only: an input that requires a
+  gradient raises, as does a failed build or launch. Nothing falls back
+  to the plain loops.
 
 The decode and the per-item constants of the control pass
 (``control_params``) are torch ops on either device; they pack into one
@@ -47,8 +54,10 @@ AMS_DB = np.array([0.0, 1.6, 4.8, 12.0], dtype=np.float32)
 PMS_SEMIS = np.array([0.0, 0.09, 0.20, 0.43, 0.87, 1.79, 3.66, 7.0], dtype=np.float32)
 SH_SEED = 0x12345678  # the S&H LCG's state at note-on (fm_jax.py:336)
 
-# launches of each hand-written kernel, counted by its wrapper at the launch
-LAUNCHES = {"fm_control": 0, "fm_exact": 0}
+# launches of each hand-written kernel, counted by its wrapper at the launch;
+# "fm_exact" counts calls of F2's wrapper, each of which launches
+# "fm_fb_loop" and "fm_exact_ff" once per segment of ``exact_segments``
+LAUNCHES = {"fm_control": 0, "fm_exact": 0, "fm_fb_loop": 0, "fm_exact_ff": 0}
 
 # ---------------------------------------------------------------------------
 # Algorithm table (public DX7 spec; fm_jax.py:56-127, dx7_engine.cc:155-188)
@@ -126,17 +135,62 @@ def _build_mod_depths() -> np.ndarray:
 ALGO_MOD_DEPTH = _build_mod_depths()
 
 
+def feedback_loop(adj, carrier, src: int, dst: int) -> list:
+    """The operators of one algorithm's feedback loop (0-based), from the
+    feedback destination down to its source; ``adj`` (6, 6) [car, mod] and
+    ``carrier`` (6,) are the algorithm's rows of ``ALGO_ADJ`` and
+    ``ALGO_CARRIER``. F2 runs only these operators sample after sample, and
+    that is right only while the loop is one modulation chain from ``dst``
+    down to ``src``, no operator outside the loop modulates it, and only
+    ``src``'s output leaves it: a table that breaks one raises ValueError."""
+    chain = [dst]
+    while True:
+        cur = chain[-1]
+        mods = set(np.flatnonzero(adj[cur]).tolist())
+        if mods - set(chain):
+            raise ValueError(f"feedback loop {dst + 1}->{src + 1}: an operator outside the loop "
+                             f"modulates operator {cur + 1}")
+        if mods != set(chain[-2:-1]):
+            raise ValueError(f"feedback loop {dst + 1}->{src + 1}: not a single chain at "
+                             f"operator {cur + 1}")
+        if cur == src:
+            return chain
+        targets = np.flatnonzero(adj[:, cur]).tolist()
+        if carrier[cur] or len(targets) > 1:
+            raise ValueError(f"feedback loop {dst + 1}->{src + 1}: operator {cur + 1}'s output "
+                             f"leaves the loop")
+        if not targets or targets[0] < src:
+            raise ValueError(f"feedback loop {dst + 1}->{src + 1}: not a single chain at "
+                             f"operator {cur + 1}")
+        chain.append(targets[0])
+
+
+# the columns of one row of ``algorithm_rows``; csrc/fm_render.cu reads the
+# same offsets (its ALG_* defines, checked against these by the CPU tests)
+ALG_COLUMNS = {"MODS": 0, "CARRIERS": 6, "FB_SRC": 7, "FB_DST": 8, "LOOP_LEN": 9,
+               "LOOP_OPS": 10, "LOOP_MASK": 13, "WIDTH": 14}
+ALG_LOOP_LEN, ALG_LOOP_OPS, ALG_LOOP_MASK = (ALG_COLUMNS[k] for k in (
+    "LOOP_LEN", "LOOP_OPS", "LOOP_MASK"))
+
+
 def algorithm_rows() -> np.ndarray:
-    """(32, 9) int32, the table F2 keeps in constant memory: per algorithm
+    """(32, 14) int32, the table F2 keeps in constant memory: per algorithm
     the bitmask of each operator's modulators (6 entries, bit m = operator
-    m+1 modulates it), the carrier bitmask, the feedback source and the
-    feedback destination (0-based)."""
-    rows = np.zeros((32, 9), dtype=np.int32)
+    m+1 modulates it), the carrier bitmask, the feedback source and
+    destination (0-based), the feedback loop's length, its operators from
+    the destination down (3 entries, -1 past the length) and its bitmask.
+    Raises ValueError where ``feedback_loop`` does."""
+    rows = np.full((32, ALG_COLUMNS["WIDTH"]), -1, dtype=np.int32)
     for a in range(32):
         for i in range(N_OPS):
             rows[a, i] = sum(1 << m for m in range(N_OPS) if ALGO_ADJ[a, i, m])
         rows[a, 6] = sum(1 << i for i in range(N_OPS) if ALGO_CARRIER[a, i])
         rows[a, 7], rows[a, 8] = ALGO_FB_SRC[a], ALGO_FB_DST[a]
+        loop = feedback_loop(ALGO_ADJ[a], ALGO_CARRIER[a], int(ALGO_FB_SRC[a]),
+                             int(ALGO_FB_DST[a]))
+        rows[a, ALG_LOOP_LEN] = len(loop)
+        rows[a, ALG_LOOP_OPS:ALG_LOOP_OPS + len(loop)] = loop
+        rows[a, ALG_LOOP_MASK] = sum(1 << i for i in loop)
     return rows
 
 
@@ -510,6 +564,54 @@ def exact_pass(phases, amps, alg, fb_amt):
     return torch.stack(out, dim=1)
 
 
+def feedback_loop_pass(phases, amps, alg, fb_amt):
+    """``fm_fb_loop``'s plain version: a Python loop over the samples that
+    runs only the feedback loop's operators, destination first, as
+    ``exact_pass`` computes them. (B, N): the loop source's output at each
+    sample on the items with feedback, 0 on the others."""
+    B, _, N = phases.shape
+    rows = torch.from_numpy(algorithm_rows()).to(phases.device)[alg.long()]
+    length = rows[:, ALG_LOOP_LEN]
+    idx = rows[:, ALG_LOOP_OPS:ALG_LOOP_OPS + 3].clamp(min=0).long()[:, :, None].expand(B, 3, N)
+    ph = torch.gather(phases, 1, idx).permute(1, 2, 0).contiguous()  # (3, N, B)
+    am = torch.gather(amps, 1, idx).permute(1, 2, 0).contiguous()
+    on = fb_amt != 0
+    n_loop = int(length[on].max()) if bool(on.any()) else 1
+    longer = [length > j for j in range(n_loop)]
+    fb1 = fb2 = zero = phases.new_zeros((B,))
+    out = []
+    for n in range(N):
+        y = 0.5 * (fb1 + fb2) * fb_amt  # the destination's modulation: the feedback term
+        for j in range(n_loop):
+            y_j = torch.sin(TWO_PI * (ph[j, n] + (zero + y) * MOD_SCALE)) * am[j, n]
+            y = y_j if j == 0 else torch.where(longer[j], y_j, y)
+        fb1, fb2 = y, fb1
+        out.append(y)
+    return torch.where(on[:, None], torch.stack(out, dim=1), 0.0)
+
+
+def feedforward_pass(phases, amps, alg, fb_amt, loop_out):
+    """``fm_exact_ff``'s plain version, vectorized over the samples: the
+    operators off the feedback loop (all six at feedback 0, where the
+    feedback term is +0), operators high to low; on the items with
+    feedback the loop's operators are not computed and the source's output
+    is ``loop_out`` (B, N). -> (B, N) carrier sum, as ``exact_pass``'s."""
+    B, _, N = phases.shape
+    adj, carriers, _, _ = _algo(alg, phases.device)
+    rows = torch.from_numpy(algorithm_rows()).to(phases.device)[alg.long()]
+    loop = torch.where(fb_amt != 0, rows[:, ALG_LOOP_MASK], 0)
+    y = [None] * N_OPS
+    for i in range(N_OPS - 1, -1, -1):
+        mod = phases.new_zeros((B, N))
+        for m in range(i + 1, N_OPS):
+            mod = mod + adj[:, i, m, None] * y[m]
+        own = torch.sin(TWO_PI * (phases[:, i] + mod * MOD_SCALE)) * amps[:, i]
+        # a loop operator other than the source modulates only loop
+        # operators and is no carrier, so its value here is never read
+        y[i] = torch.where(((loop >> i) & 1).bool()[:, None], loop_out, own)
+    return (carriers[:, :, None] * torch.stack(y, dim=1)).sum(1)
+
+
 def fade_scale(n_samples: int, sample_rate: int) -> np.ndarray:
     """(N,) float32 linear fade-out over the last 0.1 s (fm_jax.py:406-412)."""
     scale = np.ones(n_samples, dtype=np.float32)
@@ -624,8 +726,11 @@ def fm_build_command():
 
 @functools.lru_cache(maxsize=None)
 def _fm_library() -> ctypes.CDLL:
-    """Builds (first use only) and loads F1 and F2; copies the algorithm
-    table into F2's constant memory. Never called at import."""
+    """Builds (first use only) and loads F1 and F2's two kernels, and hands
+    them the algorithm table, which F2's launches copy into constant
+    memory. The table is built first, so that one whose feedback loops F2
+    cannot split raises before anything is built. Never called at import."""
+    rows = np.ascontiguousarray(algorithm_rows())
     lib = ctypes.CDLL(str(_native.build_shared_library("fm_render", fm_build_command(),
                                                        [FM_SOURCE])))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -633,17 +738,69 @@ def _fm_library() -> ctypes.CDLL:
     lib.fm_set_algorithms.argtypes = [p]
     lib.fm_control_launch.restype = i
     lib.fm_control_launch.argtypes = [p, i, i, i, f, f, f, p, p, p, p, p]
-    lib.fm_exact_launch.restype = i
-    lib.fm_exact_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p]
-    lib.fm_ctl_width.restype = i
-    lib.fm_ctl_width.argtypes = []
-    if lib.fm_ctl_width() != CTL_WIDTH:
-        raise RuntimeError(f"fm_render.cu packs {lib.fm_ctl_width()} columns, Python {CTL_WIDTH}")
-    rows = np.ascontiguousarray(algorithm_rows())
+    lib.fm_fb_loop_launch.restype = i
+    lib.fm_fb_loop_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p, p]
+    lib.fm_exact_ff_launch.restype = i
+    lib.fm_exact_ff_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p, p]
+    for name, want in (("fm_ctl_width", CTL_WIDTH), ("fm_alg_width", rows.shape[1])):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = []
+        if getattr(lib, name)() != want:
+            raise RuntimeError(f"fm_render.cu: {name} {getattr(lib, name)()}, Python {want}")
     err = lib.fm_set_algorithms(rows.ctypes.data)
     if err != 0:
         raise RuntimeError(f"copying the algorithm table failed: cudaError_t {err}")
     return lib
+
+
+@functools.lru_cache(maxsize=8)
+def _loop_lengths(dev) -> torch.Tensor:
+    """(32,) long on ``dev``: each algorithm's feedback-loop length."""
+    return torch.from_numpy(algorithm_rows()[:, ALG_LOOP_LEN].astype(np.int64)).to(dev)
+
+
+@functools.lru_cache(maxsize=8)
+def _loop_stream(dev) -> "torch.cuda.Stream":
+    """The stream of ``fm_exact``'s loop segments: the highest priority, so
+    that the card schedules the serial chain's blocks ahead of the
+    feed-forward blocks queued on the caller's stream."""
+    return torch.cuda.Stream(device=dev, priority=-100)
+
+
+# fm_exact runs its two phases as a pipeline over this many segments of
+# ticks: the feed-forward phase of a segment overlaps the loop phase of the next
+EXACT_SEGMENTS = 8
+
+
+def exact_segments(n_ticks: int):
+    """[(t0, t1), ...]: ``fm_exact``'s segments of ticks, each a multiple of
+    the feed-forward block's 8 ticks long but the last."""
+    seg = -(-(-(-n_ticks // EXACT_SEGMENTS)) // 8) * 8
+    return [(t, min(n_ticks, t + seg)) for t in range(0, n_ticks, seg)]
+
+
+def loop_lengths(alg, fb_amt) -> torch.Tensor:
+    """(B,) long: each item's feedback-loop length, the operators F2's loop
+    phase runs one sample after another (1-3), 0 at feedback 0."""
+    return _loop_lengths(alg.device)[alg.long()] * (fb_amt != 0)
+
+
+def loop_slots(alg, fb_amt) -> torch.Tensor:
+    """(B + 96,) int32: the loop phase's item of each thread, the items
+    grouped by feedback-loop length (0, then 1, 2, 3), each group starting
+    at a multiple of 32, so that a warp's items all take the same time; -1
+    pads. Device ops only: no host sync."""
+    dev, B = alg.device, alg.shape[0]
+    length = loop_lengths(alg, fb_amt)
+    counts = (length[:, None] == torch.arange(4, device=dev)).sum(0)
+    padded = (counts + 31) // 32 * 32
+    order = torch.argsort(length, stable=True)
+    group = length[order]
+    slot = (torch.cumsum(padded, 0) - padded)[group] + torch.arange(B, device=dev) \
+        - (torch.cumsum(counts, 0) - counts)[group]
+    slots = torch.full((B + 96,), -1, dtype=torch.int32, device=dev)
+    slots[slot] = order.to(torch.int32)
+    return slots
 
 
 def _check(name, t, dtype, shape, dev):
@@ -680,32 +837,100 @@ def fm_control(ctl, n_ticks: int, note_off_sample: int, sample_rate: int):
     return amps, pitch_fact, starts, incs
 
 
-def fm_exact(amps, starts, incs, alg, fb_amt, n_carriers, master_volume, sample_rate: int):
-    """F2's wrapper: F1's (T, B, 6) arrays and the per-item algorithm (int32),
-    feedback gain, carrier count and master volume -> (B, T*32) float32
-    waveforms, faded, scaled and clipped: the buffer K1 reads."""
+def _check_exact(amps, starts, incs, alg, fb_amt, *per_item):
     dev = amps.device
     if dev.type != "cuda":
         raise ValueError(f"F2 runs on the card; the plain version is exact_pass ({dev})")
     T, B, _ = amps.shape
-    N = T * BLOCK
     for name, t in (("amps", amps), ("starts", starts), ("incs", incs)):
         _check(name, t, torch.float32, (T, B, N_OPS), dev)
     _check("alg", alg, torch.int32, (B,), dev)
-    for name, t in (("fb_amt", fb_amt), ("n_carriers", n_carriers),
-                    ("master_volume", master_volume)):
+    for name, t in zip(("fb_amt", "n_carriers", "master_volume"), (fb_amt, *per_item)):
         _check(name, t, torch.float32, (B,), dev)
-    out = torch.empty((B, N), dtype=torch.float32, device=dev)  # 256-byte aligned
-    scale = _fade_table(N, int(sample_rate), dev)
+    return dev, T, B
+
+
+def _launch_loop(lib, amps, starts, incs, alg, fb_amt, slots, t0, t1, fb, out, stream):
+    T, B, _ = amps.shape
+    err = lib.fm_fb_loop_launch(
+        amps.data_ptr(), starts.data_ptr(), incs.data_ptr(), alg.data_ptr(), fb_amt.data_ptr(),
+        slots.data_ptr(), slots.shape[0], B, T, t0, t1, fb.data_ptr(), out.data_ptr(),
+        stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fm_fb_loop kernel launch failed: cudaError_t {err}")
+    LAUNCHES["fm_fb_loop"] += 1
+
+
+def _launch_ff(lib, out, amps, starts, incs, alg, fb_amt, n_carriers, master_volume, scale, t0,
+               t1, stream):
+    T, B, _ = amps.shape
+    err = lib.fm_exact_ff_launch(
+        amps.data_ptr(), starts.data_ptr(), incs.data_ptr(), alg.data_ptr(), fb_amt.data_ptr(),
+        n_carriers.data_ptr(), master_volume.data_ptr(), scale.data_ptr(), B, T, t0, t1,
+        out.data_ptr(), stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fm_exact_ff kernel launch failed: cudaError_t {err}")
+    LAUNCHES["fm_exact_ff"] += 1
+
+
+def fm_exact(amps, starts, incs, alg, fb_amt, n_carriers, master_volume, sample_rate: int):
+    """F2's wrapper: F1's (T, B, 6) arrays and the per-item algorithm (int32),
+    feedback gain, carrier count and master volume -> (B, T*32) float32
+    waveforms, faded, scaled and clipped: the buffer K1 reads. Runs the
+    loop phase (``fm_fb_loop``) and the feed-forward phase
+    (``fm_exact_ff``) on one buffer as a pipeline over ``exact_segments``:
+    each loop segment on a high-priority side stream, and the feed-forward
+    segment that reads it on the caller's stream once it is done, so that
+    the feed-forward work overlaps the next loop segment."""
+    dev, T, B = _check_exact(amps, starts, incs, alg, fb_amt, n_carriers, master_volume)
+    out = torch.empty((B, T * BLOCK), dtype=torch.float32, device=dev)  # 256-byte aligned
+    fb = torch.empty((B, 2), dtype=torch.float32, device=dev)  # the loop's two-sample history
+    slots = loop_slots(alg, fb_amt)
+    scale = _fade_table(T * BLOCK, int(sample_rate), dev)
+    lib = _fm_library()
+    main, side = torch.cuda.current_stream(dev), _loop_stream(dev)
+    side.wait_stream(main)
+    for t in (amps, starts, incs, alg, fb_amt, slots, fb, out):
+        t.record_stream(side)  # no reuse of their memory before the side stream is done
+    with torch.cuda.device(dev):
+        for t0, t1 in exact_segments(T):
+            _launch_loop(lib, amps, starts, incs, alg, fb_amt, slots, t0, t1, fb, out, side)
+            main.wait_stream(side)
+            _launch_ff(lib, out, amps, starts, incs, alg, fb_amt, n_carriers, master_volume,
+                       scale, t0, t1, main)
+    LAUNCHES["fm_exact"] += 1
+    return out
+
+
+def fm_fb_loop(amps, starts, incs, alg, fb_amt):
+    """F2's loop phase alone over all ticks, on the caller's stream: ->
+    (B, T*32) float32 whose rows of items with feedback hold the loop
+    source's output at every sample (``feedback_loop_pass``); the other
+    rows are left unwritten."""
+    dev, T, B = _check_exact(amps, starts, incs, alg, fb_amt)
+    out = torch.empty((B, T * BLOCK), dtype=torch.float32, device=dev)
+    fb = torch.empty((B, 2), dtype=torch.float32, device=dev)
+    slots = loop_slots(alg, fb_amt)
     lib = _fm_library()
     with torch.cuda.device(dev):
-        err = lib.fm_exact_launch(
-            amps.data_ptr(), starts.data_ptr(), incs.data_ptr(), alg.data_ptr(),
-            fb_amt.data_ptr(), n_carriers.data_ptr(), master_volume.data_ptr(),
-            scale.data_ptr(), B, T, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fm_exact kernel launch failed: cudaError_t {err}")
-    LAUNCHES["fm_exact"] += 1
+        _launch_loop(lib, amps, starts, incs, alg, fb_amt, slots, 0, T, fb, out,
+                     torch.cuda.current_stream(dev))
+    return out
+
+
+def fm_exact_ff(out, amps, starts, incs, alg, fb_amt, n_carriers, master_volume,
+                sample_rate: int):
+    """F2's feed-forward phase alone over all ticks, in place: reads the loop
+    source's output from ``out`` (B, T*32) on the items with feedback and
+    overwrites every element with the finished sample (``fade_and_volume``
+    of ``feedforward_pass``); returns ``out``."""
+    dev, T, B = _check_exact(amps, starts, incs, alg, fb_amt, n_carriers, master_volume)
+    _check("out", out, torch.float32, (B, T * BLOCK), dev)
+    scale = _fade_table(T * BLOCK, int(sample_rate), dev)
+    lib = _fm_library()
+    with torch.cuda.device(dev):
+        _launch_ff(lib, out, amps, starts, incs, alg, fb_amt, n_carriers, master_volume, scale,
+                   0, T, torch.cuda.current_stream(dev))
     return out
 
 

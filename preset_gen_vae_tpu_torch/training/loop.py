@@ -21,7 +21,9 @@ train.py:37-342), with its epoch semantics:
   (epoch > 0), at the last epoch and on early stop (loop.py:869-875).
 
 The JAX-only dispatch machinery (meshes, multi-host, K-step scans) has no
-counterpart here.
+counterpart here. The step profiler (``profiler_args['enabled']``, which
+traces 5 steps in the JAX loop, loop.py:459-487 there) is not ported yet:
+asking for it raises ``NotImplementedError``.
 
     from preset_gen_vae_tpu_torch.training.loop import train_config
     summary = train_config(ModelConfig(), TrainConfig(n_epochs=1))  # on the card
@@ -131,6 +133,9 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
                                    train_config or cfg.TrainConfig())
     if train_c.start_epoch >= train_c.n_epochs:
         raise ValueError(f"start_epoch {train_c.start_epoch} >= n_epochs {train_c.n_epochs}")
+    if train_c.profiler_args.get("enabled"):
+        raise NotImplementedError("profiler_args['enabled']: the step profiler is not ported to "
+                                  "the PyTorch package yet")
     if dev.type == "cuda" and train_c.compute_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False  # float32 convolutions in full f32
     model_c, train_c, dataset = prepare_dataset(model_c, train_c, dev, dataset, dataset_kwargs)

@@ -2,9 +2,12 @@
 against the JAX package's (``preset_gen_vae_tpu/synth/fm_jax.py``) on the
 same seeded presets, on the CPU, at short renders (1,024 to 4,096 samples):
 the decode, the control pass, the S&H generator, both feedback modes of
-the render, and the gradient of the unrolled render. Kernels F1 and F2
+the render, and the gradient of the unrolled render; F2's two phases'
+plain versions (``feedback_loop_pass``, ``feedforward_pass``) against
+``exact_pass``, and the feedback loops they split off. Kernels F1 and F2
 (``csrc/fm_render.cu``) run only on the card (marked ``cuda``); their
-layout constants and tables are checked here against the Python side.
+layout constants, tables and entry points are checked here against the
+Python side.
 
 Measured on the CPU (torch 2.13, jax on the CPU), against the bars below:
 decode bit-equal; control pass amplitudes 9.5e-7, pitch factor 1.2e-7,
@@ -210,31 +213,157 @@ def test_algorithm_tables_match_jax_and_the_kernel_rows():
     for name in ("ALGO_ADJ", "ALGO_CARRIER", "ALGO_FB_SRC", "ALGO_FB_DST", "ALGO_MOD_DEPTH"):
         np.testing.assert_array_equal(getattr(ft, name), getattr(fm_jax, name), err_msg=name)
     rows = ft.algorithm_rows()
+    assert rows.shape == (32, ft.ALG_COLUMNS["WIDTH"])
     for a in range(32):
         for i in range(6):
             assert [(rows[a, i] >> m) & 1 for m in range(6)] == ft.ALGO_ADJ[a, i].tolist()
         assert [(rows[a, 6] >> i) & 1 for i in range(6)] == ft.ALGO_CARRIER[a].tolist()
         assert (rows[a, 7], rows[a, 8]) == (ft.ALGO_FB_SRC[a], ft.ALGO_FB_DST[a])
+        n = rows[a, ft.ALG_LOOP_LEN]
+        loop = rows[a, ft.ALG_LOOP_OPS:ft.ALG_LOOP_OPS + 3].tolist()
+        assert loop[n:] == [-1] * (3 - n)
+        assert rows[a, ft.ALG_LOOP_MASK] == sum(1 << i for i in loop[:n])
+
+
+def loop_of(a):
+    """Algorithm ``a``'s feedback loop read straight from fm_torch's tables:
+    the operators on a modulation path from the destination down to the
+    source, both included (edges run from higher to lower operators)."""
+    src, dst = int(ft.ALGO_FB_SRC[a]), int(ft.ALGO_FB_DST[a])
+    reach = {src}
+    for x in range(src + 1, dst + 1):
+        if any(ft.ALGO_ADJ[a, c, x] for c in reach):
+            reach.add(x)
+    down = {dst}
+    for x in range(dst - 1, src - 1, -1):
+        if any(ft.ALGO_ADJ[a, x, m] for m in down):
+            down.add(x)
+    return sorted(reach & down, reverse=True)
+
+
+@pytest.mark.parametrize("a", range(32), ids=lambda a: f"algorithm{a + 1}")
+def test_feedback_loop_is_a_chain_only_its_source_leaves(a):
+    """The three properties that let F2 run only the feedback loop sample
+    after sample: the loop is one modulation chain from the destination
+    down to the source; no operator outside it modulates it; only the
+    source's output leaves it (as a modulator or a carrier). Loop lengths
+    over the 32 algorithms: 1 in 30, 2 in algorithm 6, 3 in algorithm 4."""
+    loop = loop_of(a)
+    adj, car = ft.ALGO_ADJ[a], ft.ALGO_CARRIER[a]
+    assert loop[0] == ft.ALGO_FB_DST[a] and loop[-1] == ft.ALGO_FB_SRC[a]
+    for hi, lo in zip(loop, loop[1:]):
+        assert np.flatnonzero(adj[lo]).tolist() == [hi]  # a chain, fed from inside only
+    assert not adj[loop[0]].any()
+    for op in loop[:-1]:
+        assert not car[op] and np.flatnonzero(adj[:, op]).tolist() == [loop[loop.index(op) + 1]]
+    assert ft.feedback_loop(adj, car, int(ft.ALGO_FB_SRC[a]), int(ft.ALGO_FB_DST[a])) == loop
+    assert len(loop) == {3: 3, 5: 2}.get(a, 1)
+
+
+class _FakeFn:
+    def __init__(self, ret):
+        self.ret, self.restype, self.argtypes = ret, None, None
+
+    def __call__(self, *args):
+        return self.ret
+
+
+def _fake_library(monkeypatch):
+    """Stubs the nvcc build and the ctypes load: ``_fm_library`` then binds a
+    stand-in whose entry points record their argtypes."""
+    names = re.findall(r"^int (fm_\w+)\(", ft.FM_SOURCE.read_text(), flags=re.M)
+    ret = {"fm_ctl_width": ft.CTL_WIDTH, "fm_alg_width": ft.ALG_COLUMNS["WIDTH"]}
+    lib = type("FakeLib", (), {})()
+    for name in names:
+        setattr(lib, name, _FakeFn(ret.get(name, 0)))
+    built = []
+    monkeypatch.setattr(ft._native, "build_shared_library", lambda *a: built.append(a) or "x.so")
+    monkeypatch.setattr(ft.ctypes, "CDLL", lambda path: lib)
+    return lib, built
+
+
+@pytest.mark.parametrize("broken", ["outside_modulator", "not_a_chain", "leaves_the_loop"])
+def test_loader_refuses_a_table_whose_loop_f2_cannot_split(monkeypatch, broken):
+    """The loader checks the three properties before it builds anything: a
+    table patched to break one raises ValueError and builds nothing."""
+    adj, car = ft.ALGO_ADJ.copy(), ft.ALGO_CARRIER.copy()
+    if broken == "outside_modulator":  # algorithm 2: operator 3 modulates the loop's operator 2
+        adj[1, 1, 2] = 1.0
+        match = "outside the loop modulates operator 2"
+    elif broken == "not_a_chain":  # algorithm 4: the chain 6->5->4 loses its edge 5->4
+        adj[3, 3, 4] = 0.0
+        match = "not a single chain at operator 5"
+    else:  # algorithm 4: operator 5, inside the loop, becomes a carrier
+        car[3, 4] = 1.0
+        match = "operator 5's output leaves the loop"
+    _, built = _fake_library(monkeypatch)
+    monkeypatch.setattr(ft, "ALGO_ADJ", adj)
+    monkeypatch.setattr(ft, "ALGO_CARRIER", car)
+    with pytest.raises(ValueError, match=match):
+        ft._fm_library.__wrapped__()
+    assert built == []
 
 
 def test_kernel_source_reads_the_python_layout():
-    """F1 reads the packed control row at the offsets of ``CTL_FIELDS``;
-    the constants of csrc/fm_render.cu are the plain version's floats."""
+    """F1 reads the packed control row at the offsets of ``CTL_FIELDS``, F2
+    the algorithm rows at the columns of ``ALG_COLUMNS``; the constants of
+    csrc/fm_render.cu are the plain version's floats."""
     src = ft.FM_SOURCE.read_text()
     defines = dict(re.findall(r"#define (CTL_\w+) (\d+)", src))
     want = {f"CTL_{name.upper()}": str(off) for name, off in ft.CTL_OFFSETS.items()}
     want["CTL_WIDTH"] = str(ft.CTL_WIDTH)
     assert defines == want
+    alg = dict(re.findall(r"#define ALG_(\w+) (\d+)", src))
+    assert alg == {k: str(v) for k, v in ft.ALG_COLUMNS.items()}
     consts = dict(re.findall(r"#define (\w+_F) ([0-9.]+)f", src))
     assert np.float32(consts["TWO_PI_F"]) == np.float32(ft.TWO_PI)
     assert np.float32(consts["MOD_SCALE_F"]) == np.float32(ft.MOD_SCALE)
     assert f"#define SH_SEED {hex(ft.SH_SEED)}u" in src
 
 
-def test_kernel_build_command():
+def test_kernel_build_command(monkeypatch):
+    """nvcc for sm_90a without fast math and without multiply-add
+    contraction; every C entry point of the source is bound with as many
+    argtypes as it has parameters, and the kernels' launchers are F1's and
+    F2's two phases."""
     cmd = ft.fm_build_command()
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd and "-fmad=false" in cmd
     assert "--use_fast_math" not in cmd and "-use_fast_math" not in cmd
+    src = ft.FM_SOURCE.read_text()
+    params = {name: len([a for a in args.split(",") if a.strip()]) for name, args in
+              re.findall(r"^int (fm_\w+)\(([^)]*)\)", src, flags=re.M)}
+    assert sorted(n for n in params if n.endswith("_launch")) == [
+        "fm_control_launch", "fm_exact_ff_launch", "fm_fb_loop_launch"]
+    lib, built = _fake_library(monkeypatch)
+    assert ft._fm_library.__wrapped__() is lib and len(built) == 1
+    assert built[0][1] == cmd and built[0][2] == [ft.FM_SOURCE]
+    for name, n in params.items():
+        assert len(getattr(lib, name).argtypes) == n, name
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_loop_and_feedforward_passes_make_the_exact_pass(seed):
+    """F2's two phases in their plain versions: the loop pass (only the
+    loop's operators, sample after sample) and the feed-forward pass (all
+    other operators, vectorized over samples) give ``exact_pass``'s carrier
+    sum within 1e-6 on every item, feedback-7 items included (measured on
+    the CPU: 2.4e-7): the loop pass carries the same floats as the exact
+    loop, so even a chaotic item does not part."""
+    p = mixed_presets(32, seed=seed)
+    pitch, vel = notes(len(p))
+    d = ft.decode_presets(torch.from_numpy(p))
+    ctl = ft.control_params(d, torch.from_numpy(pitch), torch.from_numpy(vel), SR)
+    amps, _, starts, incs = ft.control_pass(ctl, 2048 // ft.BLOCK, int(0.05 * SR), SR)
+    alg, fb_amt = d["algorithm"].to(torch.int32), ft.feedback_amount(d)
+    phases, amps_s = ft.sample_phases(starts, incs), ft.upsample_amps(amps)
+    want = ft.exact_pass(phases, amps_s, alg, fb_amt)
+    loop = ft.feedback_loop_pass(phases, amps_s, alg, fb_amt)
+    got = ft.feedforward_pass(phases, amps_s, alg, fb_amt, loop)
+    on = fb_amt != 0
+    assert 10 <= int(on.sum()) < len(p)
+    assert torch.all(loop[~on] == 0.0) and float(loop[on].abs().max()) > 0.1
+    assert float((got - want).abs().max()) <= 1e-6
+    assert float(want.abs().max()) > 0.1
 
 
 def test_wrappers_take_the_plain_path_only_on_the_cpu(monkeypatch):
@@ -252,22 +381,39 @@ def test_wrappers_take_the_plain_path_only_on_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="card"):
         ft.fm_control(ctl, 4, 0, SR)
     z = torch.zeros((4, 2, 6))
+    per_item = (torch.zeros(2, dtype=torch.int32), *torch.zeros((3, 2)))
     with pytest.raises(ValueError, match="card"):
-        ft.fm_exact(z, z, z, torch.zeros(2, dtype=torch.int32), *torch.zeros((3, 2)), SR)
+        ft.fm_exact(z, z, z, *per_item, SR)
+    with pytest.raises(ValueError, match="card"):
+        ft.fm_fb_loop(z, z, z, *per_item[:2])
+    with pytest.raises(ValueError, match="card"):
+        ft.fm_exact_ff(torch.zeros((2, 128)), z, z, z, *per_item, SR)
+
+
+def loop_length_presets() -> np.ndarray:
+    """Six items, one for each feedback-loop length 1, 2 and 3 (algorithms
+    1, 6 and 4) at feedback 0 (no loop runs) and at feedback 7."""
+    p = mixed_presets(6, seed=7)
+    p[:, 4] = np.repeat(np.array([0, 5, 3]) / 31.0, 2)
+    p[:, 5] = np.tile([0.0, 1.0], 3)
+    return p
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("feedback", ["exact", "unrolled"])
 def test_kernels_match_plain_on_card(feedback):
-    """On the card, 16 mixed items, 4,096 samples: F1 against control_pass
-    within 1e-5 (phase starts 1e-4); F2 on F1's outputs against the plain
-    exact loop on the same inputs within 1e-4 on every item (the same f32
-    operations, so even a chaotic feedback-7 item agrees); end to end,
-    max |err| <= 1e-4 without feedback; one launch of each kernel; an
-    input that requires a gradient raises."""
+    """On the card, 16 mixed items and six items with feedback loops of 1,
+    2 and 3 operators at feedback 0 and 7, 4,096 samples: F1 against
+    control_pass within 1e-5 (phase starts 1e-4); F2 on F1's outputs
+    against the plain exact loop on the same inputs within 1e-4 on every
+    item (the same f32 operations, so even a chaotic feedback-7 item
+    agrees), its loop phase against ``feedback_loop_pass`` and its
+    feed-forward phase against ``feedforward_pass`` likewise; end to end,
+    max |err| <= 1e-4 without feedback; one launch of each kernel; an input
+    that requires a gradient raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    p = torch.from_numpy(mixed_presets()).cuda()
+    p = torch.from_numpy(np.concatenate([mixed_presets(), loop_length_presets()])).cuda()
     pitch, vel = notes(len(p))
     d = ft.decode_presets(p)
     ctl = ft.control_params(d, torch.from_numpy(pitch).cuda(), torch.from_numpy(vel).cuda(), SR)
@@ -279,19 +425,34 @@ def test_kernels_match_plain_on_card(feedback):
     amps, _, starts, incs = got
     alg, fb_amt = d["algorithm"].to(torch.int32), ft.feedback_amount(d)
     nc = ft._clip(torch.from_numpy(ft.ALGO_CARRIER).cuda()[alg.long()].sum(-1), lo=1.0)
-    f2 = ft.fm_exact(amps, starts, incs, alg, fb_amt, nc, d["master_volume"], SR)
-    plain = ft.fade_and_volume(ft.exact_pass(ft.sample_phases(starts, incs),
-                                             ft.upsample_amps(amps), alg, fb_amt),
-                               nc, d["master_volume"], SR)
+    mv = d["master_volume"]
+    assert set(ft.loop_lengths(alg, fb_amt).tolist()) == {0, 1, 2, 3}
+    n0 = dict(ft.LAUNCHES)
+    f2 = ft.fm_exact(amps, starts, incs, alg, fb_amt, nc, mv, SR)
+    n_seg = len(ft.exact_segments(T))
+    assert n_seg == 8 and {k: ft.LAUNCHES[k] - n0[k] for k in n0} == {
+        "fm_control": 0, "fm_exact": 1, "fm_fb_loop": n_seg, "fm_exact_ff": n_seg}
+    phases, amps_s = ft.sample_phases(starts, incs), ft.upsample_amps(amps)
+    plain = ft.fade_and_volume(ft.exact_pass(phases, amps_s, alg, fb_amt), nc, mv, SR)
     assert float((f2 - plain).abs().max()) <= 1e-4
+    on = fb_amt != 0
+    loop_ref = ft.feedback_loop_pass(phases, amps_s, alg, fb_amt)
+    loop = ft.fm_fb_loop(amps, starts, incs, alg, fb_amt)
+    assert float((loop - loop_ref)[on].abs().max()) <= 1e-4
+    ff = ft.fm_exact_ff(loop_ref.clone(), amps, starts, incs, alg, fb_amt, nc, mv, SR)
+    ff_ref = ft.fade_and_volume(ft.feedforward_pass(phases, amps_s, alg, fb_amt, loop_ref), nc,
+                                mv, SR)
+    assert float((ff - ff_ref).abs().max()) <= 1e-4
     n0 = dict(ft.LAUNCHES)
     out = ft.render_batch(p, pitch, vel, note_on_s=NOTE_ON, total_s=TOTAL, sample_rate=SR,
                           feedback=feedback)
     ref = ft.plain_render(p, pitch, vel, note_on_s=NOTE_ON, total_s=TOTAL, sample_rate=SR,
                           feedback=feedback)
     torch.cuda.synchronize()
-    assert ft.LAUNCHES["fm_control"] == n0["fm_control"] + 1
-    assert ft.LAUNCHES["fm_exact"] == n0["fm_exact"] + (feedback == "exact")
+    exact = feedback == "exact"
+    assert {k: ft.LAUNCHES[k] - n0[k] for k in n0} == {
+        "fm_control": 1, "fm_exact": exact, "fm_fb_loop": exact * n_seg,
+        "fm_exact_ff": exact * n_seg}
     no_fb = p[:, 5] == 0
     assert float((out - ref).abs()[no_fb].max()) <= 1e-4
     with pytest.raises(NotImplementedError, match="gradient"):
