@@ -27,10 +27,19 @@ both on their saved on-device corpus render (F1, F2 and K1, ``'jax'`` /
 ``'device'``) and the ``structured2`` corpus they trained on,
 FlowParamsLoss (``r2flowloss_train``), the MLP head (``r2mlp400``, train,
 eval, and eval again with the C++ re-render) and BasicVAE with a MAF head,
-the last three on the C++ corpus render. Each path prints its wall time,
-model build time, steady step, corpus and render seconds, launches of
-every kernel and peak memory. Runs live in a temporary directory that is
-removed at the end.
+the last three on the C++ corpus render. Each of these paths caches its
+corpus under a data root of its own, so that its corpus pass is cold. Then
+the real-data path at the flagship's width: 33 DX7 cartridges imported into
+one SQLite database (1,056 voices), trained 2 epochs (the cold corpus pass
+writes the disk cache), resumed for a third on the same cache (a warm
+reload: no kernel launch, the same corpus bit for bit), evaluated twice on
+the C++ re-render (the first writes the ground-truth audio cache, the
+second reads it and scores bit-equal) and interpolated between two
+presets; then the stack3 configuration's on-device corpus render on the
+``'disk'`` policy, cold and warm, held against its ``'device'`` pass. Each
+path prints its wall time, model build time, steady step, corpus and
+render seconds, launches of every kernel and peak memory. Runs and caches
+live in a temporary directory that is removed at the end.
 
 Run from the repository root with one GPU:
 
@@ -44,7 +53,9 @@ non-zero exit code; without a GPU it fails before printing any result.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -676,9 +687,16 @@ CORPUS = {"n_synthetic_presets": 1024}  # the main path's synthetic corpus
 CORPUS_V2 = {"n_synthetic_presets": 1024, "synthetic_style": "structured2"}
 
 
-def drive(name: str, fn, fm: int = 0):
+def fresh_corpus(corpus: dict, root, name: str) -> dict:
+    """``corpus`` with a data root of the path's own: its 'disk' corpus cache
+    starts empty, so the path's corpus pass is cold and launches K1."""
+    return dict(corpus, data_root=str(pathlib.Path(root) / "data_cache" / name.replace(" ", "_")))
+
+
+def drive(name: str, fn, fm: int = 0, k1=None):
     """Runs one path of the main path with every kernel's launch count set
-    to 0 just before it and read just after; fails unless K1 launched, and
+    to 0 just before it and read just after; fails unless K1 launched (or,
+    with ``k1``, launched exactly ``k1`` times: 0 on a warm path), and
     unless F1 and F2 each launched ``fm`` times (the path's on-device
     renders: one per note of a 'jax' corpus pass, one per eval batch) and
     F2's two phases (``fm_fb_loop``, ``fm_exact_ff``) once per segment of
@@ -697,8 +715,9 @@ def drive(name: str, fn, fm: int = 0):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**sp.LAUNCHES, **ft.LAUNCHES}
-    if launches["logmel"] < 1:
-        raise AssertionError(f"K1 was not launched on the {name} path: {launches}")
+    if (launches["logmel"] < 1) if k1 is None else (launches["logmel"] != k1):
+        raise AssertionError(f"K1 launched {launches['logmel']} times on the {name} path, want "
+                             f"{'at least 1' if k1 is None else k1}: {launches}")
     n_seg = len(ft.exact_segments(SAMPLES // ft.BLOCK))  # every path renders 4 s notes
     want = {"fm_control": fm, "fm_exact": fm, "fm_fb_loop": fm * n_seg, "fm_exact_ff": fm * n_seg}
     if any(launches[k] != n for k, n in want.items()):
@@ -734,7 +753,8 @@ def phase_main_path(root: str):
     # ---- train: checkpoints follow the JAX cadence, (epoch > 0 and epoch %
     # save_period == 0) or the last epoch: epoch 1 only
     summary, counts["train"], wall, mem = drive("train", lambda: train_config(
-        model_c, train_c, dataset_kwargs=CORPUS, device="cuda", use_tensorboard=False))
+        model_c, train_c, dataset_kwargs=fresh_corpus(CORPUS, root, "train"), device="cuda",
+        use_tensorboard=False))
     check_train_summary("train", summary, 2)
     if list_checkpoint_epochs(model_c) != [1]:
         raise AssertionError(f"train: checkpoints {list_checkpoint_epochs(model_c)}, want [1]")
@@ -752,7 +772,8 @@ def phase_main_path(root: str):
     # ---- resume: a third epoch from checkpoint 1, the dataset rebuilt
     resume_c = dataclasses.replace(train_c, start_epoch=2, n_epochs=3)
     summary, counts["resume"], wall, mem = drive("resume", lambda: train_config(
-        model_c, resume_c, dataset_kwargs=CORPUS, device="cuda", use_tensorboard=False))
+        model_c, resume_c, dataset_kwargs=fresh_corpus(CORPUS, root, "resume"), device="cuda",
+        use_tensorboard=False))
     check_train_summary("resume", summary, 3)
     restored = load_checkpoint(model_c, 1)
     steps_per_epoch = summary["train_steps"]
@@ -774,8 +795,8 @@ def phase_main_path(root: str):
     phases = {}
     # the default 'jax' re-render: 164 items, one batch, one F1 and one F2 launch
     _, counts["eval"], wall, mem = drive("eval", lambda: evaluate_model_from_dir(
-        summary["run_dir"], cfg.EvalConfig(dataset="validation"), dataset_kwargs=CORPUS,
-        phase_seconds=phases), fm=1)
+        summary["run_dir"], cfg.EvalConfig(dataset="validation"),
+        dataset_kwargs=fresh_corpus(CORPUS, root, "eval"), phase_seconds=phases), fm=1)
     with open(f"{summary['run_dir']}/eval_validation_summary.json") as f:
         ev = json.load(f)
     items = np.load(f"{summary['run_dir']}/eval_validation.items.npz")
@@ -835,8 +856,8 @@ def variant_train(counts, name, model_c, train_c, corpus, epochs, dim_z):
     from preset_gen_vae_tpu_torch.training.loop import train_config
 
     summary, counts[name], wall, mem = drive(name, lambda: train_config(
-        model_c, train_c, dataset_kwargs=corpus, device="cuda", use_tensorboard=False),
-        fm=corpus_fm_launches(model_c, corpus))
+        model_c, train_c, dataset_kwargs=fresh_corpus(corpus, model_c.logs_root_dir, name),
+        device="cuda", use_tensorboard=False), fm=corpus_fm_launches(model_c, corpus))
     n_notes = len(model_c.midi_notes)
     channels = n_notes if model_c.stack_spectrograms else 1
     check_train_summary(name, summary, epochs, (train_c.minibatch_size, channels, 257, 347),
@@ -874,7 +895,8 @@ def variant_eval(counts, name, model_c, run_dir, corpus, latents=None, backend="
         -(-n_items // eval_c.audio_batch_size) if backend == "jax" else 0)
     phases = {}
     _, counts[name], wall, mem = drive(name, lambda: evaluate_model_from_dir(
-        run_dir, eval_c, dataset_kwargs=corpus, phase_seconds=phases, latents=latents), fm=fm)
+        run_dir, eval_c, dataset_kwargs=fresh_corpus(corpus, model_c.logs_root_dir, name),
+        phase_seconds=phases, latents=latents), fm=fm)
     with open(f"{run_dir}/eval_validation_summary.json") as f:
         ev = json.load(f)
     items = np.load(f"{run_dir}/eval_validation.items.npz")
@@ -954,6 +976,224 @@ def phase_variant_paths(root: str):
     return counts
 
 
+EXAMPLE_BANK = pathlib.Path(__file__).resolve().parent / "docs" / "examples" / "structured2_bank.syx"
+SYX_SEEDS = range(32)  # the cartridges written from the structured2 generator
+
+
+@contextlib.contextmanager
+def served_corpus(out: dict, key: str):
+    """Keeps on the host as ``out[key]`` the first corpus that a dataset
+    serves while the block runs."""
+    from preset_gen_vae_tpu_torch.data.dexed_dataset import DexedDataset
+
+    load = DexedDataset.load_corpus
+
+    def keep(self, *args, **kwargs):
+        corpus = load(self, *args, **kwargs)
+        out.setdefault(key, corpus.cpu())
+        return corpus
+
+    DexedDataset.load_corpus = keep
+    try:
+        yield
+    finally:
+        DexedDataset.load_corpus = load
+
+
+def corpus_peak(kwargs: dict):
+    """(corpus seconds, peak device GiB, launches) of one corpus pass alone
+    on the card, outside the main path's counts."""
+    import preset_gen_vae_tpu_torch.ops.spectrogram as sp
+    from preset_gen_vae_tpu_torch.data.dexed_dataset import DexedDataset
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = sp.LAUNCHES["logmel"]
+    ds = DexedDataset(device="cuda", **kwargs)
+    ds.load_corpus()
+    out = (ds.corpus_seconds, torch.cuda.max_memory_allocated() / 2**30,
+           sp.LAUNCHES["logmel"] - n0)
+    del ds
+    gc.collect()
+    return out
+
+
+def phase_syx_path(root: str):
+    """The real-data path at the flagship's full width (default ModelConfig:
+    'cpp' render, 'disk' cache): 33 DX7 cartridges (the repo's example bank
+    and 32 written from the structured2 generator) imported into one SQLite
+    file of 1,056 voices; train 2 epochs (cold corpus pass: 17 K1
+    launches, both cache tiers and the sidecar written), resume for a third
+    on the same data root (warm: no launch, the train path's corpus bit for
+    bit), evaluate twice on the C++ re-render (the first writes the
+    ground-truth audio cache, the second reads it and scores bit-equal),
+    and interpolate 11 steps between two validation presets."""
+    from preset_gen_vae_tpu_torch import config as cfg
+    from preset_gen_vae_tpu_torch.data.dexed_dataset import CORPUS_CHUNK, \
+        model_config_to_dataset_kwargs
+    from preset_gen_vae_tpu_torch.data.sampler import split_preset_indexes
+    from preset_gen_vae_tpu_torch.evaluation.evaluate import evaluate_model_from_dir, items_path
+    from preset_gen_vae_tpu_torch.evaluation.interpolate import interpolate_presets
+    from preset_gen_vae_tpu_torch.synth import database as db
+    from preset_gen_vae_tpu_torch.synth.sysex import import_syx_banks, write_syx
+    from preset_gen_vae_tpu_torch.training.loop import train_config
+
+    base = pathlib.Path(root) / "syx"
+    base.mkdir()
+    banks = [EXAMPLE_BANK]
+    for seed in SYX_SEEDS:
+        presets, names, _ = db.generate_structured_corpus_v2(32, seed=seed)
+        banks.append(base / f"bank{seed:02d}.syx")
+        banks[-1].write_bytes(write_syx(presets, names))
+    voices, _, labels = import_syx_banks(banks, out_sqlite=base / "presets.sqlite")
+    if len(voices) != 1056:
+        raise AssertionError(f"syx: {len(voices)} voices from {len(banks)} cartridges")
+    kw = {"db_path": str(base / "presets.sqlite"), "data_root": str(base / "data_cache")}
+    model_c = cfg.ModelConfig(logs_root_dir=root, run_name="smoke_syx")
+    train_c = cfg.TrainConfig(n_epochs=2, minibatch_size=160, lr_warmup_epochs=0, save_period=1,
+                              verbosity=0)
+    counts, served, k1 = {}, {}, -(-1056 // CORPUS_CHUNK)
+
+    # ---- train: the cold corpus pass writes the cache
+    with served_corpus(served, "syx train"):
+        summary, counts["syx train"], wall, mem = drive("syx train", lambda: train_config(
+            model_c, train_c, dataset_kwargs=kw, device="cuda", use_tensorboard=False), k1=k1)
+    check_train_summary("syx train", summary, 2)
+    (cache,) = (base / "data_cache" / "dexed").iterdir()
+    files = {f.name for f in cache.iterdir()}
+    want = {"spec_stats.json", "specs_raw.npy", "specs_norm_f16.npy", "render_constraints.json"}
+    if not want <= files or summary["corpus_presets"] != 1056 or "_db" not in cache.name:
+        raise AssertionError(f"syx train: cache {cache.name} holds {sorted(files)}")
+    cold_s, cold_render_s = summary["corpus_seconds"], summary["corpus_render_seconds"]
+    print(f"[syx train path] {len(banks)} cartridges -> {len(voices)} voices "
+          f"({dict(collections.Counter(labels))}), wall {wall:.2f} s, model build "
+          f"{summary['model_build_seconds']:.2f} s, launches {counts['syx train']}, "
+          f"{summary['train_steps']} steps, steady step {summary['step_ms']:.2f} ms (first "
+          f"{summary['first_step_ms']:.1f} ms), cold corpus pass {cold_s:.3f} s (render "
+          f"{cold_render_s:.3f} s; tiers written to {cache.name}), peak device memory "
+          f"{mem:.2f} GiB", flush=True)
+
+    # ---- resume on the same data root: the corpus is reloaded, not rendered
+    resume_c = dataclasses.replace(train_c, start_epoch=2, n_epochs=3)
+    with served_corpus(served, "syx resume"):
+        summary, counts["syx resume"], wall, mem = drive("syx resume", lambda: train_config(
+            model_c, resume_c, dataset_kwargs=kw, device="cuda", use_tensorboard=False), k1=0)
+    check_train_summary("syx resume", summary, 3)
+    if summary["corpus_render_seconds"] != 0.0 or not torch.equal(served["syx train"],
+                                                                  served["syx resume"]):
+        raise AssertionError("syx resume: the warm corpus is not the train path's")
+    warm_s = summary["corpus_seconds"]
+    print(f"[syx resume path] wall {wall:.2f} s, launches {counts['syx resume']}, warm corpus "
+          f"reload {warm_s:.3f} s against the cold pass's {cold_s:.3f} s, served corpus "
+          f"({tuple(served['syx train'].shape)}, {served['syx train'].dtype}) bit-equal to the "
+          f"train path's, steady step {summary['step_ms']:.2f} ms, peak device memory "
+          f"{mem:.2f} GiB", flush=True)
+    del served
+    alone = dict(model_config_to_dataset_kwargs(model_c), corpus_dtype=torch.bfloat16, **kw)
+    reload_s, reload_gib, n = corpus_peak(alone)
+    cold = corpus_peak(dict(alone, data_root=str(base / "cold_cache")))
+    if n != 0 or cold[2] != k1:
+        raise AssertionError(f"syx corpus passes alone: K1 {n} warm, {cold[2]} cold")
+    print(f"[syx corpus alone] bf16 corpus of 1,056 presets: warm reload {reload_s:.3f} s, "
+          f"peak device memory {reload_gib:.3f} GiB; cold pass {cold[0]:.3f} s, peak "
+          f"{cold[1]:.3f} GiB", flush=True)
+    shutil.rmtree(base / "cold_cache")
+
+    # ---- eval twice on the C++ re-render: the ground truth cached, then read
+    n_items = len(split_preset_indexes(1056)["validation"])
+    gt_dir = cache / "gt_eval_audio"
+    evals = []
+    for i in (1, 2):
+        name, phases = f"syx eval {i}", {}
+        eval_c = cfg.EvalConfig(dataset="validation", audio_render_backend="cpp")
+        _, counts[name], wall, mem = drive(name, lambda: evaluate_model_from_dir(
+            summary["run_dir"], eval_c, dataset_kwargs=kw, phase_seconds=phases), k1=0)
+        items = dict(np.load(items_path(summary["run_dir"], "validation")))
+        gt_files = sorted(gt_dir.glob("gt_*.npy"))
+        if len(gt_files) != 1 or len(items["preset_UID"]) != n_items:
+            raise AssertionError(f"{name}: GT files {gt_files}, {len(items['preset_UID'])} items")
+        stamp = gt_files[0].stat().st_mtime_ns
+        for k in ("num_eval_loss", "num_mae", "acc", "spec_mae", "mfcc13_mae", "mfcc40_mae"):
+            if not np.isfinite(items[k]).all():
+                raise AssertionError(f"{name}: non-finite {k}")
+        evals.append((items, stamp, phases))
+        print(f"[{name} path] wall {wall:.2f} s, launches {counts[name]}, {n_items} items, "
+              f"re-render on the C++ engine {phases['render']:.3f} s "
+              f"({'ground truth rendered and cached' if i == 1 else 'ground truth read'}), "
+              f"corpus reload (dataset phase) {phases['dataset']:.3f} s, seconds per phase "
+              f"{json.dumps(phases)}, peak device memory {mem:.2f} GiB", flush=True)
+    (first, stamp1, _), (second, stamp2, _) = evals
+    if stamp1 != stamp2 or list(first) != list(second) or not all(
+            np.array_equal(first[k], second[k], equal_nan=True) for k in first):
+        raise AssertionError("syx eval 2: not bit-equal to eval 1 or the GT cache was rewritten")
+    print(f"[syx eval] the second eval read {gt_dir.name}/{gt_files[0].name} and its "
+          f"{len(first)} columns are bit-equal to the first's", flush=True)
+
+    # ---- interpolation between two validation presets
+    uid_a, uid_b = (int(u) for u in first["preset_UID"][:2])
+    (full, wavs), counts["syx interpolate"], wall, mem = drive("syx interpolate", lambda: (
+        interpolate_presets(model_c, train_c, uid_a, uid_b, n_steps=11, mode="slerp",
+                            device="cuda", dataset_kwargs=kw)), k1=0)
+    if full.shape != (11, 155) or not np.isfinite(full).all() or full.min() < 0 or \
+            full.max() > 1 or wavs.shape != (11, SAMPLES) or not np.isfinite(wavs).all():
+        raise AssertionError(f"syx interpolate: presets {full.shape}, waveforms {wavs.shape}")
+    print(f"[syx interpolate path] UIDs {uid_a} -> {uid_b}, 11 slerp steps, wall {wall:.2f} s, "
+          f"launches {counts['syx interpolate']}, presets in [{full.min():.3f}, "
+          f"{full.max():.3f}], endpoints differ by {np.abs(full[0] - full[-1]).max():.3f}, "
+          f"waveforms {wavs.shape} on the C++ engine, peak device memory {mem:.2f} GiB",
+          flush=True)
+    return counts
+
+
+def f16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in float16 ulps between two float16 tensors."""
+    def ordered(x):
+        i = x.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i + 32768), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def phase_disk_jax(root: str):
+    """The 'jax' corpus backend on the 'disk' policy: r5stack3_v2_20480's
+    saved config on 1,024 structured2 presets, the corpus pass alone, twice
+    on one data root. Cold: 48 K1 launches and 3 F1/F2 calls, the sidecar's
+    ``raw_tier``; warm: no launch of any kernel and the cold corpus bit for
+    bit. The cold corpus is held against the same config's 'device' pass
+    (the JAX package states "a few f16 ulps", abstract_dataset.py:400-406):
+    at most 2 f16 ulps."""
+    from preset_gen_vae_tpu_torch.data.dexed_dataset import DexedDataset, \
+        model_config_to_dataset_kwargs
+
+    model_c, _ = saved_run_configs("r5stack3_v2_20480", root,
+                                   dict(dataset_corpus_cache_policy="disk"))
+    kw = dict(model_config_to_dataset_kwargs(model_c), device="cuda", corpus_dtype=torch.float16,
+              **fresh_corpus(CORPUS_V2, root, "stack3 disk"))
+    counts, corpora, seconds = {}, {}, {}
+    for name, fm, k1 in (("stack3 disk cold", 3, 48), ("stack3 disk warm", 0, 0)):
+        ds = DexedDataset(**kw)
+        corpora[name], counts[name], wall, mem = drive(name, ds.load_corpus, fm=fm, k1=k1)
+        seconds[name] = (ds.corpus_seconds, ds.render_seconds)
+        print(f"[{name} path] corpus pass {ds.corpus_seconds:.3f} s (render "
+              f"{ds.render_seconds:.3f} s), wall {wall:.2f} s, launches {counts[name]}, corpus "
+              f"{tuple(corpora[name].shape)} {corpora[name].dtype}, peak device memory "
+              f"{mem:.3f} GiB", flush=True)
+    sidecar = json.loads((ds._corpus_cache_dir() / "render_constraints.json").read_text())
+    if sidecar.get("raw_tier") != "f16+devstats" or sidecar.get("render_backend") != "jax":
+        raise AssertionError(f"stack3 disk: sidecar {sidecar}")
+    cold, warm = corpora["stack3 disk cold"], corpora["stack3 disk warm"]
+    if seconds["stack3 disk warm"][1] != 0.0 or not torch.equal(cold, warm):
+        raise AssertionError("stack3 disk warm: not the cold pass's corpus")
+    device = DexedDataset(**dict(kw, corpus_cache_policy="device")).load_corpus()
+    ulps = f16_ulps(cold, device)
+    print(f"[stack3 disk] warm reload bit-equal to the cold pass; cold 'disk' pass against the "
+          f"'device' pass: max {ulps} f16 ulps (bar 2), {int((cold != device).sum())} of "
+          f"{cold.numel()} values differ; sidecar {sidecar}", flush=True)
+    if ulps > 2:
+        raise AssertionError(f"stack3 disk against 'device': {ulps} f16 ulps")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -968,6 +1208,8 @@ def main() -> int:
     try:
         counts = phase_main_path(root)
         counts.update(phase_variant_paths(root))
+        counts.update(phase_syx_path(root))
+        counts.update(phase_disk_jax(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = [k1, *fm]

@@ -1,8 +1,9 @@
 """Copy of ``preset_gen_vae_tpu/config.py``, the JAX package's counterpart,
-unchanged apart from this paragraph, two defaults of ``EvalConfig``
-(``device``, ``cache_gt_audio``; see there) and the comments of
+unchanged apart from this paragraph, one default of ``EvalConfig``
+(``device``; see there) and the comments of
 ``dataset_corpus_render_backend``, ``dataset_corpus_cache_policy``,
 ``steps_per_dispatch``, ``audio_render_backend``, ``audio_batch_size``,
+``cache_gt_audio``,
 ``main_cuda_device_idx``, the profiler fields, ``compute_dtype`` and
 ``dataset_cache_device``, which say what the fields mean in this package.
 
@@ -89,10 +90,12 @@ class ModelConfig:
     # reference renders offline wav corpora through a VST process pool,
     # dexeddataset.py:278-328).
     dataset_corpus_render_backend: str = "cpp"
-    # Corpus residency: 'disk' = two-tier npy cache (reloadable runs; the
-    # cache itself is not ported yet, so nothing is written); 'device' =
-    # the normalized corpus is built and stays on the card (requires the
-    # 'jax' backend; nothing persisted).
+    # Corpus residency: 'disk' = the two-tier npy cache under the data root
+    # (specs_raw.npy, specs_norm_f16.npy, spec_stats.json; the JAX
+    # package's files, so either package serves the other's cache) —
+    # rendered once, reloaded by every later train, resume and eval;
+    # 'device' = the normalized corpus is built and stays on the card
+    # (requires the 'jax' backend; nothing persisted).
     dataset_corpus_cache_policy: str = "disk"
     logs_root_dir: str = "saved"
 
@@ -222,11 +225,10 @@ class EvalConfig:
     # reuse ground-truth renders across evals (C++ backend only): GT audio
     # for the eval split is rendered once and disk-cached keyed by
     # (item set, engine version, sample rate) — the reference reads
-    # pre-rendered GT wavs instead of re-rendering (eval.py:257-259)
-    # The port's default is False: under 'cpp' its evaluation raises for
-    # True until the disk corpus cache, which holds that audio, is ported
-    # (ROADMAP); under 'jax' it is ignored, as in the JAX package.
-    cache_gt_audio: bool = False
+    # pre-rendered GT wavs instead of re-rendering (eval.py:257-259); the
+    # cache sits in the corpus cache directory. Ignored under 'jax', whose
+    # GT and inferred audio share one engine, as in the JAX package.
+    cache_gt_audio: bool = True
 
 
 def resolve(model: ModelConfig, train: TrainConfig) -> Tuple[ModelConfig, TrainConfig]:

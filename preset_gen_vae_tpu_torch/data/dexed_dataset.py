@@ -1,56 +1,82 @@
-"""Dexed dataset: the seeded synthetic preset corpus, its constraints, the
-DX7 renders and the normalised log-mel corpus resident on the device.
+"""Dexed dataset: the preset corpus (a SQLite database or the seeded
+synthetic generators), its constraints, the DX7 renders and the normalised
+log-mel corpus resident on the device, with the JAX package's disk cache.
 
-Counterparts: ``preset_gen_vae_tpu/data/dexed_dataset.py:32-244`` and the
-parts of ``data/abstract_dataset.py`` it needs (:42-74, 111-154, 272-281,
-380-556, 572-631); ``model_config_to_dataset_kwargs`` is ``data/build.py:18-41``.
+Counterparts: ``preset_gen_vae_tpu/data/dexed_dataset.py:32-337`` and the
+parts of ``data/abstract_dataset.py`` it needs (:31-36, 42-74, 111-154,
+272-378, 380-556, 572-631); ``model_config_to_dataset_kwargs`` is
+``data/build.py:18-41``.
 
-``load_corpus`` builds the corpus once, on one of two render backends:
+The corpus is rendered on one of two backends:
 
 - ``'cpp'``: the presets are rendered in chunks of 64 by the C++ engine on
   the host; each chunk of waveforms goes to the device and through kernel
-  K1 (``SpectrogramProcessor``; on the CPU its plain version); the corpus
-  min/max are taken on the device (abstract_dataset.py:272-281) and the
-  min/max-normalised corpus stays there;
+  K1 (``SpectrogramProcessor``; on the CPU its plain version); the raw
+  corpus is float32 on the device, and its min, max, mean and std are
+  reduced there (abstract_dataset.py:272-281);
 - ``'jax'``: the on-device FM render of ``synth/fm_torch.py`` (on the card
   kernels F1 and F2) renders a whole note of up to ``RENDER_ROWS`` presets
   per launch, straight into the (rows, N) buffer K1 reads; K1 turns each
-  64 rows into log-mels; min, max, sum and sum of squares accumulate in f32
-  on the device over the real rows and the host combines them in f64
-  (``spec_stats`` with min/max/mean/std); the raw log-mels are stored once
-  in float16 and the min/max affine runs in float16, as the JAX package's
-  device-resident pass does (abstract_dataset.py:380-546, its
-  ``_finalize`` at :521-533), then becomes the corpus dtype in place when
-  that dtype has two bytes. The JAX package's column-chunked layout
+  64 rows into log-mels, stored once in float16; min, max, sum and sum of
+  squares accumulate in f32 on the device over the real rows and the host
+  combines them in f64, as the JAX package's device-resident pass does
+  (abstract_dataset.py:380-546). The JAX package's column-chunked layout
   (``data/corpus_device.py``) works around a TPU compiler limit and is not
   ported.
 
-Both keep the normalised corpus on the device as ``(P, n_notes, H, W)``;
-``corpus_tensors`` serves it in the two multi-note layouts of
+``corpus_cache_policy`` decides where the corpus comes from:
+
+- ``'disk'`` (abstract_dataset.py:331-378): the cache directory
+  ``<data_root>/dexed/<tag>`` serves ``specs_norm_f16.npy`` with
+  ``spec_stats.json`` when both exist, else normalises ``specs_raw.npy``,
+  else renders and writes the raw tier (float32 under ``'cpp'``, float16
+  under ``'jax'``), the stats and the float16 normalised tier. The tag, the
+  directory, the files and the ``render_constraints.json`` sidecar are the
+  JAX package's, so a cache written by either package is served by the
+  other, bit for bit. A reload uploads the float16 tier 64 presets at a
+  time and casts on the device: the host never holds a float32 copy of the
+  whole corpus;
+- ``'device'`` (``'jax'`` only): rendered, normalised and kept on the
+  device; nothing is written.
+
+The normalisation runs in the raw tier's dtype, as numpy runs it on the
+JAX package's raw tier: float32 arithmetic under ``'cpp'``, float16
+arithmetic under ``'jax'`` (NEP 50 keeps numpy's ``(raw - min) / c`` in
+float16, op for op; see abstract_dataset.py:521-528). The served values
+are rounded through float16, the disk tier's dtype, then become the
+corpus dtype; under ``'jax'`` a two-byte corpus dtype takes the raw
+buffer's place.
+
+``corpus_tensors`` serves the corpus in the two multi-note layouts of
 abstract_dataset.py:609-631: stacked, one item per preset with its notes as
 channels, or un-stacked, one item per (preset, note), as a view of the same
-buffer. ``corpus_cache_policy`` takes the JAX package's values and checks
-('device' requires the 'jax' backend); neither persists anything yet: the
-disk cache and the SQLite preset database wait for a later slice.
+buffer.
 """
 
 from __future__ import annotations
 
+import csv
+import hashlib
+import json
+import os
+import pathlib
 import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..ops.spectrogram import SpectrogramConfig, SpectrogramProcessor, normalize_min_max
+from .._native import REPO_ROOT
+from ..ops.spectrogram import SpectrogramConfig, SpectrogramProcessor
 from ..synth import database as db
 from ..synth import dexed_params as dx
 from ..synth import fm_torch
-from ..synth.render import DexedRenderer
+from ..synth.render import DexedRenderer, engine_version
+from ..utils.audio_io import write_wav
 from .dexed_spec import build_dexed_preset_spec
 from .preset import PresetIndexesHelper
 
-CORPUS_CHUNK = 64  # waveforms turned into log-mels per K1 launch (and per C++ render)
+CORPUS_CHUNK = 64  # presets per K1 launch, C++ render, normalisation step and disk copy
 # presets of one note rendered per F1/F2 launch on the 'jax' backend: 8,192
 # rows of 4 s audio are 2.9 GB of f32
 RENDER_ROWS = 8192
@@ -59,6 +85,14 @@ SYNTHETIC_STYLES = {
     "structured2": db.generate_structured_corpus_v2,
     "uniform": db.generate_random_corpus,
 }
+NORMALIZATIONS = ("min_max", "mean_std", None)
+
+
+def default_data_root() -> pathlib.Path:
+    """Where the corpus caches live (abstract_dataset.py:31-36 there):
+    ``$PGV_TPU_DATA_DIR``, the JAX package's variable, else ``data_cache/``
+    at the repository root."""
+    return pathlib.Path(os.environ.get("PGV_TPU_DATA_DIR", REPO_ROOT / "data_cache"))
 
 
 def model_config_to_dataset_kwargs(model_config) -> Dict:
@@ -81,6 +115,20 @@ def model_config_to_dataset_kwargs(model_config) -> Dict:
     )
 
 
+def _save_tier(path: pathlib.Path, tensor: torch.Tensor) -> None:
+    """Writes a device tensor as a ``.npy`` file 64 presets at a time,
+    through a ``.tmp.npy`` file renamed at the end."""
+    tmp = path.with_name(path.stem + ".tmp.npy")
+    out = np.lib.format.open_memmap(tmp, mode="w+", shape=tuple(tensor.shape),
+                                    dtype=np.float16 if tensor.dtype == torch.float16
+                                    else np.float32)
+    for s in range(0, tensor.shape[0], CORPUS_CHUNK):
+        out[s:s + CORPUS_CHUNK] = tensor[s:s + CORPUS_CHUNK].cpu().numpy()
+    out.flush()
+    del out
+    os.replace(tmp, path)
+
+
 class DexedDataset:
     def __init__(
         self,
@@ -99,17 +147,19 @@ class DexedDataset:
         constant_filter_and_tune_params: bool = True,
         prevent_SH_LFO: bool = True,
         sample_rate: int = 22050,
+        db_path=None,
         n_synthetic_presets: int = 4096,
         synthetic_seed: int = 0,
         synthetic_style: str = "structured",
+        data_root=None,
         corpus_render_backend: str = "cpp",
         corpus_render_feedback: str = "exact",
         corpus_cache_policy: str = "disk",
         device="cuda",
         corpus_dtype: torch.dtype = torch.float32,
     ):
-        if spectrogram_normalization not in ("min_max", None):
-            raise NotImplementedError(f"normalization {spectrogram_normalization!r}")
+        if spectrogram_normalization not in NORMALIZATIONS:
+            raise ValueError(f"spectrogram_normalization={spectrogram_normalization!r}")
         # (dexed_dataset.py:85-100 there)
         if corpus_render_backend not in ("cpp", "jax"):
             raise ValueError(f"corpus_render_backend={corpus_render_backend!r}")
@@ -119,7 +169,7 @@ class DexedDataset:
             raise ValueError("corpus_cache_policy='device' requires corpus_render_backend='jax'")
         if corpus_render_feedback not in ("exact", "unrolled"):
             raise ValueError(f"corpus_render_feedback={corpus_render_feedback!r}")
-        if synthetic_style not in SYNTHETIC_STYLES:
+        if db_path is None and synthetic_style not in SYNTHETIC_STYLES:
             raise ValueError(f"synthetic_style={synthetic_style!r}")
         self.corpus_render_backend = corpus_render_backend
         self.corpus_render_feedback = corpus_render_feedback
@@ -131,6 +181,7 @@ class DexedDataset:
         self.n_mel_bins = n_mel_bins
         self.spectrogram_normalization = spectrogram_normalization
         self.sample_rate = int(sample_rate)
+        self.data_root = pathlib.Path(data_root) if data_root else default_data_root()
         self.device = torch.device(device)
         self.corpus_dtype = corpus_dtype
         self.spectrogram = SpectrogramProcessor(
@@ -140,10 +191,22 @@ class DexedDataset:
         self.algos = tuple(algos) if algos else None
         self.operators = tuple(operators) if operators is not None else (1, 2, 3, 4, 5, 6)
         self.restrict_to_labels = tuple(restrict_to_labels) if restrict_to_labels else None
+        # both flags change the rendered audio and key the caches (dexed_dataset.py:101-104)
+        self._constant_filter_and_tune = bool(constant_filter_and_tune_params)
+        self._prevent_sh_lfo = bool(prevent_SH_LFO)
+        self._synthetic = db_path is None
+        self._synthetic_args = (n_synthetic_presets, synthetic_seed, synthetic_style)
 
-        # ---- corpus (dexed_dataset.py:107-121) and constraints (:123-141)
-        presets, names, labels = SYNTHETIC_STYLES[synthetic_style](
-            n_synthetic_presets, seed=synthetic_seed, algos=self.algos)
+        # ---- corpus (dexed_dataset.py:106-121) and constraints (:123-141)
+        if db_path is not None:
+            database = db.PresetDatabase(db_path)
+            presets = database.presets_matrix.copy()
+            names, labels = database.names, database.labels
+            param_names = database.param_names
+        else:
+            presets, names, labels = SYNTHETIC_STYLES[synthetic_style](
+                n_synthetic_presets, seed=synthetic_seed, algos=self.algos)
+            param_names = [f"dexed_param_{i}" for i in range(dx.N_PARAMS)]
         if constant_filter_and_tune_params:
             dx.set_default_general_filter_and_tune_params(presets)
         dx.set_operators(presets, self.operators)
@@ -156,6 +219,8 @@ class DexedDataset:
         if self.restrict_to_labels:
             keep &= np.asarray([any(l in s for l in self.restrict_to_labels) for s in labels])
         self.presets = presets[keep]
+        self.names = [n for n, k in zip(names, keep) if k]
+        self.labels = [l for l, k in zip(labels, keep) if k]
         self.uids = np.nonzero(keep)[0].astype(np.int64)
         self._uid_to_row = {int(u): i for i, u in enumerate(self.uids)}
 
@@ -164,7 +229,7 @@ class DexedDataset:
             algos=self.algos, operators=self.operators,
             vst_params_learned_as_categorical=vst_params_learned_as_categorical,
             constant_filter_and_tune_params=constant_filter_and_tune_params,
-            param_names=[f"dexed_param_{i}" for i in range(dx.N_PARAMS)])
+            param_names=param_names)
         self._spec = spec
         self.preset_indexes_helper = PresetIndexesHelper(spec)
         self.renderer = DexedRenderer(sample_rate=sample_rate, note_duration=note_duration)
@@ -172,6 +237,8 @@ class DexedDataset:
         self.corpus_seconds: Optional[float] = None  # the whole corpus pass
         self.render_seconds: Optional[float] = None  # its renders
         self._corpus: Optional[torch.Tensor] = None
+        if corpus_cache_policy == "disk":  # 'device' writes nothing
+            self._check_render_constraints()
 
     # ------------------------------------------------------------------
     @property
@@ -198,21 +265,98 @@ class DexedDataset:
         """The full 155-parameter preset of one UID (dexed_dataset.py:184)."""
         return self.presets[self._uid_to_row[int(preset_UID)]]
 
+    def get_name_from_preset_UID(self, preset_UID: int) -> str:
+        """(dexed_dataset.py:187-188)"""
+        return self.names[self._uid_to_row[int(preset_UID)]]
+
+    def get_labels_tensor(self, preset_UID: int) -> np.ndarray:
+        """The preset's labels as an int8 0/1 vector over ``LABELS_VOCAB``
+        (dexed_dataset.py:190-192)."""
+        s = self.labels[self._uid_to_row[int(preset_UID)]]
+        return np.asarray([1 if v in s else 0 for v in db.LABELS_VOCAB], dtype=np.int8)
+
     def get_spectrogram_tensor_size(self):
         H = self.n_mel_bins if self.n_mel_bins > 0 else self.spectrogram.n_fft // 2 + 1
         T = 1 + self.renderer.samples_per_render // self.spectrogram.hop
         return (self.midi_notes_per_preset if self._stacked else 1, H, T)
 
-    # ------------------------------------------------------------------
-    def load_corpus(self) -> torch.Tensor:
-        """The normalised corpus (P, n_notes, H, W) on the device, built once."""
-        if self._corpus is not None:
-            return self._corpus
-        t0, self.render_seconds = time.perf_counter(), 0.0
-        if self.corpus_render_backend == "jax":
-            self._corpus = self._fm_corpus()
+    # ------------------------------------------------------------------ cache
+    def _corpus_cache_dir(self) -> pathlib.Path:
+        """``<data_root>/dexed/<tag>``, made if missing (abstract_dataset.py:143-146)."""
+        d = self.data_root / "dexed" / self._corpus_tag()
+        d.mkdir(parents=True, exist_ok=True)
+        return d
+
+    def _corpus_tag(self) -> str:
+        """The cache's name: abstract_dataset.py:148-154 refined by
+        dexed_dataset.py:261-290 there."""
+        notes = "-".join(f"{p}.{v}" for p, v in self.midi_notes)
+        base = (f"sr{self.sample_rate}_nd{self.note_duration[0]}-{self.note_duration[1]}"
+                f"_mel{self.n_mel_bins}_n{self.valid_presets_count}_notes{notes}")
+        al = ".".join(str(a) for a in self.algos) if self.algos else "all"
+        op = "".join(str(o) for o in self.operators)
+        lab = "_".join(l[:4] for l in self.restrict_to_labels) if self.restrict_to_labels else "all"
+        # the legacy styles keep their 2-character tag; newer ones their full name
+        style_tag = {"structured": "st", "uniform": "un"}.get(self._synthetic_args[2],
+                                                              self._synthetic_args[2])
+        syn = (f"syn{self._synthetic_args[0]}s{self._synthetic_args[1]}{style_tag}"
+               if self._synthetic else f"db{self._corpus_content_hash()}")
+        flags = ("cft" if self._constant_filter_and_tune else "nocft") + (
+            "_nosh" if self._prevent_sh_lfo else "_sh")
+        if self.corpus_render_backend != "cpp":  # 'cpp' keeps the historical tag
+            flags += f"_rb{self.corpus_render_backend}"
+        return f"{base}_al{al}_op{op}_lab{lab}_{syn}_{flags}"
+
+    def _corpus_content_hash(self) -> str:
+        """sha1 of the constrained float32 presets, 10 hex digits
+        (dexed_dataset.py:292-300): two databases of one size do not collide."""
+        return hashlib.sha1(
+            np.ascontiguousarray(self.presets, dtype=np.float32).tobytes()).hexdigest()[:10]
+
+    def _check_render_constraints(self):
+        """The ``render_constraints.json`` sidecar (dexed_dataset.py:302-337;
+        reference: dexeddataset.py:313-328): written on first use, and a
+        cache made under other constraints raises."""
+        d = self._corpus_cache_dir()
+        path = d / "render_constraints.json"
+        current = {
+            "engine_version": engine_version(),
+            "note_duration": list(self.note_duration),
+            "sample_rate": self.sample_rate,
+            "operators": list(self.operators),
+            "algos": list(self.algos) if self.algos else None,
+            "constant_filter_and_tune_params": self._constant_filter_and_tune,
+            "prevent_SH_LFO": self._prevent_sh_lfo,
+        }
+        if self.corpus_render_backend != "cpp":  # 'cpp' stays keyless
+            current["render_backend"] = self.corpus_render_backend
+            current["render_feedback"] = self.corpus_render_feedback
+            # the raw tier is f16 with the device's exact f32 stats
+            current["raw_tier"] = "f16+devstats"
+        if path.exists():
+            with open(path) as f:
+                stored = json.load(f)
+            if stored != current:
+                raise RuntimeError(
+                    f"Cached renders at {d} were produced under different "
+                    f"constraints ({stored} != {current}); delete the cache "
+                    "directory to re-render.")
         else:
-            self._corpus = self._cpp_corpus()
+            with open(path, "w") as f:
+                json.dump(current, f)
+
+    # ------------------------------------------------------------------ corpus
+    def load_corpus(self, force_recompute: bool = False) -> torch.Tensor:
+        """The normalised corpus (P, n_notes, H, W) on the device, built once;
+        ``force_recompute`` renders it again, past the memo and the disk tiers."""
+        if self._corpus is not None and not force_recompute:
+            return self._corpus
+        self._corpus = None
+        t0, self.render_seconds = time.perf_counter(), 0.0
+        if self.corpus_cache_policy == "device":
+            self._corpus = self._normalized(self._render_raw())
+        else:
+            self._corpus = self._disk_corpus(force_recompute)
         self._sync()
         self.corpus_seconds = time.perf_counter() - t0
         return self._corpus
@@ -221,7 +365,43 @@ class DexedDataset:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _cpp_corpus(self) -> torch.Tensor:
+    def _disk_corpus(self, force_recompute: bool) -> torch.Tensor:
+        """The two cache tiers (abstract_dataset.py:331-378)."""
+        d = self._corpus_cache_dir()
+        raw_path, norm_path = d / "specs_raw.npy", d / "specs_norm_f16.npy"
+        stats_path = d / "spec_stats.json"
+        if norm_path.exists() and stats_path.exists() and not force_recompute:
+            with open(stats_path) as f:
+                self.spec_stats = json.load(f)
+            return self._upload(np.load(norm_path, mmap_mode="r"))
+        if raw_path.exists() and stats_path.exists() and not force_recompute:
+            raw = np.load(raw_path, mmap_mode="r")
+            with open(stats_path) as f:
+                self.spec_stats = json.load(f)
+        else:
+            raw = self._render_raw()
+            _save_tier(raw_path, raw)
+            with open(stats_path, "w") as f:
+                json.dump(self.spec_stats, f)
+        return self._normalized(raw, norm_path)
+
+    def _upload(self, tier: np.ndarray) -> torch.Tensor:
+        """A float16 tier mapped from disk, 64 presets at a time to the
+        device, cast there to the corpus dtype."""
+        corpus = torch.empty(tier.shape, dtype=self.corpus_dtype, device=self.device)
+        for s in range(0, tier.shape[0], CORPUS_CHUNK):
+            chunk = torch.from_numpy(np.array(tier[s:s + CORPUS_CHUNK]))
+            corpus[s:s + CORPUS_CHUNK] = chunk.to(self.device).to(self.corpus_dtype)
+        return corpus
+
+    def _render_raw(self) -> torch.Tensor:
+        """Raw log-mels (P, n_notes, H, W) on the device, float32 on 'cpp' and
+        float16 on 'jax'; sets ``spec_stats``."""
+        if self.corpus_render_backend == "jax":
+            return self._fm_raw()
+        return self._cpp_raw()
+
+    def _cpp_raw(self) -> torch.Tensor:
         P, (_, H, W) = len(self.uids), self.get_spectrogram_tensor_size()
         raw = torch.empty((P, len(self.midi_notes), H, W), dtype=torch.float32,
                           device=self.device)
@@ -233,22 +413,26 @@ class DexedDataset:
                 wav = self.renderer.render_batch(chunk, [pitch] * n, [vel] * n)
                 self.render_seconds += time.perf_counter() - t_r
                 raw[s:s + n, note_i] = self.spectrogram(torch.from_numpy(wav).to(self.device))
-        mn, mx = torch.aminmax(raw)
-        self.spec_stats = {"min": float(mn), "max": float(mx)}
-        if self.spectrogram_normalization is None:
-            return raw.to(self.corpus_dtype)
-        # the JAX package serves the normalised corpus rounded through its
-        # float16 disk tier (abstract_dataset.py:371-377), so the values
-        # cast to the corpus dtype are those f16 values; 64 presets at a
-        # time, so that the temporaries stay small beside the two buffers
-        corpus = torch.empty(raw.shape, dtype=self.corpus_dtype, device=self.device)
-        for s in range(0, P, CORPUS_CHUNK):
-            x = normalize_min_max(raw[s:s + CORPUS_CHUNK], (mn, mx))  # abstract_dataset.py:548-556
-            corpus[s:s + CORPUS_CHUNK] = x.to(torch.float16).to(self.corpus_dtype)
-        return corpus
+        self.spec_stats = self._compute_stats(raw)
+        return raw
 
-    def _fm_corpus(self) -> torch.Tensor:
-        """The 'jax' backend's pass (abstract_dataset.py:380-546 in meaning)."""
+    def _compute_stats(self, raw: torch.Tensor) -> Dict[str, float]:
+        """min, max, mean and std of the raw corpus (abstract_dataset.py:272-281),
+        on the device: the sums and the squared deviations in float64, 64
+        presets at a time."""
+        mn, mx = torch.aminmax(raw)
+        total = torch.zeros((), dtype=torch.float64, device=self.device)
+        for s in range(0, raw.shape[0], CORPUS_CHUNK):
+            total += raw[s:s + CORPUS_CHUNK].sum(dtype=torch.float64)
+        mean = total / raw.numel()
+        sq = torch.zeros((), dtype=torch.float64, device=self.device)
+        for s in range(0, raw.shape[0], CORPUS_CHUNK):
+            sq += (raw[s:s + CORPUS_CHUNK].double() - mean).square().sum()
+        return {"min": float(mn), "max": float(mx), "mean": float(mean),
+                "std": float((sq / raw.numel()).sqrt())}
+
+    def _fm_raw(self) -> torch.Tensor:
+        """The 'jax' backend's pass (abstract_dataset.py:380-518 in meaning)."""
         P, (_, H, W) = len(self.uids), self.get_spectrogram_tensor_size()
         n_notes = len(self.midi_notes)
         presets = torch.from_numpy(self.presets).to(self.device)
@@ -276,21 +460,97 @@ class DexedDataset:
         var = float(st[:, 3].sum() / n_el) - mean * mean
         self.spec_stats = {"min": float(st[:, 0].min()), "max": float(st[:, 1].max()),
                            "mean": mean, "std": float(np.sqrt(max(var, 0.0)))}
-        # the affine in float16, op for op (abstract_dataset.py:521-533)
-        f16 = {k: torch.tensor(v, dtype=torch.float16, device=self.device) for k, v in (
-            ("min", self.spec_stats["min"]),
-            ("half", (self.spec_stats["max"] - self.spec_stats["min"]) / 2.0))}
-        in_place = torch.empty((), dtype=self.corpus_dtype).element_size() == 2
+        return raw
+
+    def _normalized(self, raw, norm_path: Optional[pathlib.Path] = None) -> torch.Tensor:
+        """The corpus served from the raw one (a device tensor, or the raw tier
+        mapped from disk), 64 presets at a time: the normalisation
+        (abstract_dataset.py:548-556) in the raw dtype, its constants rounded
+        to that dtype from the stats' Python floats as numpy rounds them; the
+        float16 rounding (written to ``norm_path`` if given); the corpus
+        dtype. Without a normalisation the raw values are served as they are
+        and no float16 tier is written (abstract_dataset.py:371-377)."""
+        norm, st = self.spectrogram_normalization, self.spec_stats
+        on_device = isinstance(raw, torch.Tensor)
+        f16 = raw.dtype == (torch.float16 if on_device else np.float16)
+        raw_np_dtype = np.float16 if f16 else np.float32
+
+        def const(v):
+            return torch.from_numpy(np.array(v, dtype=raw_np_dtype)).to(self.device)
+
+        if norm == "min_max":
+            shift, scale = const(st["min"]), const((st["max"] - st["min"]) / 2.0)
+        elif norm == "mean_std":
+            shift, scale = const(st["mean"]), const(st["std"])
+        in_place = (on_device and f16
+                    and torch.empty((), dtype=self.corpus_dtype).element_size() == 2)
         corpus = raw.view(self.corpus_dtype) if in_place else torch.empty(
-            raw.shape, dtype=self.corpus_dtype, device=self.device)
-        # 64 presets at a time, so that the affine's temporaries stay small
-        # beside the one corpus buffer
-        for s in range(0, P, CORPUS_CHUNK):
+            tuple(raw.shape), dtype=self.corpus_dtype, device=self.device)
+        tier = tmp = None
+        if norm is not None and norm_path is not None:
+            tmp = norm_path.with_name(norm_path.stem + ".tmp.npy")
+            tier = np.lib.format.open_memmap(tmp, mode="w+", dtype=np.float16,
+                                             shape=tuple(raw.shape))
+        for s in range(0, raw.shape[0], CORPUS_CHUNK):
             x = raw[s:s + CORPUS_CHUNK]
-            if self.spectrogram_normalization == "min_max":
-                x = (x - f16["min"]).div_(f16["half"]).add_(-1.0)
+            if not on_device:
+                x = torch.from_numpy(np.array(x)).to(self.device)
+            if norm is not None:
+                x = (x - shift).div_(scale)
+                if norm == "min_max":
+                    x = x.add_(-1.0)
+                x = x.to(torch.float16)
+                if tier is not None:
+                    tier[s:s + CORPUS_CHUNK] = x.cpu().numpy()
             corpus[s:s + CORPUS_CHUNK] = x.to(self.corpus_dtype)
+        if tier is not None:
+            tier.flush()
+            del tier
+            os.replace(tmp, norm_path)
         return corpus
+
+    def compute_and_store_spectrograms_stats(self) -> Dict[str, float]:
+        """Renders the raw corpus and writes the per-preset min/max/mean/var
+        CSV, ``spec_stats.json`` and the raw tier (abstract_dataset.py:307-329;
+        reference: abstractbasedataset.py:348-391). The per-preset values are
+        reduced on the device in float64."""
+        self.render_seconds = 0.0
+        raw = self._render_raw()
+        d = self._corpus_cache_dir()
+        with open(d / "spectrograms_stats.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["UID", "min", "max", "mean", "var"])
+            for s in range(0, raw.shape[0], CORPUS_CHUNK):
+                chunk = raw[s:s + CORPUS_CHUNK]
+                x = chunk.reshape(chunk.shape[0], -1).double()
+                mean = x.mean(1)
+                rows = torch.stack([x.amin(1), x.amax(1), mean,
+                                    (x - mean[:, None]).square().mean(1)], 1).cpu().numpy()
+                for uid, row in zip(self.uids[s:s + CORPUS_CHUNK], rows):
+                    w.writerow([int(uid), *(float(v) for v in row)])
+        with open(d / "spec_stats.json", "w") as f:
+            json.dump(self.spec_stats, f)
+        _save_tier(d / "specs_raw.npy", raw)
+        return self.spec_stats
+
+    def generate_wav_files(self, out_dir=None, n_threads: int = 0) -> int:
+        """One 16-bit wav per (preset, MIDI note), rendered by the C++ engine
+        64 presets at a time (abstract_dataset.py:283-305; reference:
+        dexeddataset.py:278-311); -> the number of files. Training does not
+        read them."""
+        out_dir = pathlib.Path(out_dir) if out_dir else self._corpus_cache_dir() / "wav"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        count = 0
+        for pitch, vel in self.midi_notes:
+            for s in range(0, len(self.uids), CORPUS_CHUNK):
+                chunk = self.presets[s:s + CORPUS_CHUNK]
+                n = chunk.shape[0]
+                wavs = self.renderer.render_batch(chunk, [pitch] * n, [vel] * n, n_threads)
+                for uid, wav in zip(self.uids[s:s + CORPUS_CHUNK], wavs):
+                    write_wav(out_dir / f"preset{int(uid):06d}_pitch{pitch:03d}_vel{vel:03d}.wav",
+                              wav, self.sample_rate)
+                    count += 1
+        return count
 
     def corpus_tensors(self) -> Dict[str, torch.Tensor]:
         """x, v (N, L) float32 and info (N, 3) int32 (uid, pitch, velocity),

@@ -12,7 +12,10 @@ follows ``EvalConfig.audio_render_backend``: ``'jax'`` (the default, as in
 the JAX package) renders the ground-truth and inferred presets of a batch
 together in one call of ``synth/fm_torch.py`` (on the card kernels F1 and
 F2) with ``audio_render_feedback``; ``'cpp'`` renders them apart through the
-C++ engine on the host. The artifacts:
+C++ engine on the host, the ground truth once: with ``cache_gt_audio`` (the
+default) it is kept in the corpus cache directory and read back by every
+later eval of the same items (``_gt_audio_cached``, evaluate.py:44-81 and
+266-273 there). The artifacts:
 
 - ``eval_<split>_summary.json``: the JAX package's keys, each metric's
   ``nanmean`` with ``n_nan_<metric>`` where it has NaNs (spectral
@@ -28,15 +31,11 @@ the latent ones included (the JAX package keeps them in its latent
 matrices, evaluate.py:190-191 there). ``evaluate_model`` returns the
 per-UID means (the JAX package's ``groupby('preset_UID').mean()``) as a
 dict of numpy columns.
-
-The ground-truth audio cache waits for the disk corpus cache:
-``cache_gt_audio=True`` raises ``NotImplementedError`` under ``'cpp'`` and
-is ignored under ``'jax'``, as in the JAX package (GT and inferred audio
-then share one engine).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import time
@@ -55,6 +54,7 @@ from ..losses.synth_params import CategoricalParamsAccuracy, QuantizedNumericalP
 from ..models.build import build_extended_ae_model
 from ..synth import dexed_params as dx
 from ..synth import fm_torch
+from ..synth.render import engine_version
 from ..training.loop import prepare_dataset
 from ..training.train_step import autocast
 from .similarity import batched_audio_errors
@@ -66,6 +66,35 @@ AUDIO_METRICS = ("spec_mae", "spec_sc", "mfcc13_mae", "mfcc40_mae")
 
 def items_path(run_dir, split: str) -> pathlib.Path:
     return pathlib.Path(run_dir) / f"eval_{split}.items.npz"
+
+
+def _gt_audio_cached(dataset, renderer, items: np.ndarray) -> np.ndarray:
+    """Ground-truth audio (N, samples) float32 of the eval items, (N, 3)
+    rows of (uid, pitch, velocity), from a disk cache (evaluate.py:44-81
+    there; reference: eval.py:257-259 reads pre-rendered GT wavs). The key
+    is the JAX package's: sha1 of the int64 item table with the engine
+    version, sample rate and note durations, so either package serves the
+    other's file. The first eval renders through the C++ engine, 256 items
+    a call, and writes ``gt_<key>.npy`` through a ``.tmp.npy`` rename; later
+    ones map it, bit-equal to a fresh render (the engine is deterministic)."""
+    key_src = np.ascontiguousarray(items, dtype=np.int64).tobytes() + (
+        f"|v{engine_version()}|fs{renderer.Fs}"
+        f"|nd{renderer.note_duration[0]}-{renderer.note_duration[1]}").encode()
+    key = hashlib.sha1(key_src).hexdigest()[:16]
+    cache_dir = dataset._corpus_cache_dir() / "gt_eval_audio"
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    path = cache_dir / f"gt_{key}.npy"
+    if path.exists():
+        return np.load(path, mmap_mode="r")
+    out = np.empty((len(items), renderer.samples_per_render), dtype=np.float32)
+    for s in range(0, len(items), 256):
+        rows = items[s:s + 256]
+        presets = np.stack([dataset.get_full_preset_params(int(u)) for u in rows[:, 0]])
+        out[s:s + len(rows)] = renderer.render_batch(presets, rows[:, 1], rows[:, 2])
+    tmp = path.with_suffix(".tmp.npy")
+    np.save(tmp, out)
+    tmp.rename(path)
+    return out
 
 
 def evaluate_all_models(eval_config: cfg.EvalConfig, saved_root=REPO_ROOT / "saved",
@@ -131,8 +160,6 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
     dev = resolve_device(device)
     if eval_config.audio_render_backend not in ("jax", "cpp"):
         raise ValueError(f"audio_render_backend={eval_config.audio_render_backend!r}")
-    if eval_config.cache_gt_audio and eval_config.audio_render_backend == "cpp":
-        raise NotImplementedError("the ground-truth audio cache is not ported yet")
     times = {} if phase_seconds is None else phase_seconds
     t0 = time.perf_counter()
 
@@ -194,11 +221,23 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
         errs = {k: [] for k in AUDIO_METRICS}
         B = eval_config.audio_batch_size
         render_s = 0.0
+        gt_cache = None
+        if eval_config.audio_render_backend == "cpp" and eval_config.cache_gt_audio:
+            t_r = time.perf_counter()
+            gt_cache = _gt_audio_cached(dataset, dataset.renderer,
+                                        np.stack([table[k] for k in KEYS], axis=1))
+            render_s += time.perf_counter() - t_r
         for s in range(0, len(inferred), B):
             t_r = time.perf_counter()
-            gt = np.stack([dataset.get_full_preset_params(u) for u in table["preset_UID"][s:s + B]])
-            gt, est = render_pairs(dataset, eval_config, gt, inferred[s:s + B], pitch[s:s + B],
-                                   vel[s:s + B], dev)
+            if gt_cache is not None:
+                gt = torch.from_numpy(np.array(gt_cache[s:s + B])).to(dev)
+                est = torch.from_numpy(dataset.renderer.render_batch(
+                    inferred[s:s + B], pitch[s:s + B], vel[s:s + B])).to(dev)
+            else:
+                gt = np.stack([dataset.get_full_preset_params(u)
+                               for u in table["preset_UID"][s:s + B]])
+                gt, est = render_pairs(dataset, eval_config, gt, inferred[s:s + B],
+                                       pitch[s:s + B], vel[s:s + B], dev)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             render_s += time.perf_counter() - t_r

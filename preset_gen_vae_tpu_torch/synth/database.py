@@ -1,17 +1,26 @@
-"""The synthetic, seeded DX7 preset corpora, copied from
-``preset_gen_vae_tpu/synth/database.py``: ``generate_structured_corpus``
-(:146-289), ``generate_structured_corpus_v2`` (:292-498) and
-``generate_random_corpus`` (:501-534). The code is unchanged, apart from
-v2 reading ``ALGO_MOD_DEPTH`` from this package's ``fm_torch``; for a seed
-each returns the JAX package's presets bit for bit.
+"""The preset database and the synthetic, seeded DX7 preset corpora, copied
+from ``preset_gen_vae_tpu/synth/database.py``: the SQLite corpus in the
+reference schema, ``create_database`` and ``PresetDatabase`` (:30-143), and
+the generators ``generate_structured_corpus`` (:146-289),
+``generate_structured_corpus_v2`` (:292-498) and ``generate_random_corpus``
+(:501-534). The code is unchanged, apart from v2 reading ``ALGO_MOD_DEPTH``
+from this package's ``fm_torch``; for a seed each generator returns the JAX
+package's presets bit for bit, and a database written by either package
+reads back bit-equal in the other.
 
-``DexedDataset`` picks one by ``synthetic_style`` (``'structured'``,
-``'structured2'``, ``'uniform'``; ``preset_gen_vae_tpu/data/dexed_dataset.py:112-117``).
-The SQLite reader and the export helpers wait for a later slice.
+The SQLite schema is the reference's ``dexed_presets.sqlite``
+(synth/dexed.py:59-102: a ``preset`` table with ``index_preset``, ``name``
+and ``pickled_params_np_array`` numpy-BLOB columns), with a ``labels`` text
+column. ``DexedDataset`` reads a database given as ``db_path``, else picks
+a generator by ``synthetic_style`` (``'structured'``, ``'structured2'``,
+``'uniform'``; ``preset_gen_vae_tpu/data/dexed_dataset.py:107-121``).
 """
 
 from __future__ import annotations
 
+import io
+import pathlib
+import sqlite3
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -20,6 +29,122 @@ from . import dexed_params as dx
 from .fm_torch import ALGO_MOD_DEPTH
 
 LABELS_VOCAB = ("harmonic", "percussive", "sfx")  # reference: synth/dexed.py:205-206
+
+
+def _np_to_blob(arr: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, np.ascontiguousarray(arr))
+    return buf.getvalue()
+
+
+def _blob_to_np(blob: bytes) -> np.ndarray:
+    return np.load(io.BytesIO(blob), allow_pickle=False)
+
+
+def create_database(
+    path,
+    presets: np.ndarray,
+    names: Optional[Sequence[str]] = None,
+    labels: Optional[Sequence[str]] = None,
+) -> None:
+    """Writes a (N, 155) normalized preset matrix as a reference-layout DB."""
+    presets = np.asarray(presets, dtype=np.float32)
+    n = presets.shape[0]
+    assert presets.shape[1] == dx.N_PARAMS
+    names = list(names) if names is not None else [f"preset_{i:06d}" for i in range(n)]
+    labels = list(labels) if labels is not None else [""] * n
+    path = pathlib.Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    con = sqlite3.connect(str(path))
+    con.execute(
+        "CREATE TABLE preset (index_preset INTEGER PRIMARY KEY, name TEXT,"
+        " labels TEXT, pickled_params_np_array BLOB)"
+    )
+    con.execute("CREATE TABLE param (index_param INTEGER PRIMARY KEY, name TEXT)")
+    con.executemany(
+        "INSERT INTO param VALUES (?, ?)",
+        [(i, f"dexed_param_{i}") for i in range(dx.N_PARAMS)],
+    )
+    con.executemany(
+        "INSERT INTO preset VALUES (?, ?, ?, ?)",
+        [
+            (i, names[i], labels[i], _np_to_blob(presets[i]))
+            for i in range(n)
+        ],
+    )
+    con.commit()
+    con.close()
+
+
+class PresetDatabase:
+    """Single-pass reader (reference API surface: synth/dexed.py:65-158)."""
+
+    def __init__(self, path):
+        self.path = pathlib.Path(path)
+        con = sqlite3.connect(str(self.path))
+        rows = con.execute(
+            "SELECT index_preset, name, labels, pickled_params_np_array"
+            " FROM preset ORDER BY index_preset"
+        ).fetchall()
+        try:
+            self.param_names = [
+                r[1] for r in con.execute(
+                    "SELECT index_param, name FROM param ORDER BY index_param"
+                )
+            ]
+        except sqlite3.OperationalError:
+            self.param_names = [f"dexed_param_{i}" for i in range(dx.N_PARAMS)]
+        con.close()
+        self.preset_indexes = np.asarray([r[0] for r in rows], dtype=np.int64)
+        self.names: List[str] = [r[1] for r in rows]
+        self.labels: List[str] = [r[2] or "" for r in rows]
+        self.presets_matrix = (
+            np.stack([_blob_to_np(r[3]) for r in rows]).astype(np.float32)
+            if rows
+            else np.zeros((0, dx.N_PARAMS), dtype=np.float32)
+        )
+
+    def __len__(self):
+        return len(self.names)
+
+    @property
+    def nb_presets(self) -> int:
+        return len(self.names)
+
+    @property
+    def nb_params(self) -> int:
+        return self.presets_matrix.shape[1]
+
+    def get_preset_values(self, uid: int) -> np.ndarray:
+        row = int(np.searchsorted(self.preset_indexes, uid))
+        assert self.preset_indexes[row] == uid
+        return self.presets_matrix[row]
+
+    def get_preset_name(self, uid: int) -> str:
+        row = int(np.searchsorted(self.preset_indexes, uid))
+        return self.names[row]
+
+    def get_preset_labels(self, uid: int) -> List[str]:
+        row = int(np.searchsorted(self.preset_indexes, uid))
+        s = self.labels[row]
+        return [l for l in s.split(",") if l]
+
+    def write_all_presets_to_files(self, out_dir, verbose: bool = False) -> None:
+        """Reference-parity export (synth/dexed.py:159-190): one params
+        .npy + name .txt + labels .txt file per preset. The training pipeline
+        reads the dense matrix directly; this export exists for users
+        migrating tooling that consumed the reference's per-preset files."""
+        out_dir = pathlib.Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for i, uid in enumerate(self.preset_indexes):
+            np.save(out_dir / f"preset{int(uid):06d}_params.npy",
+                    self.presets_matrix[i])
+            (out_dir / f"preset{int(uid):06d}_name.txt").write_text(self.names[i])
+            (out_dir / f"preset{int(uid):06d}_labels.txt").write_text(self.labels[i])
+        if verbose:
+            print(f"[PresetDatabase] exported {len(self)} presets to {out_dir}")
 
 
 def generate_structured_corpus(

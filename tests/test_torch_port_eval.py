@@ -13,6 +13,7 @@ here only, as the yardstick of the per-item table.
 """
 
 import json
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +39,7 @@ from preset_gen_vae_tpu_torch.synth import database as db
 from preset_gen_vae_tpu_torch.synth import dexed_params as dx
 from preset_gen_vae_tpu_torch.synth.render import DexedRenderer
 from preset_gen_vae_tpu_torch.training.loop import train_config
+from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
 
 DATASET_KWARGS = {"n_synthetic_presets": 64}
 CPP_EVAL = cfg.EvalConfig(audio_render_backend="cpp")
@@ -200,13 +202,37 @@ def test_evaluate_all_models_skips_evaluated_runs(evaluated):
                                   dataset_kwargs=DATASET_KWARGS) == []
 
 
-@pytest.mark.parametrize("kwargs", [{"audio_render_backend": "cpp", "cache_gt_audio": True},
-                                    {"audio_render_backend": "cpp", "cache_gt_audio": True,
-                                     "dataset": "test"}])
-def test_unported_backends_raise(evaluated, kwargs):
-    """The GT-audio cache of the C++ re-render waits for the disk corpus
-    cache, on either split (under 'jax' the flag is ignored, as in the JAX
-    package)."""
-    with pytest.raises(NotImplementedError):
-        ev.evaluate_model_from_dir(evaluated["run_dir"], cfg.EvalConfig(**kwargs), device="cpu",
-                                   dataset_kwargs=DATASET_KWARGS)
+@pytest.mark.parametrize("split", ["validation", "test"])
+def test_gt_audio_cache_is_written_then_read_bit_equal(evaluated, split):
+    """The C++ re-render's ground-truth cache (``cache_gt_audio``, the
+    default): the first eval of a split renders the ground truth and writes
+    one ``gt_<key>.npy`` under the corpus cache directory, a second eval
+    reads it without rewriting it, and the per-item tables of the two and
+    of an eval without the cache are equal, bit for bit. The file holds the
+    items' C++ renders, bit-equal to fresh ones."""
+    run_dir = evaluated["run_dir"]
+    ds = DexedDataset(device="cpu", operators=(1, 2), **DATASET_KWARGS)
+    gt_dir = ds._corpus_cache_dir() / "gt_eval_audio"
+    shutil.rmtree(gt_dir, ignore_errors=True)  # the module's first eval wrote 'validation''s
+
+    def run(**kwargs):
+        ev.evaluate_model_from_dir(run_dir, cfg.EvalConfig(audio_render_backend="cpp",
+                                                           dataset=split, **kwargs),
+                                   device="cpu", dataset_kwargs=DATASET_KWARGS)
+        return dict(np.load(ev.items_path(run_dir, split)))
+
+    first = run()
+    (path,) = gt_dir.glob("gt_*.npy")
+    assert not list(gt_dir.glob("*.tmp.npy"))
+    written = path.stat().st_mtime_ns
+    second = run()
+    uncached = run(cache_gt_audio=False)
+    assert list(gt_dir.glob("gt_*.npy")) == [path] and path.stat().st_mtime_ns == written
+    assert len(first["preset_UID"]) == (11 if split == "validation" else 13)
+    for table in (second, uncached):
+        assert list(table) == list(first)
+        for k in first:
+            np.testing.assert_array_equal(table[k], first[k], err_msg=k)
+    presets = np.stack([ds.get_full_preset_params(u) for u in first["preset_UID"]])
+    np.testing.assert_array_equal(np.load(path), ds.renderer.render_batch(
+        presets, first["midi_pitch"], first["midi_velocity"]))

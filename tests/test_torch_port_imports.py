@@ -9,7 +9,8 @@
   machine has none of the last three), except ``logs/tbwriter.py``, which
   ``RunLogger`` loads only for ``use_tensorboard=True`` and which raises
   there.
-- Entry points default to the card and raise where there is none.
+- Entry points, the ``python -m`` scripts among them, default to the card
+  and raise where there is none.
 """
 
 import ast
@@ -69,6 +70,9 @@ def test_every_module_imports_without_the_blocked_packages():
                      for f in PORT.rglob("*.py") if f.name != "tbwriter.py")
     modules = [m.removesuffix(".__init__") for m in modules]
     assert len(modules) > 30 and "preset_gen_vae_tpu_torch.evaluation.evaluate" in modules
+    assert {f"preset_gen_vae_tpu_torch.{m}" for m in (
+        "synth.sysex", "utils.audio_io", "evaluation.interpolate", "scripts.train_from_syx",
+        "scripts.preset_morph_demo")} <= set(modules)
     code = _GUARD.format(blocked=BLOCKED, modules=modules)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=300)
@@ -80,11 +84,16 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from preset_gen_vae_tpu_torch import config as cfg
     from preset_gen_vae_tpu_torch.device import resolve_device
     from preset_gen_vae_tpu_torch.evaluation import evaluate as ev
+    from preset_gen_vae_tpu_torch.evaluation.interpolate import interpolate_presets
     from preset_gen_vae_tpu_torch.evaluation.similarity import SimilarityEvaluator
+    from preset_gen_vae_tpu_torch.scripts import preset_morph_demo, train_from_syx
+    from preset_gen_vae_tpu_torch.synth import database, sysex
     from preset_gen_vae_tpu_torch.training.loop import train_config
     from preset_gen_vae_tpu_torch.training.queue import run_queue
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bank = tmp_path / "bank.syx"
+    bank.write_bytes(sysex.write_syx(database.generate_structured_corpus_v2(32, seed=0)[0]))
     calls = [
         lambda: train_config(),  # device defaults to "cuda"
         lambda: run_queue([({}, {})]),
@@ -93,6 +102,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         lambda: ev.evaluate_all_models(cfg.EvalConfig(models_names=("FlVAE2/none",)),
                                        saved_root=tmp_path),
         lambda: SimilarityEvaluator([[0.0] * 4096, [0.0] * 4096]),
+        lambda: interpolate_presets(cfg.ModelConfig(), cfg.TrainConfig(), 0, 1),
+        lambda: preset_morph_demo.main(["--logs-root", str(tmp_path)]),
+        lambda: train_from_syx.main([str(bank), "--logs-root", str(tmp_path)]),
         lambda: resolve_device(),
     ]
     for call in calls:

@@ -40,6 +40,7 @@ from preset_gen_vae_tpu_torch.data.dexed_dataset import (
 from preset_gen_vae_tpu_torch.evaluation import evaluate as ev
 from preset_gen_vae_tpu_torch.models.encoder import SpectrogramEncoder
 from preset_gen_vae_tpu_torch.training.loop import train_config
+from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
 from test_torch_port_model import B, flagship_pair
 from test_torch_port_train import (
     assert_batch_stats_match,
@@ -60,7 +61,6 @@ CONFIGS = {
     "multi6_midi_z0": dict(midi_notes=NOTES6, **FLOWS),
 }
 OUTPUTS = ("z0_mu_logvar", "z0", "zK", "logdet", "x_out", "v_out")
-
 
 
 @pytest.fixture(scope="module", autouse=True)
