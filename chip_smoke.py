@@ -1019,6 +1019,42 @@ def corpus_peak(kwargs: dict):
     return out
 
 
+def numpy_normalized(raw: np.ndarray, stats: dict, norm: str) -> np.ndarray:
+    """The JAX package's normalisation of a raw tier (abstract_dataset.py:
+    548-556, and :361-375 for the float16 tier), written out in numpy: each
+    op in the raw tier's dtype (the Python-float stats do not promote), then
+    rounded to float16."""
+    if norm == "min_max":
+        x = -1.0 + (raw - stats["min"]) / ((stats["max"] - stats["min"]) / 2.0)
+    else:
+        x = (raw - stats["mean"]) / stats["std"]
+    return x.astype(np.float32).astype(np.float16)
+
+
+def check_normalization(name: str, cache: pathlib.Path, norm: str, served: torch.Tensor):
+    """Holds the first and the last 64-preset chunk of the corpus served on
+    the card, and of the float16 tier written beside it, against
+    ``numpy_normalized`` of ``specs_raw.npy`` with ``spec_stats.json``: bit
+    for bit (the served corpus after the same cast to its dtype)."""
+    from preset_gen_vae_tpu_torch.data.dexed_dataset import CORPUS_CHUNK
+
+    raw = np.load(cache / "specs_raw.npy", mmap_mode="r")
+    tier = np.load(cache / "specs_norm_f16.npy", mmap_mode="r")
+    stats = json.loads((cache / "spec_stats.json").read_text())
+    last = (raw.shape[0] - 1) // CORPUS_CHUNK * CORPUS_CHUNK
+    for s in (0, last):
+        want = numpy_normalized(np.array(raw[s:s + CORPUS_CHUNK]), stats, norm)
+        got = served[s:s + CORPUS_CHUNK].cpu()
+        if not np.array_equal(np.array(tier[s:s + CORPUS_CHUNK]).view(np.uint16),
+                              want.view(np.uint16)) or \
+                not torch.equal(got, torch.from_numpy(want).to(got.dtype)):
+            raise AssertionError(f"{name}: presets {s}+ are not numpy's normalisation of the "
+                                 f"{raw.dtype} raw tier")
+    print(f"[{name}] presets 0-{min(CORPUS_CHUNK, raw.shape[0]) - 1} and {last}-"
+          f"{raw.shape[0] - 1}: the served corpus ({served.dtype}) and the float16 tier are "
+          f"bit-equal to numpy's '{norm}' normalisation of the {raw.dtype} raw tier", flush=True)
+
+
 def phase_syx_path(root: str):
     """The real-data path at the flagship's full width (default ModelConfig:
     'cpp' render, 'disk' cache): 33 DX7 cartridges (the repo's example bank
@@ -1065,6 +1101,7 @@ def phase_syx_path(root: str):
     want = {"spec_stats.json", "specs_raw.npy", "specs_norm_f16.npy", "render_constraints.json"}
     if not want <= files or summary["corpus_presets"] != 1056 or "_db" not in cache.name:
         raise AssertionError(f"syx train: cache {cache.name} holds {sorted(files)}")
+    check_normalization("syx train", cache, "min_max", served["syx train"])  # the default
     cold_s, cold_render_s = summary["corpus_seconds"], summary["corpus_render_seconds"]
     print(f"[syx train path] {len(banks)} cartridges -> {len(voices)} voices "
           f"({dict(collections.Counter(labels))}), wall {wall:.2f} s, model build "
@@ -1178,6 +1215,8 @@ def phase_disk_jax(root: str):
               f"{ds.render_seconds:.3f} s), wall {wall:.2f} s, launches {counts[name]}, corpus "
               f"{tuple(corpora[name].shape)} {corpora[name].dtype}, peak device memory "
               f"{mem:.3f} GiB", flush=True)
+    check_normalization("stack3 disk cold", ds._corpus_cache_dir(), ds.spectrogram_normalization,
+                        corpora["stack3 disk cold"])
     sidecar = json.loads((ds._corpus_cache_dir() / "render_constraints.json").read_text())
     if sidecar.get("raw_tier") != "f16+devstats" or sidecar.get("render_backend") != "jax":
         raise AssertionError(f"stack3 disk: sidecar {sidecar}")

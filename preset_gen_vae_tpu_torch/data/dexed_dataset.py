@@ -55,6 +55,7 @@ buffer.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import hashlib
 import json
@@ -115,18 +116,24 @@ def model_config_to_dataset_kwargs(model_config) -> Dict:
     )
 
 
-def _save_tier(path: pathlib.Path, tensor: torch.Tensor) -> None:
-    """Writes a device tensor as a ``.npy`` file 64 presets at a time,
-    through a ``.tmp.npy`` file renamed at the end."""
+@contextlib.contextmanager
+def _tier_file(path: pathlib.Path, shape, dtype):
+    """A ``.npy`` file mapped for writing, filled by the block and renamed
+    from ``.tmp.npy`` to ``path`` once the block is done."""
     tmp = path.with_name(path.stem + ".tmp.npy")
-    out = np.lib.format.open_memmap(tmp, mode="w+", shape=tuple(tensor.shape),
-                                    dtype=np.float16 if tensor.dtype == torch.float16
-                                    else np.float32)
-    for s in range(0, tensor.shape[0], CORPUS_CHUNK):
-        out[s:s + CORPUS_CHUNK] = tensor[s:s + CORPUS_CHUNK].cpu().numpy()
+    out = np.lib.format.open_memmap(tmp, mode="w+", dtype=dtype, shape=tuple(shape))
+    yield out
     out.flush()
     del out
     os.replace(tmp, path)
+
+
+def _save_tier(path: pathlib.Path, tensor: torch.Tensor) -> None:
+    """Writes a device tensor as a ``.npy`` file 64 presets at a time."""
+    dtype = np.float16 if tensor.dtype == torch.float16 else np.float32
+    with _tier_file(path, tensor.shape, dtype) as out:
+        for s in range(0, tensor.shape[0], CORPUS_CHUNK):
+            out[s:s + CORPUS_CHUNK] = tensor[s:s + CORPUS_CHUNK].cpu().numpy()
 
 
 class DexedDataset:
@@ -486,27 +493,21 @@ class DexedDataset:
                     and torch.empty((), dtype=self.corpus_dtype).element_size() == 2)
         corpus = raw.view(self.corpus_dtype) if in_place else torch.empty(
             tuple(raw.shape), dtype=self.corpus_dtype, device=self.device)
-        tier = tmp = None
-        if norm is not None and norm_path is not None:
-            tmp = norm_path.with_name(norm_path.stem + ".tmp.npy")
-            tier = np.lib.format.open_memmap(tmp, mode="w+", dtype=np.float16,
-                                             shape=tuple(raw.shape))
-        for s in range(0, raw.shape[0], CORPUS_CHUNK):
-            x = raw[s:s + CORPUS_CHUNK]
-            if not on_device:
-                x = torch.from_numpy(np.array(x)).to(self.device)
-            if norm is not None:
-                x = (x - shift).div_(scale)
-                if norm == "min_max":
-                    x = x.add_(-1.0)
-                x = x.to(torch.float16)
-                if tier is not None:
-                    tier[s:s + CORPUS_CHUNK] = x.cpu().numpy()
-            corpus[s:s + CORPUS_CHUNK] = x.to(self.corpus_dtype)
-        if tier is not None:
-            tier.flush()
-            del tier
-            os.replace(tmp, norm_path)
+        write = norm is not None and norm_path is not None
+        with (_tier_file(norm_path, raw.shape, np.float16) if write
+              else contextlib.nullcontext()) as tier:
+            for s in range(0, raw.shape[0], CORPUS_CHUNK):
+                x = raw[s:s + CORPUS_CHUNK]
+                if not on_device:
+                    x = torch.from_numpy(np.array(x)).to(self.device)
+                if norm is not None:
+                    x = (x - shift).div_(scale)
+                    if norm == "min_max":
+                        x = x.add_(-1.0)
+                    x = x.to(torch.float16)
+                    if tier is not None:
+                        tier[s:s + CORPUS_CHUNK] = x.cpu().numpy()
+                corpus[s:s + CORPUS_CHUNK] = x.to(self.corpus_dtype)
         return corpus
 
     def compute_and_store_spectrograms_stats(self) -> Dict[str, float]:

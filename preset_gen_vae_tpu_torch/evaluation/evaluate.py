@@ -229,15 +229,12 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
             render_s += time.perf_counter() - t_r
         for s in range(0, len(inferred), B):
             t_r = time.perf_counter()
-            if gt_cache is not None:
-                gt = torch.from_numpy(np.array(gt_cache[s:s + B])).to(dev)
-                est = torch.from_numpy(dataset.renderer.render_batch(
-                    inferred[s:s + B], pitch[s:s + B], vel[s:s + B])).to(dev)
-            else:
-                gt = np.stack([dataset.get_full_preset_params(u)
-                               for u in table["preset_UID"][s:s + B]])
-                gt, est = render_pairs(dataset, eval_config, gt, inferred[s:s + B],
-                                       pitch[s:s + B], vel[s:s + B], dev)
+            gt = np.stack([dataset.get_full_preset_params(u)
+                           for u in table["preset_UID"][s:s + B]])
+            gt, est = render_pairs(dataset, eval_config, gt, inferred[s:s + B],
+                                   pitch[s:s + B], vel[s:s + B], dev,
+                                   gt_audio=None if gt_cache is None
+                                   else np.array(gt_cache[s:s + B]))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             render_s += time.perf_counter() - t_r
@@ -272,14 +269,17 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
 
 
 def render_pairs(dataset, eval_config: cfg.EvalConfig, gt_presets: np.ndarray,
-                 inferred: np.ndarray, pitches, velocities, dev: torch.device):
+                 inferred: np.ndarray, pitches, velocities, dev: torch.device,
+                 gt_audio: Optional[np.ndarray] = None):
     """(ground-truth, inferred) audio of one batch, each (n, N) float32 on
     ``dev``. ``'jax'``: one ``fm_torch.render_batch`` call on the two sets
     stacked (evaluate.py:294-304 there), so both go through one engine;
-    ``'cpp'``: two calls of the C++ engine on the host."""
+    ``'cpp'``: two calls of the C++ engine on the host, or one for the
+    inferred presets where ``gt_audio`` (the cached ground truth) is given."""
     renderer = dataset.renderer
     if eval_config.audio_render_backend == "cpp":
-        gt = renderer.render_batch(gt_presets, pitches, velocities)
+        gt = (renderer.render_batch(gt_presets, pitches, velocities) if gt_audio is None
+              else gt_audio)
         est = renderer.render_batch(inferred, pitches, velocities)
         return torch.from_numpy(gt).to(dev), torch.from_numpy(est).to(dev)
     n = len(gt_presets)

@@ -12,7 +12,7 @@ import torch
 
 from preset_gen_vae_tpu.data.dexed_dataset import DexedDataset as JaxDexedDataset
 from preset_gen_vae_tpu_torch.data.dexed_dataset import DexedDataset
-from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
+from _torch_port_fixtures import isolated_data_root  # noqa: F401 (autouse)
 
 KW = dict(n_synthetic_presets=6, synthetic_seed=1, note_duration=(0.15, 0.05),
           midi_notes=((60, 85), (48, 100)), multichannel_stacked_spectrograms=True)

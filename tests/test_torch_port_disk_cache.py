@@ -44,22 +44,12 @@ from preset_gen_vae_tpu_torch.data.dexed_dataset import DexedDataset
 from preset_gen_vae_tpu_torch.evaluation.evaluate import _gt_audio_cached
 from preset_gen_vae_tpu_torch.synth.render import engine_version
 from preset_gen_vae_tpu_torch.utils import audio_io
+from _torch_port_fixtures import isolated_data_root  # noqa: F401 (autouse)
 
 SHORT = dict(n_synthetic_presets=6, synthetic_seed=1, note_duration=(0.15, 0.05),
              midi_notes=((60, 85), (48, 100)), multichannel_stacked_spectrograms=True)
 JAX_BACKEND = dict(corpus_render_backend="jax", corpus_render_feedback="unrolled")
 TIERS = ("specs_raw.npy", "specs_norm_f16.npy", "spec_stats.json")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def isolated_data_root(tmp_path_factory):
-    """Any port dataset of the module without a data_root caches its corpus
-    (the default 'disk' policy) under a fresh PGV_TPU_DATA_DIR, never in
-    the repository's data_cache/, where another run's corpus could be
-    served. Every port test module that builds a dataset imports it."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("PGV_TPU_DATA_DIR", str(tmp_path_factory.mktemp("data_cache")))
-        yield
 
 
 def _no_render(monkeypatch):

@@ -39,7 +39,7 @@ from preset_gen_vae_tpu_torch.synth import database as db
 from preset_gen_vae_tpu_torch.synth import dexed_params as dx
 from preset_gen_vae_tpu_torch.synth.render import DexedRenderer
 from preset_gen_vae_tpu_torch.training.loop import train_config
-from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
+from _torch_port_fixtures import isolated_data_root  # noqa: F401 (autouse)
 
 DATASET_KWARGS = {"n_synthetic_presets": 64}
 CPP_EVAL = cfg.EvalConfig(audio_render_backend="cpp")

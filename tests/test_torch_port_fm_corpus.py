@@ -27,7 +27,7 @@ from preset_gen_vae_tpu_torch.synth import database as port_db
 from preset_gen_vae_tpu_torch.synth import fm_torch as ft
 from preset_gen_vae_tpu_torch.synth.render import DexedRenderer
 from preset_gen_vae_tpu_torch.training.loop import train_config
-from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
+from _torch_port_fixtures import isolated_data_root  # noqa: F401 (autouse)
 
 SHORT = dict(n_synthetic_presets=6, synthetic_seed=3, note_duration=(0.15, 0.05),
              midi_notes=((55, 85), (64, 100)), multichannel_stacked_spectrograms=True,

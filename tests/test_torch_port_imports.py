@@ -11,6 +11,10 @@
   there.
 - Entry points, the ``python -m`` scripts among them, default to the card
   and raise where there is none.
+- Every port test module that builds a dataset, trains or evaluates takes
+  the autouse ``isolated_data_root`` of ``_torch_port_fixtures.py``, so
+  that no test caches a corpus in, or is served one from, the
+  repository's ``data_cache/``.
 """
 
 import ast
@@ -20,6 +24,8 @@ import sys
 
 import pytest
 import torch
+
+from _torch_port_fixtures import isolated_data_root  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "preset_gen_vae_tpu_torch"
@@ -123,3 +129,22 @@ def test_dataset_and_frontend_do_not_move_to_cpu_quietly():
         SpectrogramProcessor(SpectrogramConfig(), device="cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         DexedDataset(n_synthetic_presets=4)  # device defaults to "cuda"
+
+
+CACHING_CALLS = ("DexedDataset(", "train_config(", "evaluate_model", "evaluate_all_models(",
+                 "prepare_dataset(", "interpolate_presets(", "run_queue(", "train_from_syx",
+                 "preset_morph_demo")
+
+
+def _takes_isolated_data_root(path: pathlib.Path) -> bool:
+    return any(isinstance(n, ast.ImportFrom) and n.module == "_torch_port_fixtures"
+               and "isolated_data_root" in {a.name for a in n.names}
+               for n in ast.walk(ast.parse(path.read_text(), filename=str(path))))
+
+
+def test_port_test_modules_that_cache_a_corpus_isolate_their_data_root():
+    tests = sorted((ROOT / "tests").glob("test_torch_port_*.py"))
+    caching = [p for p in tests if any(c in p.read_text() for c in CACHING_CALLS)]
+    assert len(caching) >= 10 and pathlib.Path(__file__).resolve() in caching
+    missing = [p.name for p in caching if not _takes_isolated_data_root(p)]
+    assert not missing, missing

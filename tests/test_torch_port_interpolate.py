@@ -13,7 +13,7 @@ tests/test_torch_port_model.py's forward bar); the C++ renders of the
 two engine builds within 1e-4.
 
 The module's full-size CPU runs take two torch threads
-(``two_torch_threads``), as the multi-note tests do.
+(``two_torch_threads`` of ``_torch_port_fixtures.py``).
 """
 
 import json
@@ -35,10 +35,9 @@ from preset_gen_vae_tpu_torch.logs.logger import load_checkpoint
 from preset_gen_vae_tpu_torch.models.build import build_extended_ae_model
 from preset_gen_vae_tpu_torch.scripts import preset_morph_demo
 from preset_gen_vae_tpu_torch.training.loop import prepare_dataset, train_config
-from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
-from test_torch_port_multinote import two_torch_threads  # noqa: F401 (autouse)
+from _torch_port_fixtures import isolated_data_root, two_torch_threads  # noqa: F401 (autouse)
 
-MODEL = dict(name="TestVAE", run_name="interp", latent_flow_arch="realnvp_2l32",
+MODEL = dict(name="FlVAE2", run_name="interp", latent_flow_arch="realnvp_2l32",
              params_regression_architecture="mlp_2l64", dim_z=16)
 TRAIN = dict(minibatch_size=4, n_epochs=1, compute_dtype="float32", verbosity=0)
 CORPUS = {"n_synthetic_presets": 16}
@@ -103,21 +102,26 @@ def test_interpolation_needs_a_latent_flow(trained):
                             device="cpu", dataset_kwargs=trained["kw"])
 
 
-def test_morph_demo_entry_point_on_cpu(trained, capsys):
+def test_morph_demo_entry_point_on_cpu(trained, capsys, monkeypatch):
     """The morph demo on the trained run, by default between the 8th and
-    the 14th preset, else between the two UIDs given: 5 steps, the presets,
-    wavs and summary written into the run dir, the printed line equal to
-    the summary file, every distance finite. (This barely trained model's
-    renders may coincide, so the distances are not held to be positive.)"""
+    the 14th preset, else between the two UIDs given: the presets, wavs and
+    summary written into the run dir, the printed line equal to the summary
+    file, every distance finite. The demo's run, path length and corpus
+    size are the module's constants, set here to the tiny run, 5 steps and
+    16 presets. (This barely trained model's renders may coincide, so the
+    distances are not held to be positive.)"""
     root = trained["root"]
-    args = ["--run", "TestVAE/interp", "--logs-root", str(root / "saved"), "--n-presets", "16",
-            "--data-root", trained["kw"]["data_root"], "--steps", "5", "--device", "cpu"]
+    monkeypatch.setattr(preset_morph_demo, "RUN_NAME", "interp")
+    monkeypatch.setattr(preset_morph_demo, "N_STEPS", 5)
+    monkeypatch.setattr(preset_morph_demo, "N_PRESETS", CORPUS["n_synthetic_presets"])
+    args = ["--logs-root", str(root / "saved"), "--data-root", trained["kw"]["data_root"],
+            "--device", "cpu"]
     ds = DexedDataset(device="cpu", **trained["kw"])
     default = preset_morph_demo.main(args)
     assert (default["uid_a"], default["uid_b"]) == (int(ds.uids[7]), int(ds.uids[13]))
     summary = preset_morph_demo.main([str(ds.uids[0]), str(ds.uids[5]), *args])
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    run_dir = root / "saved" / "TestVAE" / "interp"
+    run_dir = root / "saved" / "FlVAE2" / "interp"
     assert printed == summary == json.loads((run_dir / "morph_demo_summary.json").read_text())
     assert (summary["uid_a"], summary["uid_b"], summary["n_steps"]) == (ds.uids[0], ds.uids[5], 5)
     dists = [summary[k] for k in ("direct_spec_mae", "step_spec_mae_mean", "step_spec_mae_max")]

@@ -37,7 +37,7 @@ from preset_gen_vae_tpu_torch.training import loop
 from preset_gen_vae_tpu_torch.training import queue as q
 from preset_gen_vae_tpu_torch.training.train_step import SCALARS
 from preset_gen_vae_tpu_torch.utils.exception import ModelConvergenceError
-from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
+from _torch_port_fixtures import isolated_data_root  # noqa: F401 (autouse)
 
 SCHEDULE = dict(lr_warmup_epochs=3, lr_warmup_start_factor=0.1, beta_warmup_epochs=5,
                 scheduler_patience=2, scheduler_cooldown=2, scheduler_lr_factor=0.2)

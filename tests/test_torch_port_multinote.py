@@ -40,7 +40,7 @@ from preset_gen_vae_tpu_torch.data.dexed_dataset import (
 from preset_gen_vae_tpu_torch.evaluation import evaluate as ev
 from preset_gen_vae_tpu_torch.models.encoder import SpectrogramEncoder
 from preset_gen_vae_tpu_torch.training.loop import train_config
-from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
+from _torch_port_fixtures import isolated_data_root, two_torch_threads  # noqa: F401 (autouse)
 from test_torch_port_model import B, flagship_pair
 from test_torch_port_train import (
     assert_batch_stats_match,
@@ -62,17 +62,6 @@ CONFIGS = {
 }
 OUTPUTS = ("z0_mu_logvar", "z0", "zK", "logdet", "x_out", "v_out")
 
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads for this module's CPU convolutions, restored
-    after it: the suite runs in several worker processes on one machine,
-    where torch's default of one thread per core oversubscribes the cores
-    and slows these full-size (257x347) runs many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 # ---------------------------------------------------------------- dataset
 @pytest.fixture(scope="module")

@@ -8,15 +8,16 @@ module's on the same bytes (the sysex fixtures of tests/test_sysex.py:
 the exact round trip, checksums strict and lenient, a headerless bank, a
 single VCED voice, 50 fuzzed blobs, a corrupt file among good ones); a
 database written by either package reads back bit-equal in the other. The
-entry point trains the full-width flagship for 2 epochs at batch 16 on 96
-voices (the repo's example cartridge and two written from the seeded
+entry point trains the full-width flagship for 2 epochs at batch 16 on 64
+voices (the repo's example cartridge and one written from the seeded
 ``structured2`` generator) and evaluates it on the C++ re-render: every
 metric finite.
 
 The module's full-size (257x347) CPU runs take two torch threads
-(``two_torch_threads``), as the multi-note tests do.
+(``two_torch_threads`` of ``_torch_port_fixtures.py``).
 """
 
+import functools
 import json
 import pathlib
 
@@ -26,13 +27,13 @@ import pytest
 from preset_gen_vae_tpu.data.dexed_dataset import DexedDataset as JaxDexedDataset
 from preset_gen_vae_tpu.synth import database as jdb
 from preset_gen_vae_tpu.synth import sysex as jsysex
+from preset_gen_vae_tpu_torch import config as cfg
 from preset_gen_vae_tpu_torch.data.dexed_dataset import DexedDataset
 from preset_gen_vae_tpu_torch.scripts import train_from_syx
 from preset_gen_vae_tpu_torch.synth import database as db
 from preset_gen_vae_tpu_torch.synth import dexed_params as dx
 from preset_gen_vae_tpu_torch.synth import sysex
-from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
-from test_torch_port_multinote import two_torch_threads  # noqa: F401 (autouse)
+from _torch_port_fixtures import isolated_data_root, two_torch_threads  # noqa: F401 (autouse)
 
 EXAMPLE_BANK = pathlib.Path(__file__).resolve().parents[1] / "docs" / "examples" / \
     "structured2_bank.syx"
@@ -247,27 +248,31 @@ def test_db_dataset_is_the_jax_packages(tmp_path, restrict):
     assert port._corpus_tag() == jds._corpus_tag() and "_db" in port._corpus_tag()
 
 
-def test_train_from_syx_entry_point_on_cpu(tmp_path, capsys):
+def test_train_from_syx_entry_point_on_cpu(tmp_path, capsys, monkeypatch):
     """The user recipe through the port's entry point: cartridges -> SQLite
-    -> 2 epochs of the flagship -> eval on the C++ re-render, one JSON line
-    per phase, every metric finite; the eval reloads the corpus cached by
-    the train (both tiers and the sidecar under the data root)."""
-    banks = [EXAMPLE_BANK]
-    for seed in (31, 32):
-        p, names, _ = db.generate_structured_corpus_v2(32, seed=seed)
-        banks.append(tmp_path / f"bank{seed}.syx")
-        banks[-1].write_bytes(sysex.write_syx(p, names))
+    -> 2 epochs of the flagship -> eval, one JSON line per phase, every
+    metric finite; the eval reloads the corpus cached by the train (both
+    tiers and the sidecar under the data root). The script's configs are
+    the defaults; here the batch is 16 and the eval re-renders on the C++
+    engine (the plain FM render takes ~40 s a note on the CPU)."""
+    monkeypatch.setattr(train_from_syx, "TrainConfig",
+                        functools.partial(cfg.TrainConfig, minibatch_size=16))
+    monkeypatch.setattr(train_from_syx, "EvalConfig",
+                        functools.partial(cfg.EvalConfig, audio_render_backend="cpp"))
+    p, names, _ = db.generate_structured_corpus_v2(32, seed=31)
+    banks = [EXAMPLE_BANK, tmp_path / "bank31.syx"]
+    banks[1].write_bytes(sysex.write_syx(p, names))
     data_root = tmp_path / "data"
     train_from_syx.main([*map(str, banks), "--db", str(tmp_path / "real.sqlite"),
-                         "--run-name", "syx0", "--epochs", "2", "--batch-size", "16",
+                         "--run-name", "syx0", "--epochs", "2",
                          "--logs-root", str(tmp_path / "saved"), "--data-root", str(data_root),
-                         "--eval-render-backend", "cpp", "--device", "cpu"])
+                         "--device", "cpu"])
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("{")]
     assert [ln["phase"] for ln in lines] == ["import", "train", "eval"]
     imported, trained, evaluated = lines
-    assert imported["voices"] == 96 and set(imported["labels"]) <= set(db.LABELS_VOCAB)
-    assert trained["epochs_trained"] == 2 and trained["corpus_presets"] == 96
+    assert imported["voices"] == 64 and set(imported["labels"]) <= set(db.LABELS_VOCAB)
+    assert trained["epochs_trained"] == 2 and trained["corpus_presets"] == 64
     assert trained["input_size"] == [16, 1, 257, 347]
     assert all(np.isfinite(v) for v in trained.values() if isinstance(v, float))
     assert evaluated["epoch"] == 1 and evaluated["n_items"] > 0

@@ -47,7 +47,7 @@ from preset_gen_vae_tpu_torch import config as cfg
 from preset_gen_vae_tpu_torch import weights
 from preset_gen_vae_tpu_torch.training import train_step as ts
 from preset_gen_vae_tpu_torch.training.loop import train_config
-from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
+from _torch_port_fixtures import isolated_data_root  # noqa: F401 (autouse)
 from test_torch_port_model import flagship_pair
 
 BETA = 0.2

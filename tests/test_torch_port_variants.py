@@ -38,7 +38,7 @@ from preset_gen_vae_tpu_torch.models.flows import (
 from preset_gen_vae_tpu_torch.models.vae import BasicVAE
 from preset_gen_vae_tpu_torch.training import train_step as ts
 from preset_gen_vae_tpu_torch.training.loop import train_config
-from test_torch_port_disk_cache import isolated_data_root  # noqa: F401 (autouse)
+from _torch_port_fixtures import isolated_data_root, two_torch_threads  # noqa: F401 (autouse)
 from test_torch_port_model import _perturb, flagship_pair
 from test_torch_port_multinote import assert_outputs_match, eval_forward_both
 from test_torch_port_train import (
@@ -60,17 +60,6 @@ VARIANTS = {
 FLOW_LOSS = dict(forward_controls_loss=False, latent_flow_arch=LATENT3,
                  params_regression_architecture=f"flow_{LATENT3}")
 
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads for this module's CPU convolutions, restored
-    after it: the suite runs in several worker processes on one machine,
-    where torch's default of one thread per core oversubscribes the cores
-    and slows these full-size (257x347) runs many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 # ---------------------------------------------------------------- forwards
 @pytest.fixture(scope="module", params=list(VARIANTS))
