@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
 Builds every hand-written kernel of the port from the sources in this
-checkout (K1, ``csrc/logmel.cu``; F1 and F2, ``csrc/fm_render.cu``, built
-at once, each by its own nvcc), holds each against its plain PyTorch
+checkout (K1, ``csrc/logmel.cu``; F1, F1b and F2, ``csrc/fm_render.cu``,
+built at once, each by its own nvcc), holds each against its plain PyTorch
 version on the card (K1 on noise and on rendered DX7 notes, there also
 against a float64 rFFT witness; F1, F2 and F2's two phases, the
 feedback loop and the feed-forward operators, on 32 mixed presets and 12
@@ -10,7 +10,10 @@ with loops of 1-3 operators over two seeds, short renders, again at the
 corpus pass's shape of 1,024 presets at 4 s, and F2 against the C++
 engine at 4 s), times each beside its bound, its plain version and, where
 there is one, a library call, times the FM kernels' serial chains (F2 on
-32 items of each loop length, its loop phase alone, F1 on 8 items), then
+32 items of each loop length, its loop phase alone, F1 on 8 items), holds
+F1b, F1's backward, against its plain version (``control_pass_vjp``) on
+the short renders' presets, at the sound-match demo's shape and at the
+corpus pass's, and times it there beside F1, then
 drives the port's main path through its user entry
 points with the flagship FlVAE2 at full width (257x347 log-mels, dim_z 610,
 batch 160) on a seeded synthetic 1,024-preset corpus, in three paths, each
@@ -36,10 +39,15 @@ reload: no kernel launch, the same corpus bit for bit), evaluated twice on
 the C++ re-render (the first writes the ground-truth audio cache, the
 second reads it and scores bit-equal) and interpolated between two
 presets; then the stack3 configuration's on-device corpus render on the
-``'disk'`` policy, cold and warm, held against its ``'device'`` pass. Each
-path prints its wall time, model build time, steady step, corpus and
-render seconds, launches of every kernel and peak memory. Runs and caches
-live in a temporary directory that is removed at the end.
+``'disk'`` policy, cold and warm, held against its ``'device'`` pass; last
+the sound-match demo (``scripts/sound_match_demo.py``), its gradient
+through F1 and F1b held against the plain render's, its 400 Adam steps
+through the render on the card (F1 and F1b each step; at least a 10x
+loss reduction), its first 10 losses against the plain render's and a
+profile of its step. Each path prints its wall time, launches of every
+kernel and peak memory, the training paths also their model build time,
+steady step, corpus and render seconds. Runs and caches live in a
+temporary directory that is removed at the end.
 
 Run from the repository root with one GPU:
 
@@ -438,6 +446,15 @@ def loop_length_presets(seed: int, n: int, length: int) -> np.ndarray:
     return p.astype(np.float32)
 
 
+def short_check_presets(seed: int) -> np.ndarray:
+    """The short renders' 28 presets of one seed: 16 mixed ones and 2 with
+    each loop length 1-3, of which each length once at feedback 0."""
+    pr = np.concatenate([mixed_fm_presets(seed)] + [
+        loop_length_presets(seed, 2, n) for n in (1, 2, 3)])
+    pr[16::2, 5] = 0.0  # each loop length at feedback 0 too
+    return pr
+
+
 def fm_inputs(p: torch.Tensor, pitch, vel, sr: int, n_ticks: int, note_off: int):
     """F1's outputs for presets ``p`` on the card, and F2's other arguments:
     -> (F1's four outputs, F2's argument tuple, ctl)."""
@@ -499,10 +516,7 @@ def phase_fm_kernels():
     sr, total = 22050, FM_SHORT / 22050
     err = {"F1": 0.0, "F2": 0.0, "loop": 0.0, "ff": 0.0}
     for seed in (0, 1):
-        pr = np.concatenate([mixed_fm_presets(seed)] + [
-            loop_length_presets(seed, 2, n) for n in (1, 2, 3)])
-        pr[16::2, 5] = 0.0  # each loop length at feedback 0 too
-        p = torch.from_numpy(pr).cuda()
+        p = torch.from_numpy(short_check_presets(seed)).cuda()
         pitch, vel = fm_notes(len(p))
         got, args, ctl = fm_inputs(p, pitch, vel, sr, FM_SHORT // ft.BLOCK, int(0.1 * sr))
         want = ft.control_pass(ctl, FM_SHORT // ft.BLOCK, int(0.1 * sr), sr)
@@ -681,6 +695,231 @@ def phase_fm_kernels():
     return [f1, f2, loop, ff]
 
 
+# F1b against control_pass_vjp: max |err| of each field of the gradient
+# row over its largest entry in the plain version (the same arithmetic
+# but the transcendental functions' last bits and the order of the
+# 8-lane sums); a field that is 0 in the plain version (the switches
+# ``on`` and ``lfo_wave``) must be exactly 0
+F1B_BAR = 1e-4
+
+
+def f1b_errors(got, want) -> dict:
+    """Each ``CTL_FIELDS`` field's max |F1b - control_pass_vjp| over the
+    largest |entry| of the plain version's (the error itself where that is
+    0)."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    errs = {}
+    for name, _ in ft.CTL_FIELDS:
+        g, w = ft._ctl(got, name), ft._ctl(want, name)
+        scale = float(w.abs().max())
+        errs[name] = float((g - w).abs().max()) / (scale if scale > 0 else 1.0)
+    return errs
+
+
+def short_json(errs: dict) -> str:
+    return json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()})
+
+
+def cotangents(rng, B: int, n_ticks: int):
+    """Seeded normal cotangents of F1's four outputs, on the card."""
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+            for shape in ((n_ticks, B, 6), (n_ticks, B), (n_ticks, B, 6), (n_ticks, B, 6))]
+
+
+def fm_control_bwd_work(B: int, n_ticks: int):
+    """(bytes, flops) of F1's adjoint: the packed rows read and the gradient
+    rows written once, the four cotangents read once ((T, B, 6) x 3 and
+    (T, B) f32); per item and tick ~540 operations: the state walk (the
+    LFO, the pitch EG and six EGs, ~76) and the adjoint tick (the tick's
+    values again, ~35 shared and ~25 per operator, the adjoints, ~40 per
+    operator and ~30 shared). The tape is the design's own traffic and is
+    not counted."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    return 4 * (2 * B * ft.CTL_WIDTH + n_ticks * B * 19), B * n_ticks * 540
+
+
+def phase_f1b():
+    """F1b against ``control_pass_vjp`` on the card, on seeded cotangents:
+    the short renders' 28 presets of each seed (4,096 samples) and the
+    sound-match demo's one preset and shape (1,040 ticks); then F1b beside
+    F1 and the plain version at the corpus pass's shape (1,024, 2,768
+    ticks), held against the plain version there too, at the demo's shape,
+    and its serial chain on 8 items."""
+    from preset_gen_vae_tpu_torch.scripts import sound_match_demo as demo
+    from preset_gen_vae_tpu_torch.synth import database as db
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    rng = np.random.default_rng(8)
+    sr = 22050
+
+    def check(name, p, pitch, vel, n_ticks, note_off):
+        d = ft.decode_presets(p)
+        ctl = ft.control_params(d, torch.as_tensor(pitch).cuda(), torch.as_tensor(vel).cuda(), sr)
+        gs = cotangents(rng, len(p), n_ticks)
+        got = ft.fm_control_bwd(ctl, n_ticks, note_off, sr, *gs)
+        want = ft.control_pass_vjp(ctl, n_ticks, note_off, sr, *gs)
+        torch.cuda.synchronize()
+        errs = f1b_errors(got, want)
+        worst = max(errs.values())
+        print(f"[F1b {name}] {len(p)} items x {n_ticks} ticks: max |err| / largest entry by "
+              f"field {short_json(errs)} (bar {F1B_BAR})", flush=True)
+        if not torch.isfinite(got).all() or worst > F1B_BAR:
+            raise AssertionError(f"F1b against control_pass_vjp, {name}: {errs}")
+        err["rel"] = max(err["rel"], worst)
+        err["abs"] = max(err["abs"], float((got - want).abs().max()))
+
+    err = {"rel": 0.0, "abs": 0.0}  # the largest of f1b_errors, and of max |err| itself
+    for seed in (0, 1):
+        pr = short_check_presets(seed)
+        check(f"seed {seed}", torch.from_numpy(pr).cuda(), *fm_notes(len(pr)),
+              FM_SHORT // ft.BLOCK, int(0.1 * sr))
+    demo_ticks = ft.samples_per_render(demo.TOTAL, demo.SR) // ft.BLOCK
+    demo_off = int(demo.NOTE_ON * demo.SR)
+    p_demo, _, _ = demo.problem(torch.device("cuda"))
+    check("demo shape", p_demo, [demo.PITCH], [demo.VELOCITY], demo_ticks, demo_off)
+
+    # ---- timing at the corpus pass's shape and at the demo's
+    n_ticks, note_off = SAMPLES // ft.BLOCK, int(3.0 * sr)
+    pr, _, _ = db.generate_structured_corpus_v2(1024, seed=0)
+    d = ft.decode_presets(torch.from_numpy(pr).cuda())
+    ctl = ft.control_params(d, torch.full((1024,), 60).cuda(), torch.full((1024,), 85).cuda(), sr)
+    gs = cotangents(rng, 1024, n_ticks)
+    row = {"F1": cuda_ms(lambda c: ft.fm_control(c, n_ticks, note_off, sr), [ctl], reps=3),
+           "F1b": cuda_ms(lambda c: ft.fm_control_bwd(c, n_ticks, note_off, sr, *gs), [ctl],
+                          reps=3)}
+    got = ft.fm_control_bwd(ctl, n_ticks, note_off, sr, *gs)
+    t0 = time.perf_counter()
+    want = ft.control_pass_vjp(ctl, n_ticks, note_off, sr, *gs)
+    torch.cuda.synchronize()
+    row["F1b plain"] = (time.perf_counter() - t0) * 1e3
+    corpus_errs = f1b_errors(got, want)
+    if max(corpus_errs.values()) > F1B_BAR:
+        raise AssertionError(f"F1b against control_pass_vjp at (1024, {n_ticks}): {corpus_errs}")
+    err["rel"] = max(err["rel"], max(corpus_errs.values()))
+    err["abs"] = max(err["abs"], float((got - want).abs().max()))
+    del got, want
+    c8, g8 = ctl[:8].contiguous(), [g[:, :8].contiguous() for g in gs]
+    row["F1b 8 items"] = cuda_ms(lambda c: ft.fm_control_bwd(c, n_ticks, note_off, sr, *g8), [c8],
+                                 reps=3)
+    row["F1b bound"], row["F1b bound_by"] = bound(fm_control_bwd_work(1024, n_ticks))
+    row["tape GB"] = ft.tape_bytes(1024, n_ticks) / 1e9
+    del gs, g8
+    d1 = ft.decode_presets(p_demo)
+    ctl1 = ft.control_params(d1, torch.tensor([demo.PITCH]).cuda(),
+                             torch.tensor([demo.VELOCITY]).cuda(), sr)
+    g1 = cotangents(rng, 1, demo_ticks)
+    row["F1b demo shape"] = cuda_ms(
+        lambda c: ft.fm_control_bwd(c, demo_ticks, demo_off, sr, *g1), [ctl1], reps=10)
+    row["F1 demo shape"] = cuda_ms(lambda c: ft.fm_control(c, demo_ticks, demo_off, sr), [ctl1],
+                                   reps=10)
+    row["F1b demo shape bound"] = bound(fm_control_bwd_work(1, demo_ticks))[0]
+    print(f"[F1b at (1024, {n_ticks} ticks)] against control_pass_vjp, max |err| / largest entry "
+          f"by field (bar {F1B_BAR}) {short_json(corpus_errs)}", flush=True)
+    print(f"[F1b timing] {json.dumps(row)}; F1b = {row['F1b'] / row['F1']:.3f} x F1, "
+          f"{row['F1b'] / row['F1b 8 items']:.3f} x its chain (8 items alone)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": "fm_control_bwd", "route": "cuda",
+            "source": "preset_gen_vae_tpu_torch/csrc/fm_render.cu",
+            "replaces": "preset_gen_vae_tpu/synth/fm_jax.py:339", "launches": None,
+            "max_abs_err": err["abs"], "max_err_over_field_max": err["rel"],
+            "ms": row["F1b"], "plain_ms": row["F1b plain"],
+            "bound_ms": row["F1b bound"], "bound_by": row["F1b bound_by"], "library_ms": None,
+            "serial_chain_ms": row["F1b 8 items"], "ms_demo_shape": row["F1b demo shape"],
+            "bound_ms_demo_shape": row["F1b demo shape bound"]}
+
+
+def grad_of_demo_loss(demo, render_fn, p, targets):
+    x = p.clone().requires_grad_(True)
+    loss = demo.spec_loss(demo.render(x, render_fn), targets)
+    (g,) = torch.autograd.grad(loss, x)
+    return loss.item(), g
+
+
+SOUND_MATCH_BAR = {"grad": 1e-3, "losses": 1e-3, "reduction": 10.0}
+SOUND_MATCH_PLAIN_STEPS = 10
+
+
+def phase_sound_match():
+    """The sound-match demo on the card. First the gradient of its loss at
+    its corrupted preset through ``render_batch`` (F1, F1b) against the same
+    through ``plain_render`` on the card (max |err| over the largest entry,
+    ``SOUND_MATCH_BAR['grad']``); then the path: ``main`` at its own
+    constants (400 Adam steps; F1 launched for the target, the initial
+    loss and each step, F1b for each step; reduction at least 10x); its
+    first 10 losses against 10 steps through ``plain_render`` (relative
+    ``SOUND_MATCH_BAR['losses']``); and where a step's time goes (a
+    profile of 5 steps)."""
+    from preset_gen_vae_tpu_torch.scripts import sound_match_demo as demo
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    dev = torch.device("cuda")
+    p, mask, targets = demo.problem(dev)
+    loss_k, g_k = grad_of_demo_loss(demo, ft.render_batch, p, targets)
+    loss_p, g_p = grad_of_demo_loss(demo, ft.plain_render, p, targets)
+    g_err = float((g_k - g_p).abs().max()) / float(g_p.abs().max())
+    print(f"[sound_match gradient] demo loss {loss_k:.7f} (plain {loss_p:.7f}); d loss / d preset "
+          f"through F1/F1b against plain_render on the card: max |err| / largest entry "
+          f"{g_err:.3e} (bar {SOUND_MATCH_BAR['grad']}), largest entry "
+          f"{float(g_p.abs().max()):.4e}, {int((g_p != 0).sum())} nonzero entries", flush=True)
+    if not torch.isfinite(g_k).all() or g_err > SOUND_MATCH_BAR["grad"]:
+        raise AssertionError(f"sound_match gradient: {g_err}")
+
+    counts = {}
+    steps = demo.STEPS
+    summary, counts["sound_match"], wall, mem = drive(
+        "sound_match", lambda: demo.main(["--device", "cuda"]), k1=0, f1=steps + 2, bwd=steps)
+    losses = summary.pop("losses")
+    print(f"[sound_match path] {json.dumps(summary)}", flush=True)
+    t0 = time.perf_counter()
+    _, plain_losses, _ = demo.fit(p, mask, targets, SOUND_MATCH_PLAIN_STEPS, ft.plain_render)
+    plain_s = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    print(f"[sound_match path] wall {wall:.2f} s, {summary['wall_s'] / steps * 1e3:.2f} ms a step "
+          f"(the steps' wall {summary['wall_s']} s), launches {counts['sound_match']}, peak device "
+          f"memory {mem:.3f} GiB; losses {losses[0]:.6f} -> {losses[-1]:.6f}; first "
+          f"{SOUND_MATCH_PLAIN_STEPS} losses against plain_render's max relative |err| {rel:.3e} "
+          f"(bar {SOUND_MATCH_BAR['losses']}; plain {plain_s / SOUND_MATCH_PLAIN_STEPS:.3f} s a "
+          f"step)", flush=True)
+    if not np.isfinite(losses).all() or summary["reduction"] < SOUND_MATCH_BAR["reduction"] or \
+            rel > SOUND_MATCH_BAR["losses"]:
+        raise AssertionError(f"sound_match: {summary}, first losses {losses[:10]} against plain "
+                             f"{plain_losses}")
+    sound_match_profile(demo, p, mask, targets)
+    return counts
+
+
+def sound_match_profile(demo, p, mask, targets, steps: int = 5):
+    """torch.profiler over ``steps`` demo steps: device-busy share of the
+    window, kernel launches a step, and the kernels with the most device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    demo.fit(p, mask, targets, 2)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        demo.fit(p, mask, targets, steps)
+        torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0 and e.device_type.name == "CUDA":
+            rows.append((dev_us / 1e3 / steps, e.count / steps, e.key))
+    busy = sum(r[0] for r in rows)
+    rows.sort(reverse=True)
+    top = [f"{k[:60]} {ms:.3f} ms ({n:.0f})" for ms, n, k in rows[:8]]
+    print(f"[sound_match profile] {steps} steps, {window_ms / steps:.2f} ms a step on the host "
+          f"clock (profiled), device {busy:.3f} ms a step ({busy * steps / window_ms:.1%} busy), "
+          f"{sum(r[1] for r in rows):.0f} kernel launches a step; top: {'; '.join(top)}",
+          flush=True)
+
+
 CORPUS = {"n_synthetic_presets": 1024}  # the main path's synthetic corpus
 # the saved multi-note runs' corpus: the generator they trained on
 # (scripts/run_stack3_v2_r5.py:68-77)
@@ -693,14 +932,16 @@ def fresh_corpus(corpus: dict, root, name: str) -> dict:
     return dict(corpus, data_root=str(pathlib.Path(root) / "data_cache" / name.replace(" ", "_")))
 
 
-def drive(name: str, fn, fm: int = 0, k1=None):
+def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0):
     """Runs one path of the main path with every kernel's launch count set
     to 0 just before it and read just after; fails unless K1 launched (or,
-    with ``k1``, launched exactly ``k1`` times: 0 on a warm path), and
-    unless F1 and F2 each launched ``fm`` times (the path's on-device
-    renders: one per note of a 'jax' corpus pass, one per eval batch) and
+    with ``k1``, launched exactly ``k1`` times: 0 on a warm path), unless
+    F1 and F2 each launched ``fm`` times (the path's on-device renders:
+    one per note of a 'jax' corpus pass, one per eval batch; ``f1`` for F1
+    where it differs: the unrolled renders of the sound-match path) and
     F2's two phases (``fm_fb_loop``, ``fm_exact_ff``) once per segment of
-    each F2 call.
+    each F2 call, and unless F1b launched ``bwd`` times (one per gradient
+    through the render).
     -> (result, launches, wall seconds, peak device GiB)."""
     from preset_gen_vae_tpu_torch.ops import spectrogram as sp
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
@@ -719,9 +960,10 @@ def drive(name: str, fn, fm: int = 0, k1=None):
         raise AssertionError(f"K1 launched {launches['logmel']} times on the {name} path, want "
                              f"{'at least 1' if k1 is None else k1}: {launches}")
     n_seg = len(ft.exact_segments(SAMPLES // ft.BLOCK))  # every path renders 4 s notes
-    want = {"fm_control": fm, "fm_exact": fm, "fm_fb_loop": fm * n_seg, "fm_exact_ff": fm * n_seg}
+    want = {"fm_control": fm if f1 is None else f1, "fm_exact": fm, "fm_fb_loop": fm * n_seg,
+            "fm_exact_ff": fm * n_seg, "fm_control_bwd": bwd}
     if any(launches[k] != n for k, n in want.items()):
-        raise AssertionError(f"{name} path: F1/F2 launched {launches}, want {want}")
+        raise AssertionError(f"{name} path: F1/F2/F1b launched {launches}, want {want}")
     return result, launches, wall, torch.cuda.max_memory_allocated() / 2**30
 
 
@@ -1243,15 +1485,17 @@ def main() -> int:
     build_kernels()
     k1 = phase_kernels()
     fm = phase_fm_kernels()
+    f1b = phase_f1b()
     root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     try:
         counts = phase_main_path(root)
         counts.update(phase_variant_paths(root))
         counts.update(phase_syx_path(root))
         counts.update(phase_disk_jax(root))
+        counts.update(phase_sound_match())
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    kernels = [k1, *fm]
+    kernels = [k1, *fm, f1b]
     for entry in kernels:
         entry["launches_by_path"] = {name: c[entry["name"]] for name, c in counts.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

@@ -1,8 +1,10 @@
-// F1 and F2: the DX7 FM render of preset_gen_vae_tpu_torch/synth/fm_torch.py
-// on Hopper (sm_90a), built with nvcc at first use and bound with ctypes.
+// F1, F1b and F2: the DX7 FM render of preset_gen_vae_tpu_torch/synth/fm_torch.py
+// on Hopper (sm_90a), and F1's backward, built with nvcc at first use and
+// bound with ctypes.
 //
-// No TPU kernel stands behind either: the JAX package leaves these scans to
-// XLA (preset_gen_vae_tpu/synth/fm_jax.py). F1 is the control-rate scan
+// No TPU kernel stands behind any: the JAX package leaves these scans to
+// XLA (preset_gen_vae_tpu/synth/fm_jax.py), and their gradient to XLA's
+// autodiff of lax.scan. F1 is the control-rate scan
 // (fm_jax.py:299-339) with the per-tick phase starts (:389-394); F2 is the
 // per-sample 'exact' scan (:489-516) with the amplitude interpolation
 // (:370-379), the per-sample phases (:395-397) and the fade, volume and
@@ -41,6 +43,22 @@
 // each feed-forward segment on the caller's stream once its loop segment
 // is done, overlapping the next one.
 //
+// F1b, F1's backward (fm_control_bwd): the adjoint of the control scan,
+// the cotangents of F1's four outputs -> the gradient of the packed row.
+// The scan's carried state (EG levels and stages, the LFO, the pitch EG)
+// cannot be run backwards, so F1b keeps F1's 8 lanes per item and walks
+// the ticks twice: forward with F1's exact operations, recording on a tape
+// in device memory each tick's pre-tick EG level and stage (lanes 0-5) and
+// pitch-EG level and stage (lane 6), and the LFO's phase and S&H value
+// after its step (lane 7), one float2 a lane and tick; then in reverse,
+// re-deriving each tick's branch decisions and values from the tape and
+// carrying the adjoints: each operator's EG level and phase start on its
+// lane, the item's LFO phase and pitch-EG level on every lane alike. The
+// pitch factor's and the LFO value's adjoints gather contributions from
+// all operators, summed over the 8 lanes each tick by warp shuffle. Like
+// F1 it is bound by its serial chain, the two walks, and not by its bytes:
+// the cotangents and the tape are read once.
+//
 // Numerics follow the plain version op for op: the build passes
 // -fmad=false (no multiply-add contraction) and no --use_fast_math, so
 // sinf, expf and exp2f are the accurate library functions and every
@@ -52,7 +70,7 @@
 
 #define N_OPS 6
 #define BLOCK 32
-#define F1_LANES 8        // lanes per item in F1: 6 operators, the pitch factor, one idle
+#define F1_LANES 8        // lanes per item in F1 and F1b: 6 operators, pitch factor, LFO (F1b)
 #define F1_THREADS 32     // one warp (4 items) per block, so that few items spread over many SMs
 #define LOOP_THREADS 32
 #define FF_TICKS 8        // ticks of one item per feed-forward block
@@ -102,6 +120,13 @@ __device__ __forceinline__ float pick4(const float* v, int i) {
   return i == 0 ? v[0] : (i == 1 ? v[1] : (i == 2 ? v[2] : v[3]));
 }
 
+__device__ __forceinline__ void add4(float* v, int i, float x) {
+  if (i == 0) v[0] += x;
+  else if (i == 1) v[1] += x;
+  else if (i == 2) v[2] += x;
+  else v[3] += x;
+}
+
 // one EG control tick (fm_jax.py:238-249)
 __device__ __forceinline__ void eg_tick(float& cur, int& stage, const float* targets,
                                         const float* slews, bool off) {
@@ -116,6 +141,33 @@ __device__ __forceinline__ void eg_tick(float& cur, int& stage, const float* tar
   if (reached && stage < 2) stage += 1;
 }
 
+// the adjoint of eg_tick: ``g``, the post-tick level's adjoint -> the
+// pre-tick level's; the target's and slew's of the stage the tick used go
+// into g_targets and g_slews. No gradient reaches the stage, the
+// ``reached`` test or the sign.
+__device__ __forceinline__ float eg_tick_bwd(float cur, int stage, const float* targets,
+                                             const float* slews, bool off, float g,
+                                             float* g_targets, float* g_slews) {
+  if (off) stage = 3;
+  const float target = pick4(targets, stage);
+  const float slew = pick4(slews, stage);
+  const float dlt = target - cur;
+  const float step = dlt > 0.f ? 4.f * slew + 0.05f * dlt : slew;
+  if (fabsf(dlt) <= step) {
+    add4(g_targets, stage, g);
+    return 0.f;
+  }
+  const float g_step = g * (dlt > 0.f ? 1.f : (dlt < 0.f ? -1.f : 0.f));
+  if (!(dlt > 0.f)) {
+    add4(g_slews, stage, g_step);
+    return g;
+  }
+  add4(g_slews, stage, g_step * 4.f);
+  const float g_dlt = g_step * 0.05f;
+  add4(g_targets, stage, g_dlt);
+  return g - g_dlt;
+}
+
 // the LFO wave (fm_jax.py:222-230); anything but 0-4 is the S&H value
 __device__ __forceinline__ float lfo_wave_value(int wave, float phase, float sh) {
   switch (wave) {
@@ -126,6 +178,35 @@ __device__ __forceinline__ float lfo_wave_value(int wave, float phase, float sh)
     case 4: return sinf(TWO_PI_F * phase);
     default: return sh;
   }
+}
+
+// g times the LFO wave's derivative by its phase: none through the
+// square's or the S&H's steps
+__device__ __forceinline__ float lfo_wave_bwd(int wave, float phase, float g) {
+  switch (wave) {
+    case 0: return phase < 0.5f ? g * 4.f : -(g * 4.f);
+    case 1: return g * -2.f;
+    case 2: return g * 2.f;
+    case 4: return g * cosf(TWO_PI_F * phase) * TWO_PI_F;
+    default: return 0.f;
+  }
+}
+
+// the LFO delay ramp, min(t_s / max(delay, 1e-9), 1) for delay > 0, else 1
+__device__ __forceinline__ float lfo_ramp(float t_s, float delay) {
+  return delay > 0.f ? fminf(t_s / fmaxf(delay, 1e-9f), 1.f) : 1.f;
+}
+
+// g times the ramp's derivative by the delay; min and max split their
+// gradient in halves at a tie, as jnp.minimum and jnp.maximum do
+__device__ __forceinline__ float lfo_ramp_bwd(float t_s, float delay, float g) {
+  if (!(delay > 0.f)) return 0.f;
+  const float m = fmaxf(delay, 1e-9f);
+  const float r = t_s / m;
+  const float g_r = r < 1.f ? g : (r == 1.f ? 0.5f * g : 0.f);
+  const float inv = 1.f / m;
+  const float g_m = -(g_r * t_s) * (inv * inv);
+  return delay > 1e-9f ? g_m : (delay == 1e-9f ? 0.5f * g_m : 0.f);
 }
 
 // F1: 8 lanes per item walk the T ticks. Every lane steps the LFO (S&H LCG
@@ -174,7 +255,7 @@ fm_control_kernel(const float* __restrict__ ctl, int B, int T, int note_off, flo
     const int start = t * BLOCK;
     const bool off = start >= note_off;
     const float t_s = (float)start / fs;
-    const float ramp = lfo_delay_s > 0.f ? fminf(t_s / fmaxf(lfo_delay_s, 1e-9f), 1.f) : 1.f;
+    const float ramp = lfo_ramp(t_s, lfo_delay_s);
     lfo_phase = lfo_phase + lfo_hz * tick_s;
     if (lfo_phase >= 1.f) {
       lfo_phase = lfo_phase - floorf(lfo_phase);
@@ -201,6 +282,197 @@ fm_control_kernel(const float* __restrict__ ctl, int B, int T, int note_off, flo
     incs[at] = inc;
     const float nxt = phase + inc * (float)BLOCK;
     phase = nxt - floorf(nxt);
+  }
+}
+
+// the sum of v over the 8 lanes of an item; every lane gets the same float
+// (each xor step adds the same two values on both lanes)
+__device__ __forceinline__ float lanes_sum(float v) {
+  v = v + __shfl_xor_sync(0xffffffffu, v, 4, F1_LANES);
+  v = v + __shfl_xor_sync(0xffffffffu, v, 2, F1_LANES);
+  return v + __shfl_xor_sync(0xffffffffu, v, 1, F1_LANES);
+}
+
+// F1b: the adjoint of F1 (fm_torch.control_pass_vjp). F1's lanes: lane i
+// < 6 is operator i, lane 6 the pitch factor, lane 7 keeps the LFO on the
+// tape. Every lane of every item in the block runs both walks, padding
+// items too (their memory accesses are skipped), so that the shuffles
+// see full warps. Writes every column of the item's gradient row.
+__global__ void __launch_bounds__(F1_THREADS)
+fm_control_bwd_kernel(const float* __restrict__ ctl, int B, int T, int note_off, float fs,
+                      float tick_s, float ln10_over_20, const float* __restrict__ g_amps,
+                      const float* __restrict__ g_pitch_fact, const float* __restrict__ g_starts,
+                      const float* __restrict__ g_incs, float2* __restrict__ tape,
+                      float* __restrict__ gctl) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = g % F1_LANES;
+  const bool valid = g / F1_LANES < B;
+  const int b = valid ? g / F1_LANES : B - 1;
+  const float* c = ctl + (size_t)b * CTL_WIDTH;
+  const bool is_op = lane < N_OPS;
+  const int k_op = is_op ? lane : 0;  // lanes 6 and 7 read operator 0's row and never use it
+  float targets[4], slews[4], peg_targets[4], peg_slews[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    targets[k] = c[CTL_TARGETS + 4 * k_op + k];
+    slews[k] = c[CTL_SLEWS + 4 * k_op + k];
+    peg_targets[k] = c[CTL_PEG_TARGETS + k];
+    peg_slews[k] = c[CTL_PEG_SLEWS + k];
+  }
+  const float gain = c[CTL_OP_GAIN_DB + k_op], ams = c[CTL_AMS_DB + k_op];
+  const float freq = c[CTL_FREQS + k_op];
+  const bool on = c[CTL_ON + k_op] > 0.f;
+  const float lfo_hz = c[CTL_LFO_HZ], lfo_delay_s = c[CTL_LFO_DELAY_S];
+  const float pmd = c[CTL_PMD], amd = c[CTL_AMD], pms = c[CTL_PMS];
+  const int wave = (int)c[CTL_LFO_WAVE];
+
+  // ---- forward: F1's state walk, the tape written
+  {
+    float eg = c[CTL_EG0 + k_op], peg = c[CTL_PEG0], lfo_phase = c[CTL_LFO_PHASE0], sh = 0.f;
+    int stage = 0, peg_stage = 0;
+    uint32_t rng = SH_SEED;
+    for (int t = 0; t < T; ++t) {
+      const bool off = t * BLOCK >= note_off;
+      lfo_phase = lfo_phase + lfo_hz * tick_s;
+      if (lfo_phase >= 1.f) {
+        lfo_phase = lfo_phase - floorf(lfo_phase);
+        rng = rng * 1664525u + 1013904223u;
+        sh = (float)(rng >> 8) / 8388608.f - 1.f;
+      }
+      const float2 rec = is_op ? make_float2(eg, (float)stage)
+                               : (lane == N_OPS ? make_float2(peg, (float)peg_stage)
+                                                : make_float2(lfo_phase, sh));
+      if (valid) tape[((size_t)t * B + b) * F1_LANES + lane] = rec;
+      eg_tick(peg, peg_stage, peg_targets, peg_slews, off);
+      eg_tick(eg, stage, targets, slews, off);
+    }
+  }
+
+  // ---- reverse: the adjoints of the post-tick EG level (a_eg), pitch-EG
+  // level (a_peg) and LFO phase (a_lfo), and the sum of the later phase
+  // starts' cotangents (a_start); the row's gradient in registers
+  float a_eg = 0.f, a_peg = 0.f, a_lfo = 0.f, a_start = 0.f;
+  float g_targets[4] = {0.f, 0.f, 0.f, 0.f}, g_slews[4] = {0.f, 0.f, 0.f, 0.f};
+  float g_peg_targets[4] = {0.f, 0.f, 0.f, 0.f}, g_peg_slews[4] = {0.f, 0.f, 0.f, 0.f};
+  float g_gain = 0.f, g_ams = 0.f, g_freq = 0.f, g_amd = 0.f;
+  float g_hz = 0.f, g_delay = 0.f, g_pmd = 0.f, g_pms = 0.f;
+  // this lane's tape entry and cotangents of tick t, loaded a tick ahead
+  auto load = [&](int t, float2& rec, float& ga, float& gs, float& gi) {
+    rec = make_float2(0.f, 0.f);
+    ga = gs = gi = 0.f;
+    if (!valid || t < 0) return;
+    rec = tape[((size_t)t * B + b) * F1_LANES + lane];
+    if (is_op) {
+      const size_t at = ((size_t)t * B + b) * N_OPS + lane;
+      ga = g_amps[at];
+      gs = g_starts[at];
+      gi = g_incs[at];
+    } else if (lane == N_OPS) {
+      ga = g_pitch_fact[(size_t)t * B + b];
+    }
+  };
+  float2 rec;
+  float ga, gs, gi;
+  load(T - 1, rec, ga, gs, gi);
+  for (int t = T - 1; t >= 0; --t) {
+    float2 rec_n;
+    float ga_n, gs_n, gi_n;
+    load(t - 1, rec_n, ga_n, gs_n, gi_n);
+    const int start = t * BLOCK;
+    const bool off = start >= note_off;
+    const float t_s = (float)start / fs;
+    const float ramp = lfo_ramp(t_s, lfo_delay_s);
+    const float peg_pre = __shfl_sync(0xffffffffu, rec.x, N_OPS, F1_LANES);
+    const int peg_stage = (int)__shfl_sync(0xffffffffu, rec.y, N_OPS, F1_LANES);
+    const float lfo_phase = __shfl_sync(0xffffffffu, rec.x, N_OPS + 1, F1_LANES);
+    const float sh = __shfl_sync(0xffffffffu, rec.y, N_OPS + 1, F1_LANES);
+    // tick t's values, as F1 computes them
+    const float lfo_raw = lfo_wave_value(wave, lfo_phase, sh);
+    const float lfo = lfo_raw * ramp;
+    float peg = peg_pre;
+    int peg_st = peg_stage;
+    eg_tick(peg, peg_st, peg_targets, peg_slews, off);
+    const float pf = exp2f((peg * 0.08f + lfo * pmd * pms) / 12.f);
+    // this lane's parts of the pitch factor's and the LFO value's adjoints
+    float c_pf = 0.f, c_lfo = 0.f;
+    if (is_op) {
+      const float eg_pre = rec.x;
+      const int stage = (int)rec.y;
+      float eg = eg_pre;
+      int st = stage;
+      eg_tick(eg, st, targets, slews, off);
+      const float am_lfo = -0.5f * (1.f + lfo) * amd;
+      const float tot = eg + gain + am_lfo * ams;
+      float amp = on ? expf(fminf(tot, 0.f) * ln10_over_20) : 0.f;
+      amp = amp < 1e-6f ? 0.f : amp;
+      // amp = exp(min(tot, 0) ln10/20), floored: no gradient below the floor
+      const float g_tot0 = amp > 0.f ? ga * amp * ln10_over_20 : 0.f;
+      const float g_tot = tot < 0.f ? g_tot0 : (tot == 0.f ? 0.5f * g_tot0 : 0.f);
+      a_eg = a_eg + g_tot;
+      g_gain = g_gain + g_tot;
+      g_ams = g_ams + g_tot * am_lfo;
+      const float g_am_lfo = g_tot * ams;
+      g_amd = g_amd + g_am_lfo * (-0.5f * (1.f + lfo));
+      c_lfo = g_am_lfo * amd * -0.5f;
+      // start[t+1] = frac(start[t] + 32 inc[t]): inc[t] collects 32x the
+      // later starts' cotangents
+      const float g_inc = gi + a_start * (float)BLOCK;
+      a_start = a_start + gs;
+      const float g_fp = g_inc / fs;
+      g_freq = g_freq + g_fp * pf;
+      c_pf = g_fp * freq;
+      a_eg = eg_tick_bwd(eg_pre, stage, targets, slews, off, a_eg, g_targets, g_slews);
+    } else if (lane == N_OPS) {
+      c_pf = ga;
+    }
+    c_pf = lanes_sum(c_pf);
+    c_lfo = lanes_sum(c_lfo);
+    // the item's shared chain, the same floats on every lane
+    const float g_semis = c_pf * pf * 0.6931472f / 12.f;
+    a_peg = a_peg + g_semis * 0.08f;
+    g_pms = g_pms + g_semis * (lfo * pmd);
+    const float g_lfo_pmd = g_semis * pms;
+    g_pmd = g_pmd + g_lfo_pmd * lfo;
+    const float g_lfo = c_lfo + g_lfo_pmd * pmd;
+    g_delay = g_delay + lfo_ramp_bwd(t_s, lfo_delay_s, g_lfo * lfo_raw);
+    // the wrap (phase - floor(phase)) passes the phase's adjoint on whole
+    a_lfo = a_lfo + lfo_wave_bwd(wave, lfo_phase, g_lfo * ramp);
+    g_hz = g_hz + a_lfo * tick_s;
+    a_peg = eg_tick_bwd(peg_pre, peg_stage, peg_targets, peg_slews, off, a_peg, g_peg_targets,
+                        g_peg_slews);
+    rec = rec_n;
+    ga = ga_n;
+    gs = gs_n;
+    gi = gi_n;
+  }
+  g_amd = lanes_sum(g_amd);
+  if (!valid) return;
+  float* gc = gctl + (size_t)b * CTL_WIDTH;
+  if (is_op) {
+    gc[CTL_OP_GAIN_DB + lane] = g_gain;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      gc[CTL_TARGETS + 4 * lane + k] = g_targets[k];
+      gc[CTL_SLEWS + 4 * lane + k] = g_slews[k];
+    }
+    gc[CTL_EG0 + lane] = a_eg;
+    gc[CTL_AMS_DB + lane] = g_ams;
+    gc[CTL_ON + lane] = 0.f;  // a switch: no gradient
+    gc[CTL_FREQS + lane] = g_freq;
+  } else if (lane == N_OPS) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      gc[CTL_PEG_TARGETS + k] = g_peg_targets[k];
+      gc[CTL_PEG_SLEWS + k] = g_peg_slews[k];
+    }
+    gc[CTL_PEG0] = a_peg;
+    gc[CTL_LFO_HZ] = g_hz;
+    gc[CTL_LFO_PHASE0] = a_lfo;
+    gc[CTL_LFO_DELAY_S] = g_delay;
+    gc[CTL_PMD] = g_pmd;
+    gc[CTL_AMD] = g_amd;
+    gc[CTL_PMS] = g_pms;
+    gc[CTL_LFO_WAVE] = 0.f;  // a switch: no gradient
   }
 }
 
@@ -402,6 +674,18 @@ int fm_control_launch(const float* ctl, int B, int T, int note_off, float fs, fl
   fm_control_kernel<<<grid, F1_THREADS, 0, stream>>>(ctl, B, T, note_off, fs, tick_s,
                                                      ln10_over_20, amps, pitch_fact, starts,
                                                      incs);
+  return (int)cudaGetLastError();
+}
+
+int fm_control_bwd_launch(const float* ctl, int B, int T, int note_off, float fs, float tick_s,
+                          float ln10_over_20, const float* g_amps, const float* g_pitch_fact,
+                          const float* g_starts, const float* g_incs, float* tape, float* gctl,
+                          cudaStream_t stream) {
+  const long threads = (long)B * F1_LANES;
+  const int grid = (int)((threads + F1_THREADS - 1) / F1_THREADS);
+  fm_control_bwd_kernel<<<grid, F1_THREADS, 0, stream>>>(
+      ctl, B, T, note_off, fs, tick_s, ln10_over_20, g_amps, g_pitch_fact, g_starts, g_incs,
+      reinterpret_cast<float2*>(tape), gctl);
   return (int)cudaGetLastError();
 }
 

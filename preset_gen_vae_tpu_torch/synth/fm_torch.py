@@ -25,9 +25,11 @@ not the C++ engine's interpolated table.
   on two streams. Their plain versions are ``feedback_loop_pass`` and
   ``feedforward_pass``, which together compute ``exact_pass``. The kernels
   live in ``csrc/fm_render.cu``, are built with nvcc at first use and
-  bound with ctypes. They are forward-only: an input that requires a
-  gradient raises, as does a failed build or launch. Nothing falls back
-  to the plain loops.
+  bound with ctypes. F1 has a backward, F1b (``fm_control_bwd``, through
+  ``FmControl``), so that the ``'unrolled'`` render is differentiable on
+  the card; F2 has none, and an ``'exact'`` render of an input that
+  requires a gradient raises, as does a failed build or launch. Nothing
+  falls back to the plain loops.
 
 The decode and the per-item constants of the control pass
 (``control_params``) are torch ops on either device; they pack into one
@@ -57,7 +59,10 @@ SH_SEED = 0x12345678  # the S&H LCG's state at note-on (fm_jax.py:336)
 # launches of each hand-written kernel, counted by its wrapper at the launch;
 # "fm_exact" counts calls of F2's wrapper, each of which launches
 # "fm_fb_loop" and "fm_exact_ff" once per segment of ``exact_segments``
-LAUNCHES = {"fm_control": 0, "fm_exact": 0, "fm_fb_loop": 0, "fm_exact_ff": 0}
+LAUNCHES = {"fm_control": 0, "fm_exact": 0, "fm_fb_loop": 0, "fm_exact_ff": 0,
+            "fm_control_bwd": 0}
+F1_LANES = 8  # F1's and F1b's threads per item (csrc/fm_render.cu's F1_LANES)
+TAPE_LANE_BYTES = 8  # F1b's tape: one float2 per lane and tick
 
 # ---------------------------------------------------------------------------
 # Algorithm table (public DX7 spec; fm_jax.py:56-127, dx7_engine.cc:155-188)
@@ -474,6 +479,21 @@ def control_pass(ctl, n_ticks: int, note_off_sample: int, sample_rate: int):
     return torch.stack(amps), torch.stack(pitch_facts), torch.stack(starts), torch.stack(incs)
 
 
+def control_pass_vjp(ctl, n_ticks: int, note_off_sample: int, sample_rate: int, g_amps,
+                     g_pitch_fact, g_starts, g_incs):
+    """F1b's plain version: the gradient (B, CTL_WIDTH) of ``ctl`` given the
+    cotangents of ``control_pass``'s four outputs (any may be None), by
+    autograd through ``control_pass`` on ``ctl``'s device."""
+    with torch.enable_grad():
+        x = ctl.detach().requires_grad_(True)
+        pairs = [(out, g) for out, g in zip(
+            control_pass(x, n_ticks, note_off_sample, sample_rate),
+            (g_amps, g_pitch_fact, g_starts, g_incs)) if g is not None]
+        (grad,) = torch.autograd.grad([o for o, _ in pairs], x, [g for _, g in pairs],
+                                      allow_unused=True)
+    return torch.zeros_like(ctl) if grad is None else grad
+
+
 # ---------------------------------------------------------------------------
 # Audio-rate synthesis (fm_jax.py:370-397, 400-413, 464-516)
 # ---------------------------------------------------------------------------
@@ -683,7 +703,9 @@ def render_batch(presets, pitches, velocities, note_on_s: float = 3.0, total_s: 
     :param presets: (B, 155) normalized full preset matrix, a tensor; the
         device it lies on picks the path: the CPU takes ``plain_render``,
         the card F1 and then F2 (``'exact'``) or the unrolled pass in torch
-        ops, and raises for an input that requires a gradient
+        ops. On the card the ``'unrolled'`` render is differentiable (F1's
+        backward is F1b); ``'exact'`` raises for an input that requires a
+        gradient, since F2 has no backward
     :param pitches/velocities: (B,) integers, any array-like
     :returns: (B, N) float32 waveforms, N rounded up to the 512-sample
         engine block (the C++ engine's contract)
@@ -695,8 +717,9 @@ def render_batch(presets, pitches, velocities, note_on_s: float = 3.0, total_s: 
                             feedback, fb_iters)
     if dev.type != "cuda":
         raise ValueError(f"no FM render for device {dev}")
-    if presets.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("the FM kernels are forward-only: the input requires a gradient")
+    if feedback == "exact" and presets.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError("F2 (the 'exact' render) has no backward yet: the input "
+                                  "requires a gradient; 'unrolled' is differentiable")
     d, alg, fb_amt, n_carriers, ctl, n_ticks = _prepare(presets, pitches, velocities, total_s,
                                                         sample_rate, feedback)
     amps_t, _, starts, incs = fm_control(ctl, n_ticks, int(note_on_s * sample_rate), sample_rate)
@@ -726,7 +749,7 @@ def fm_build_command():
 
 @functools.lru_cache(maxsize=None)
 def _fm_library() -> ctypes.CDLL:
-    """Builds (first use only) and loads F1 and F2's two kernels, and hands
+    """Builds (first use only) and loads F1, F1b and F2's two kernels, and hands
     them the algorithm table, which F2's launches copy into constant
     memory. The table is built first, so that one whose feedback loops F2
     cannot split raises before anything is built. Never called at import."""
@@ -738,6 +761,8 @@ def _fm_library() -> ctypes.CDLL:
     lib.fm_set_algorithms.argtypes = [p]
     lib.fm_control_launch.restype = i
     lib.fm_control_launch.argtypes = [p, i, i, i, f, f, f, p, p, p, p, p]
+    lib.fm_control_bwd_launch.restype = i
+    lib.fm_control_bwd_launch.argtypes = [p, i, i, i, f, f, f, p, p, p, p, p, p, p]
     lib.fm_fb_loop_launch.restype = i
     lib.fm_fb_loop_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p, p]
     lib.fm_exact_ff_launch.restype = i
@@ -813,7 +838,29 @@ def _check(name, t, dtype, shape, dev):
 
 def fm_control(ctl, n_ticks: int, note_off_sample: int, sample_rate: int):
     """F1's wrapper: (B, CTL_WIDTH) float32 on the card -> amps (T, B, 6),
-    pitch_fact (T, B), phase starts and increments (T, B, 6)."""
+    pitch_fact (T, B), phase starts and increments (T, B, 6);
+    differentiable in ``ctl`` through ``FmControl``."""
+    return FmControl.apply(ctl, n_ticks, note_off_sample, sample_rate)
+
+
+class FmControl(torch.autograd.Function):
+    """F1 forward, F1b backward. A call that needs no gradient launches F1
+    alone."""
+
+    @staticmethod
+    def forward(ctx, ctl, n_ticks, note_off_sample, sample_rate):
+        ctx.save_for_backward(ctl)
+        ctx.args = (n_ticks, note_off_sample, sample_rate)
+        return _fm_control_launch(ctl, n_ticks, note_off_sample, sample_rate)
+
+    @staticmethod
+    def backward(ctx, g_amps, g_pitch_fact, g_starts, g_incs):
+        (ctl,) = ctx.saved_tensors
+        return (fm_control_bwd(ctl, *ctx.args, g_amps, g_pitch_fact, g_starts, g_incs),
+                None, None, None)
+
+
+def _fm_control_launch(ctl, n_ticks: int, note_off_sample: int, sample_rate: int):
     dev = ctl.device
     if dev.type != "cuda":
         raise ValueError(f"F1 runs on the card; the plain version is control_pass ({dev})")
@@ -835,6 +882,52 @@ def fm_control(ctl, n_ticks: int, note_off_sample: int, sample_rate: int):
         raise RuntimeError(f"fm_control kernel launch failed: cudaError_t {err}")
     LAUNCHES["fm_control"] += 1
     return amps, pitch_fact, starts, incs
+
+
+def tape_bytes(n_items: int, n_ticks: int) -> int:
+    """Device bytes of F1b's tape: 64 a tick and item (0.18 GB at 1,024
+    items and 2,768 ticks)."""
+    return n_ticks * n_items * F1_LANES * TAPE_LANE_BYTES
+
+
+def fm_control_bwd(ctl, n_ticks: int, note_off_sample: int, sample_rate: int, g_amps,
+                   g_pitch_fact, g_starts, g_incs):
+    """F1b's wrapper: ``ctl`` (B, CTL_WIDTH) and the cotangents of F1's four
+    outputs on the card (None reads as zeros; any strides) -> the gradient
+    of ``ctl``, (B, CTL_WIDTH) float32. The kernel keeps a tape of
+    ``tape_bytes(B, n_ticks)`` on the card and raises where that does not
+    fit."""
+    dev = ctl.device
+    if dev.type != "cuda":
+        raise ValueError(f"F1b runs on the card; the plain version is control_pass_vjp ({dev})")
+    B = ctl.shape[0]
+    _check("ctl", ctl, torch.float32, (B, CTL_WIDTH), dev)
+    if B == 0 or n_ticks <= 0:
+        raise ValueError(f"empty control pass: {B} items, {n_ticks} ticks")
+    shapes = ((n_ticks, B, N_OPS), (n_ticks, B), (n_ticks, B, N_OPS), (n_ticks, B, N_OPS))
+    cots = []
+    for name, g, shape in zip(("g_amps", "g_pitch_fact", "g_starts", "g_incs"),
+                              (g_amps, g_pitch_fact, g_starts, g_incs), shapes):
+        g = torch.zeros(shape, dtype=torch.float32, device=dev) if g is None else g.contiguous()
+        _check(name, g, torch.float32, shape, dev)
+        cots.append(g)
+    try:
+        tape = torch.empty((n_ticks, B, F1_LANES, 2), dtype=torch.float32, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(f"F1b's tape needs {tape_bytes(B, n_ticks) / 2**30:.2f} GiB for {B} "
+                           f"items x {n_ticks} ticks, more than {dev} has free") from e
+    gctl = torch.empty((B, CTL_WIDTH), dtype=torch.float32, device=dev)
+    lib = _fm_library()
+    fs = float(sample_rate)
+    with torch.cuda.device(dev):
+        err = lib.fm_control_bwd_launch(
+            ctl.data_ptr(), B, n_ticks, note_off_sample, fs, float(np.float32(BLOCK / fs)),
+            LN10_OVER_20, *(g.data_ptr() for g in cots), tape.data_ptr(), gctl.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fm_control_bwd kernel launch failed: cudaError_t {err}")
+    LAUNCHES["fm_control_bwd"] += 1
+    return gctl
 
 
 def _check_exact(amps, starts, incs, alg, fb_amt, *per_item):

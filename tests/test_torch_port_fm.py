@@ -305,9 +305,11 @@ def test_loader_refuses_a_table_whose_loop_f2_cannot_split(monkeypatch, broken):
 
 
 def test_kernel_source_reads_the_python_layout():
-    """F1 reads the packed control row at the offsets of ``CTL_FIELDS``, F2
-    the algorithm rows at the columns of ``ALG_COLUMNS``; the constants of
-    csrc/fm_render.cu are the plain version's floats."""
+    """F1 and F1b read the packed control row at the offsets of
+    ``CTL_FIELDS``, F2 the algorithm rows at the columns of
+    ``ALG_COLUMNS``; F1b's tape is a float2 for each of F1's lanes, as
+    ``tape_bytes`` counts it, and its launcher takes it as such; the
+    constants of csrc/fm_render.cu are the plain version's floats."""
     src = ft.FM_SOURCE.read_text()
     defines = dict(re.findall(r"#define (CTL_\w+) (\d+)", src))
     want = {f"CTL_{name.upper()}": str(off) for name, off in ft.CTL_OFFSETS.items()}
@@ -319,13 +321,16 @@ def test_kernel_source_reads_the_python_layout():
     assert np.float32(consts["TWO_PI_F"]) == np.float32(ft.TWO_PI)
     assert np.float32(consts["MOD_SCALE_F"]) == np.float32(ft.MOD_SCALE)
     assert f"#define SH_SEED {hex(ft.SH_SEED)}u" in src
+    assert re.search(r"#define F1_LANES (\d+)", src).group(1) == str(ft.F1_LANES)
+    assert ft.TAPE_LANE_BYTES == 8 and "float2* __restrict__ tape" in src
+    assert "reinterpret_cast<float2*>(tape)" in src.split("int fm_control_bwd_launch(")[1]
 
 
 def test_kernel_build_command(monkeypatch):
     """nvcc for sm_90a without fast math and without multiply-add
     contraction; every C entry point of the source is bound with as many
-    argtypes as it has parameters, and the kernels' launchers are F1's and
-    F2's two phases."""
+    argtypes as it has parameters, and the kernels' launchers are F1's,
+    F1b's and F2's two phases'."""
     cmd = ft.fm_build_command()
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd and "-fmad=false" in cmd
     assert "--use_fast_math" not in cmd and "-use_fast_math" not in cmd
@@ -333,7 +338,7 @@ def test_kernel_build_command(monkeypatch):
     params = {name: len([a for a in args.split(",") if a.strip()]) for name, args in
               re.findall(r"^int (fm_\w+)\(([^)]*)\)", src, flags=re.M)}
     assert sorted(n for n in params if n.endswith("_launch")) == [
-        "fm_control_launch", "fm_exact_ff_launch", "fm_fb_loop_launch"]
+        "fm_control_bwd_launch", "fm_control_launch", "fm_exact_ff_launch", "fm_fb_loop_launch"]
     lib, built = _fake_library(monkeypatch)
     assert ft._fm_library.__wrapped__() is lib and len(built) == 1
     assert built[0][1] == cmd and built[0][2] == [ft.FM_SOURCE]
@@ -409,8 +414,10 @@ def test_kernels_match_plain_on_card(feedback):
     item (the same f32 operations, so even a chaotic feedback-7 item
     agrees), its loop phase against ``feedback_loop_pass`` and its
     feed-forward phase against ``feedforward_pass`` likewise; end to end,
-    max |err| <= 1e-4 without feedback; one launch of each kernel; an input
-    that requires a gradient raises."""
+    max |err| <= 1e-4 without feedback; one launch of each kernel. A render
+    of an input that requires a gradient: ``'exact'`` raises (F2 has no
+    backward); ``'unrolled'`` launches F1 and then F1b once, and its
+    gradient is the plain path's within 1e-3 of the largest entry."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     p = torch.from_numpy(np.concatenate([mixed_presets(), loop_length_presets()])).cuda()
@@ -431,7 +438,8 @@ def test_kernels_match_plain_on_card(feedback):
     f2 = ft.fm_exact(amps, starts, incs, alg, fb_amt, nc, mv, SR)
     n_seg = len(ft.exact_segments(T))
     assert n_seg == 8 and {k: ft.LAUNCHES[k] - n0[k] for k in n0} == {
-        "fm_control": 0, "fm_exact": 1, "fm_fb_loop": n_seg, "fm_exact_ff": n_seg}
+        "fm_control": 0, "fm_exact": 1, "fm_fb_loop": n_seg, "fm_exact_ff": n_seg,
+        "fm_control_bwd": 0}
     phases, amps_s = ft.sample_phases(starts, incs), ft.upsample_amps(amps)
     plain = ft.fade_and_volume(ft.exact_pass(phases, amps_s, alg, fb_amt), nc, mv, SR)
     assert float((f2 - plain).abs().max()) <= 1e-4
@@ -452,8 +460,23 @@ def test_kernels_match_plain_on_card(feedback):
     exact = feedback == "exact"
     assert {k: ft.LAUNCHES[k] - n0[k] for k in n0} == {
         "fm_control": 1, "fm_exact": exact, "fm_fb_loop": exact * n_seg,
-        "fm_exact_ff": exact * n_seg}
+        "fm_exact_ff": exact * n_seg, "fm_control_bwd": 0}
     no_fb = p[:, 5] == 0
     assert float((out - ref).abs()[no_fb].max()) <= 1e-4
-    with pytest.raises(NotImplementedError, match="gradient"):
-        ft.render_batch(p.clone().requires_grad_(True), pitch, vel, total_s=0.05)
+    kw = dict(note_on_s=0.02, total_s=1024 / SR, sample_rate=SR, feedback=feedback)
+    if exact:
+        with pytest.raises(NotImplementedError, match="gradient"):
+            ft.render_batch(p.clone().requires_grad_(True), pitch, vel, **kw)
+        return
+    grads, launches = [], []
+    for fn in (ft.render_batch, ft.plain_render):
+        x = p.clone().requires_grad_(True)
+        n0 = dict(ft.LAUNCHES)
+        torch.mean(torch.square(fn(x, pitch, vel, **kw))).backward()
+        torch.cuda.synchronize()
+        grads.append(x.grad)
+        launches.append({k: ft.LAUNCHES[k] - n0[k] for k in n0})
+    none = dict.fromkeys(n0, 0)
+    assert launches == [dict(none, fm_control=1, fm_control_bwd=1), none]
+    scale = float(grads[1].abs().max())
+    assert scale > 0 and float((grads[0] - grads[1]).abs().max()) <= 1e-3 * scale
