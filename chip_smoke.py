@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
 Builds every hand-written kernel of the port from the sources in this
-checkout (K1, ``csrc/logmel.cu``; F1, F1b and F2, ``csrc/fm_render.cu``,
+checkout (K1, ``csrc/logmel.cu``; F1, F1b, F2 and F2b, ``csrc/fm_render.cu``,
 built at once, each by its own nvcc), holds each against its plain PyTorch
 version on the card (K1 on noise and on rendered DX7 notes, there also
 against a float64 rFFT witness; F1, F2 and F2's two phases, the
@@ -13,7 +13,11 @@ there is one, a library call, times the FM kernels' serial chains (F2 on
 32 items of each loop length, its loop phase alone, F1 on 8 items), holds
 F1b, F1's backward, against its plain version (``control_pass_vjp``) on
 the short renders' presets, at the sound-match demo's shape and at the
-corpus pass's, and times it there beside F1, then
+corpus pass's, and times it there beside F1, holds F2b, F2's backward,
+against its plain version (``exact_pass_vjp``) on the same F1 outputs and
+seeded cotangents at those three shapes (at the corpus pass's shape
+against F2's plain phases composed) and times it beside F2 and its
+recurrence alone, then
 drives the port's main path through its user entry
 points with the flagship FlVAE2 at full width (257x347 log-mels, dim_z 610,
 batch 160) on a seeded synthetic 1,024-preset corpus, in three paths, each
@@ -44,9 +48,12 @@ the sound-match demo (``scripts/sound_match_demo.py``), its gradient
 through F1 and F1b held against the plain render's, its 400 Adam steps
 through the render on the card (F1 and F1b each step; at least a 10x
 loss reduction), its first 10 losses against the plain render's and a
-profile of its step. Each path prints its wall time, launches of every
-kernel and peak memory, the training paths also their model build time,
-steady step, corpus and render seconds. Runs and caches live in a
+profile of its step; and the demo's objective through the ``'exact'``
+render (F1, F2, F2b and F1b each step): its gradient against the plain
+render's, 400 steps whose losses fall, and a profile. Each path prints
+its wall time, launches of every kernel and peak memory, the training
+paths also their model build time, steady step, corpus and render
+seconds. Runs and caches live in a
 temporary directory that is removed at the end.
 
 Run from the repository root with one GPU:
@@ -831,6 +838,265 @@ def phase_f1b():
             "bound_ms_demo_shape": row["F1b demo shape bound"]}
 
 
+# F2b against exact_pass_vjp: each gradient field's max |err| over its
+# largest entry in the plain version, as F1b's bar
+F2B_BAR = 1e-4
+F2B_FIELDS = ("amps", "starts", "incs", "fb_amt", "master_volume")
+
+
+def item_finite(grads) -> torch.Tensor:
+    """(B,) bool: every entry of the item's gradients is finite."""
+    ok = None
+    for g in grads:
+        f = torch.isfinite(g).all(0).all(-1) if g.dim() == 3 else torch.isfinite(g)
+        ok = f if ok is None else ok & f
+    return ok
+
+
+def f2b_errors(got, want, items, fb_items=None) -> dict:
+    """Each field's max |F2b - plain| over the plain version's largest
+    |entry| on the items ``items`` ((B,) bool); the ``fb_amt`` field on
+    ``items & fb_items`` where that is given."""
+    errs = {}
+    for name, g, w in zip(F2B_FIELDS, got, want):
+        sel = items & fb_items if name == "fb_amt" and fb_items is not None else items
+        g, w = (g[:, sel], w[:, sel]) if g.dim() == 3 else (g[sel], w[sel])
+        if w.numel() == 0:
+            continue
+        scale = float(w.abs().max())
+        errs[name] = float((g - w).abs().max()) / (scale if scale > 0 else 1.0)
+    return errs
+
+
+def f2b_check(name, got, want, feedback, gate_fb7: bool, fb_items=None) -> dict:
+    """Holds F2b against its plain version: the items at feedback <= 6 as one
+    group at ``F2B_BAR``; each feedback-7 item whose plain gradient is
+    finite alone, gated if ``gate_fb7`` and printed otherwise; an item
+    whose plain gradient is not finite (a loud feedback-7 loop's true
+    gradient outgrows f32) printed with the non-finite entries on each side.
+    -> {"rel": worst gated error, "abs": its max |err|}."""
+    finite = item_finite(want)
+    low = feedback <= 6
+    if not bool(finite[low].all()):
+        raise AssertionError(f"F2b {name}: the plain gradient is not finite at feedback <= 6")
+    errs = f2b_errors(got, want, low, fb_items)
+    worst = max(errs.values())
+    fb7, bad = [], []
+    for b in torch.nonzero(feedback == 7).flatten().tolist():
+        one = torch.zeros_like(low)
+        one[b] = True
+        if bool(finite[b]):
+            fb7.append(max(f2b_errors(got, want, one).values()))
+        else:
+            bad.append((b, *(sum(int((~torch.isfinite(g[:, b] if g.dim() == 3 else g[b])).sum())
+                                 for g in gs) for gs in (want, got))))
+    print(f"[F2b {name}] {int(low.sum())} items at feedback <= 6: max |err| / largest entry by "
+          f"field {short_json(errs)} (bar {F2B_BAR}); {len(fb7)} feedback-7 items with a finite "
+          f"plain gradient, each alone ({'gated' if gate_fb7 else 'printed'}): max "
+          f"{max(fb7, default=0.0):.2e}; {len(bad)} with a non-finite one (item, non-finite "
+          f"entries plain / F2b): {bad}", flush=True)
+    gated = max([worst] + (fb7 if gate_fb7 else []))
+    if not all(torch.isfinite(g[:, low] if g.dim() == 3 else g[low]).all() for g in got) or \
+            gated > F2B_BAR:
+        raise AssertionError(f"F2b against its plain version, {name}: {errs}, feedback 7 {fb7}")
+    abs_err = max(float((g - w).abs()[:, low].max() if g.dim() == 3 else (g - w).abs()[low].max())
+                  for g, w in zip(got, want))
+    return {"rel": gated, "abs": abs_err}
+
+
+def split_vjp(amps, starts, incs, alg, fb_amt, nc, mv, sr, g_out):
+    """``exact_pass_vjp`` through F2's two plain phases, ``feedback_loop_pass``
+    and ``feedforward_pass``, which compose ``exact_pass`` (within 1e-6,
+    tests/test_torch_port_fm.py): the cheaper oracle at full length. Its
+    ``fb_amt`` gradient is 0 on the items at feedback 0 (no loop runs
+    there)."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(True) for t in (amps, starts, incs, fb_amt, mv)]
+        ph, am = ft.sample_phases(xs[1], xs[2]), ft.upsample_amps(xs[0])
+        loop = ft.feedback_loop_pass(ph, am, alg, xs[3])
+        out = ft.fade_and_volume(ft.feedforward_pass(ph, am, alg, xs[3], loop), nc, xs[4], sr)
+        return torch.autograd.grad(out, xs, g_out)
+
+
+def fm_exact_bwd_work(lengths, n_ticks: int):
+    """(bytes, flops) of F2's backward on this run's items: the waveforms'
+    cotangent read once, the loop source's output (the tape) on the items
+    with feedback read once, F1's three (T, B, 6) arrays read and their
+    gradients written once, the per-item scalars; per item and sample the
+    forward's 198 operations recomputed, the adjoint of the six operators
+    (~10 each: the two products of the sine's derivative, the modulation
+    sum, the three per-tick products) and of the fade, clip and volume
+    (~10), and on an item with a loop of L operators the loop recomputed
+    with its cosines twice (~35 L each) and the recurrence (4)."""
+    n, B = 32 * n_ticks, len(lengths)
+    ls = lengths.tolist()
+    n_fb = sum(1 for x in ls if x)
+    nbytes = 4 * (B * n + n_fb * n + 6 * n_ticks * B * 6 + 5 * B)
+    return nbytes, sum(n * (198 + 70 + (70 * x + 4 if x else 0)) for x in ls)
+
+
+def ptxas_registers(report: str) -> dict:
+    """{kernel: ptxas' register and spill lines} from ``ptxas_report``;
+    F2's feed-forward kernel as ``<true>`` (taped) and ``<false>``."""
+    import re
+
+    out, name = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry" in ln:
+            mangled = re.search(r"'([^']+)'", ln).group(1)
+            name = re.match(r"_Z\d+(\w+?_kernel)", mangled).group(1)
+            name += {"ILb1E": "<true>", "ILb0E": "<false>"}.get(mangled[len(name) + 4:][:5], "")
+            out[name] = ""
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name] = (out[name] + "; " + ln.split(":", 1)[-1].strip()).lstrip("; ")
+    return out
+
+
+def phase_f2b():
+    """F2b against ``exact_pass_vjp`` on the card, both fed the same F1
+    outputs, on seeded cotangents: the short renders' 28 presets of each
+    seed (4,096 samples; F2's output with the tape on held bit-equal to its
+    output without it), the sound-match demo's one preset and shape
+    (33,280 samples), and the corpus pass's shape (1,024 items, 88,576
+    samples) against the plain phases' composition (``split_vjp``); F2b
+    timed there and at 20,480 items beside F2, at the demo's shape, and
+    its recurrence alone on all items and on 32 (its serial chain)."""
+    from preset_gen_vae_tpu_torch.scripts import sound_match_demo as demo
+    from preset_gen_vae_tpu_torch.synth import database as db
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    regs = {k: v for k, v in ptxas_registers(ptxas_report(
+        "fm_render", ft.fm_build_command(), ft.FM_SOURCE)).items() if "exact" in k}
+    print(f"[build] F2 and F2b registers and spills: {json.dumps(regs)}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sr = 22050
+    err = {"rel": 0.0, "abs": 0.0}
+
+    def normal(*shape):  # seeded, made on the card: 1.8e9 of them at 20,480 items
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def feedback_of(p):
+        return torch.round(p[:, 5].clamp(0, 1) * 7)
+
+    def check(name, p, pitch, vel, n_ticks, note_off, gate_fb7, oracle=ft.exact_pass_vjp,
+              fb_only=False):
+        _, args, _ = fm_inputs(p, pitch, vel, sr, n_ticks, note_off)
+        g = normal(len(p), n_ticks * ft.BLOCK)
+        out, tape = ft._fm_exact_launch(*args, taped=True)
+        if not torch.equal(out, ft.fm_exact(*args)):
+            raise AssertionError(f"F2b {name}: F2's output with the tape differs from without")
+        got = ft.fm_exact_bwd(tape, *args, g)
+        del out
+        want = oracle(*args, g)
+        torch.cuda.synchronize()
+        r = f2b_check(name, got, want, feedback_of(p), gate_fb7,
+                      (args[4] != 0) if fb_only else None)
+        err["rel"], err["abs"] = max(err["rel"], r["rel"]), max(err["abs"], r["abs"])
+        return args, g, tape
+
+    for seed in (0, 1):
+        pr = short_check_presets(seed)
+        check(f"seed {seed}", torch.from_numpy(pr).cuda(), *fm_notes(len(pr)),
+              FM_SHORT // ft.BLOCK, int(0.1 * sr), gate_fb7=True)
+    demo_ticks = ft.samples_per_render(demo.TOTAL, demo.SR) // ft.BLOCK
+    demo_off = int(demo.NOTE_ON * demo.SR)
+    p_demo, _, _ = demo.problem(torch.device("cuda"))
+    a1, g1, tape1 = check("demo shape", p_demo, [demo.PITCH], [demo.VELOCITY], demo_ticks,
+                          demo_off, gate_fb7=True)
+    row = {"F2b demo shape": cuda_ms(lambda a: ft.fm_exact_bwd(tape1, *a, g1), [a1], reps=10),
+           "F2 demo shape": cuda_ms(lambda a: ft.fm_exact(*a), [a1], reps=10)}
+    lengths1 = ft.loop_lengths(a1[3], a1[4])
+    row["F2b demo shape bound"] = bound(fm_exact_bwd_work(lengths1, demo_ticks))[0]
+    del a1, g1, tape1
+
+    # ---- the corpus pass's shape: held against the plain phases' composition
+    n_ticks, note_off = SAMPLES // ft.BLOCK, int(3.0 * sr)
+    pr, _, _ = db.generate_structured_corpus_v2(1024, seed=0)
+    p = torch.from_numpy(pr).cuda()
+    timed = {}
+
+    def timed_split_vjp(*a):
+        t0 = time.perf_counter()
+        out = split_vjp(*a)
+        torch.cuda.synchronize()
+        timed["s"] = time.perf_counter() - t0
+        return out
+
+    args, g, tape = check("at (1024, 88576)", p, np.full(1024, 60), np.full(1024, 85), n_ticks,
+                          note_off, gate_fb7=False, oracle=timed_split_vjp, fb_only=True)
+    row["F2b plain (split_vjp)"] = timed["s"] * 1e3
+    row["F2"] = cuda_ms(lambda a: ft.fm_exact(*a), [args], reps=3)
+    row["F2 taped"] = cuda_ms(lambda a: ft._fm_exact_launch(*a, taped=True), [args], reps=3)
+    row["F2b"] = cuda_ms(lambda a: ft.fm_exact_bwd(tape, *a, g), [args], reps=3)
+    # each kernel's share, from the profiler over 3 calls
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ft.fm_exact_bwd(tape, *args, g)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        for k in ("fm_exact_bwd_ff", "fm_exact_bwd_rec", "fm_exact_bwd_loop"):
+            if k + "_kernel" in e.key:
+                dev_us = getattr(e, "self_device_time_total", None)
+                dev_us = getattr(e, "self_cuda_time_total", 0) if dev_us is None else dev_us
+                row[f"{k} profiled"] = dev_us / 1e3 / 3
+    # memory of a backward above its forward
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ft.fm_exact_bwd(tape, *args, g)
+    torch.cuda.synchronize()
+    row["F2b peak above its inputs GiB"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+    row["tape GB"] = tape.numel() * 4 / 1e9
+    # the serial chain: the recurrence alone, on every item and on 32 with feedback
+    fba = args[4]
+    ea = normal(*tape.shape)
+    kk = torch.full_like(ea, 0.3)
+    row["F2b recurrence"] = cuda_ms(lambda x: ft.fm_exact_bwd_rec(fba, kk, x), [ea], reps=3)
+    idx = torch.nonzero(fba != 0).flatten()[:32]
+    e32, k32, f32 = ea[idx].contiguous(), kk[idx].contiguous(), fba[idx].contiguous()
+    row["F2b recurrence 32 items"] = cuda_ms(lambda x: ft.fm_exact_bwd_rec(f32, k32, x), [e32],
+                                             reps=3)
+    lengths = ft.loop_lengths(args[3], args[4])
+    row["F2b bound"], row["F2b bound_by"] = bound(fm_exact_bwd_work(lengths, n_ticks))
+    row["items by loop length"] = {n: lengths.tolist().count(n) for n in range(4)}
+    del args, g, tape, ea, kk, e32, k32, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    pr, _, _ = db.generate_structured_corpus_v2(20480, seed=0)
+    p = torch.from_numpy(pr).cuda()
+    _, args, _ = fm_inputs(p, np.full(20480, 60), np.full(20480, 85), sr, n_ticks, note_off)
+    g = normal(20480, SAMPLES)
+    _, tape = ft._fm_exact_launch(*args, taped=True)
+    row["F2b 20480"] = cuda_ms(lambda a: ft.fm_exact_bwd(tape, *a, g), [args], reps=3)
+    row["F2 taped 20480"] = cuda_ms(lambda a: ft._fm_exact_launch(*a, taped=True), [args], reps=3)
+    row["F2b bound 20480"] = bound(fm_exact_bwd_work(ft.loop_lengths(args[3], args[4]),
+                                                     n_ticks))[0]
+    del args, g, tape, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[F2b timing] {json.dumps(row)}; F2b = {row['F2b'] / row['F2']:.3f} x F2, "
+          f"{row['F2b'] / row['F2b bound']:.1f} x its bound; its recurrence on 32 items (the "
+          f"chain) {row['F2b recurrence 32 items']:.3f} ms", flush=True)
+    return {"name": "fm_exact_bwd", "route": "cuda",
+            "source": "preset_gen_vae_tpu_torch/csrc/fm_render.cu",
+            "replaces": "preset_gen_vae_tpu/synth/fm_jax.py:489", "launches": None,
+            "max_abs_err": err["abs"], "max_err_over_field_max": err["rel"],
+            "ms": row["F2b"], "plain_ms": row["F2b plain (split_vjp)"],
+            "bound_ms": row["F2b bound"], "bound_by": row["F2b bound_by"], "library_ms": None,
+            "serial_chain_ms": row["F2b recurrence 32 items"],
+            "recurrence_ms": row["F2b recurrence"],
+            "kernel_ms_profiled": {k: row.get(f"{k} profiled") for k in (
+                "fm_exact_bwd_ff", "fm_exact_bwd_rec", "fm_exact_bwd_loop")},
+            "ms_20480": row["F2b 20480"], "bound_ms_20480": row["F2b bound 20480"],
+            "ms_demo_shape": row["F2b demo shape"],
+            "bound_ms_demo_shape": row["F2b demo shape bound"], "registers": regs}
+
+
 def grad_of_demo_loss(demo, render_fn, p, targets):
     x = p.clone().requires_grad_(True)
     loss = demo.spec_loss(demo.render(x, render_fn), targets)
@@ -888,20 +1154,86 @@ def phase_sound_match():
         raise AssertionError(f"sound_match: {summary}, first losses {losses[:10]} against plain "
                              f"{plain_losses}")
     sound_match_profile(demo, p, mask, targets)
+    return counts, summary["reduction"]
+
+
+def exact_render(p, *args, **kw):
+    """``render_batch`` with the feedback mode pinned to ``'exact'``."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    return ft.render_batch(p, *args, **dict(kw, feedback="exact"))
+
+
+def plain_exact_render(p, *args, **kw):
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    return ft.plain_render(p, *args, **dict(kw, feedback="exact"))
+
+
+def phase_sound_match_exact(unrolled_reduction: float):
+    """The sound-match demo's objective through the ``'exact'`` render on the
+    card (``exact_render``): its gradient at the corrupted preset through
+    F1/F2 and F2b/F1b (one call of each) against ``plain_render``'s on the
+    card (``SOUND_MATCH_BAR['grad']``; one plain step, timed); then ``main``
+    at its constants through that render (400 Adam steps; F1 and F2 402
+    calls, F1b and F2b 400), all losses finite and the last below the
+    first; and a profile of 5 steps."""
+    from preset_gen_vae_tpu_torch.scripts import sound_match_demo as demo
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    dev = torch.device("cuda")
+    p, mask, targets = demo.problem(dev, exact_render)
+    n0 = dict(ft.LAUNCHES)
+    loss_k, g_k = grad_of_demo_loss(demo, exact_render, p, targets)
+    torch.cuda.synchronize()
+    calls = {k: ft.LAUNCHES[k] - n0[k] for k in ("fm_control", "fm_exact", "fm_control_bwd",
+                                                  "fm_exact_bwd")}
+    t0 = time.perf_counter()
+    loss_p, g_p = grad_of_demo_loss(demo, plain_exact_render, p, targets)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    g_err = float((g_k - g_p).abs().max()) / float(g_p.abs().max())
+    print(f"[sound_match_exact gradient] demo loss through 'exact' {loss_k:.7f} (plain "
+          f"{loss_p:.7f}); d loss / d preset through F1/F2 and F2b/F1b against plain_render's "
+          f"on the card: max |err| / largest entry {g_err:.3e} (bar {SOUND_MATCH_BAR['grad']}), "
+          f"largest entry {float(g_p.abs().max()):.4e}, {int((g_p != 0).sum())} nonzero "
+          f"entries; calls {calls}; a plain exact step {plain_s:.1f} s", flush=True)
+    if not torch.isfinite(g_k).all() or g_err > SOUND_MATCH_BAR["grad"] or \
+            calls != {"fm_control": 1, "fm_exact": 1, "fm_control_bwd": 1, "fm_exact_bwd": 1}:
+        raise AssertionError(f"sound_match_exact gradient: {g_err}, calls {calls}")
+    counts = {}
+    steps = demo.STEPS
+    n_ticks = ft.samples_per_render(demo.TOTAL, demo.SR) // ft.BLOCK
+    summary, counts["sound_match_exact"], wall, mem = drive(
+        "sound_match_exact", lambda: demo.main(["--device", "cuda"], render_fn=exact_render),
+        fm=steps + 2, k1=0, bwd=steps, bwd2=steps, n_ticks=n_ticks)
+    losses = summary.pop("losses")
+    print(f"[sound_match_exact path] {json.dumps(summary)}", flush=True)
+    print(f"[sound_match_exact path] wall {wall:.2f} s, {summary['wall_s'] / steps * 1e3:.2f} ms a "
+          f"step (the steps' wall {summary['wall_s']} s), launches {counts['sound_match_exact']}, "
+          f"peak device memory {mem:.3f} GiB; losses {losses[0]:.6f} -> {losses[-1]:.6f}, "
+          f"reduction {summary['reduction']}x ('unrolled' path: {unrolled_reduction}x)",
+          flush=True)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"sound_match_exact: {summary}, losses {losses[:5]} ... "
+                             f"{losses[-5:]}")
+    sound_match_profile(demo, p, mask, targets, render_fn=exact_render, name="sound_match_exact")
     return counts
 
 
-def sound_match_profile(demo, p, mask, targets, steps: int = 5):
-    """torch.profiler over ``steps`` demo steps: device-busy share of the
-    window, kernel launches a step, and the kernels with the most device
-    time."""
+def sound_match_profile(demo, p, mask, targets, steps: int = 5, render_fn=None,
+                        name: str = "sound_match"):
+    """torch.profiler over ``steps`` demo steps (through ``render_fn``, the
+    demo's own by default): device-busy share of the window, kernel
+    launches a step, and the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    demo.fit(p, mask, targets, 2)  # warm
+    render_fn = render_fn or demo.fm_torch.render_batch
+    demo.fit(p, mask, targets, 2, render_fn)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        demo.fit(p, mask, targets, steps)
+        demo.fit(p, mask, targets, steps, render_fn)
         torch.cuda.synchronize()
     window_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -914,7 +1246,7 @@ def sound_match_profile(demo, p, mask, targets, steps: int = 5):
     busy = sum(r[0] for r in rows)
     rows.sort(reverse=True)
     top = [f"{k[:60]} {ms:.3f} ms ({n:.0f})" for ms, n, k in rows[:8]]
-    print(f"[sound_match profile] {steps} steps, {window_ms / steps:.2f} ms a step on the host "
+    print(f"[{name} profile] {steps} steps, {window_ms / steps:.2f} ms a step on the host "
           f"clock (profiled), device {busy:.3f} ms a step ({busy * steps / window_ms:.1%} busy), "
           f"{sum(r[1] for r in rows):.0f} kernel launches a step; top: {'; '.join(top)}",
           flush=True)
@@ -932,7 +1264,8 @@ def fresh_corpus(corpus: dict, root, name: str) -> dict:
     return dict(corpus, data_root=str(pathlib.Path(root) / "data_cache" / name.replace(" ", "_")))
 
 
-def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0):
+def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0, bwd2: int = 0,
+          n_ticks: int = SAMPLES // 32):
     """Runs one path of the main path with every kernel's launch count set
     to 0 just before it and read just after; fails unless K1 launched (or,
     with ``k1``, launched exactly ``k1`` times: 0 on a warm path), unless
@@ -940,8 +1273,9 @@ def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0):
     one per note of a 'jax' corpus pass, one per eval batch; ``f1`` for F1
     where it differs: the unrolled renders of the sound-match path) and
     F2's two phases (``fm_fb_loop``, ``fm_exact_ff``) once per segment of
-    each F2 call, and unless F1b launched ``bwd`` times (one per gradient
-    through the render).
+    each F2 call (renders of ``n_ticks`` ticks), unless F1b launched ``bwd``
+    times (one per gradient through the render) and F2b and each of its
+    three kernels ``bwd2`` times (one per gradient through F2).
     -> (result, launches, wall seconds, peak device GiB)."""
     from preset_gen_vae_tpu_torch.ops import spectrogram as sp
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
@@ -959,11 +1293,13 @@ def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0):
     if (launches["logmel"] < 1) if k1 is None else (launches["logmel"] != k1):
         raise AssertionError(f"K1 launched {launches['logmel']} times on the {name} path, want "
                              f"{'at least 1' if k1 is None else k1}: {launches}")
-    n_seg = len(ft.exact_segments(SAMPLES // ft.BLOCK))  # every path renders 4 s notes
+    n_seg = len(ft.exact_segments(n_ticks))
     want = {"fm_control": fm if f1 is None else f1, "fm_exact": fm, "fm_fb_loop": fm * n_seg,
-            "fm_exact_ff": fm * n_seg, "fm_control_bwd": bwd}
+            "fm_exact_ff": fm * n_seg, "fm_control_bwd": bwd,
+            **{k: bwd2 for k in ("fm_exact_bwd", "fm_exact_bwd_ff", "fm_exact_bwd_rec",
+                                 "fm_exact_bwd_loop")}}
     if any(launches[k] != n for k, n in want.items()):
-        raise AssertionError(f"{name} path: F1/F2/F1b launched {launches}, want {want}")
+        raise AssertionError(f"{name} path: F1/F2/F1b/F2b launched {launches}, want {want}")
     return result, launches, wall, torch.cuda.max_memory_allocated() / 2**30
 
 
@@ -1486,16 +1822,19 @@ def main() -> int:
     k1 = phase_kernels()
     fm = phase_fm_kernels()
     f1b = phase_f1b()
+    f2b = phase_f2b()
     root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     try:
         counts = phase_main_path(root)
         counts.update(phase_variant_paths(root))
         counts.update(phase_syx_path(root))
         counts.update(phase_disk_jax(root))
-        counts.update(phase_sound_match())
+        sound_match_counts, reduction = phase_sound_match()
+        counts.update(sound_match_counts)
+        counts.update(phase_sound_match_exact(reduction))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    kernels = [k1, *fm, f1b]
+    kernels = [k1, *fm, f1b, f2b]
     for entry in kernels:
         entry["launches_by_path"] = {name: c[entry["name"]] for name, c in counts.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

@@ -1,6 +1,6 @@
-// F1, F1b and F2: the DX7 FM render of preset_gen_vae_tpu_torch/synth/fm_torch.py
-// on Hopper (sm_90a), and F1's backward, built with nvcc at first use and
-// bound with ctypes.
+// F1, F1b, F2 and F2b: the DX7 FM render of
+// preset_gen_vae_tpu_torch/synth/fm_torch.py on Hopper (sm_90a) and its
+// backward, built with nvcc at first use and bound with ctypes.
 //
 // No TPU kernel stands behind any: the JAX package leaves these scans to
 // XLA (preset_gen_vae_tpu/synth/fm_jax.py), and their gradient to XLA's
@@ -58,6 +58,9 @@
 // all operators, summed over the 8 lanes each tick by warp shuffle. Like
 // F1 it is bound by its serial chain, the two walks, and not by its bytes:
 // the cotangents and the tape are read once.
+//
+// F2b, F2's backward (fm_exact_bwd), is three kernels; see the note above
+// fm_exact_bwd_ff_kernel.
 //
 // Numerics follow the plain version op for op: the build passes
 // -fmad=false (no multiply-add contraction) and no --use_fast_math, so
@@ -582,15 +585,18 @@ fm_fb_loop_kernel(const float* __restrict__ amps, const float* __restrict__ star
 // item b (below t_end), one sample a thread. Operators run from high to
 // low over the algorithm's modulator bitmasks; on an item with feedback
 // the loop's operators are not computed and the source's output is read
-// from out. The carrier sum is normalised, scaled by the master volume,
-// clipped and faded, and written over the same element of out.
+// from out, or, TAPED, from the tape (B, T*32) that the loop phase wrote
+// for F2b. The carrier sum is normalised, scaled by the master volume,
+// clipped and faded, and written over the same element of out. Two
+// instantiations, so that the untaped one keeps a single pointer to out.
+template <bool TAPED>
 __global__ void __launch_bounds__(FF_THREADS)
 fm_exact_ff_kernel(const float* __restrict__ amps, const float* __restrict__ starts,
                    const float* __restrict__ incs, const int* __restrict__ alg,
                    const float* __restrict__ fb_amt, const float* __restrict__ n_carriers,
                    const float* __restrict__ master_volume, const float* __restrict__ scale,
                    int B, int T, int t_begin, int t_end, int n_tblk,
-                   float* __restrict__ out) {
+                   const float* __restrict__ tape, float* __restrict__ out) {
   const int b = blockIdx.x / n_tblk;
   const int t0 = t_begin + (blockIdx.x % n_tblk) * FF_TICKS;
   // s_amp[k] is tick t0 + k - 1's amplitudes (zero before tick 0)
@@ -627,7 +633,7 @@ fm_exact_ff_kernel(const float* __restrict__ amps, const float* __restrict__ sta
   for (int i = N_OPS - 1; i >= 0; --i) {
     if ((loop >> i) & 1) {
       // only the source's output leaves the loop; the others feed no one here
-      y[i] = i == fb_src ? *at : 0.f;
+      y[i] = i == fb_src ? (TAPED ? tape[(size_t)b * T * BLOCK + n] : *at) : 0.f;
       continue;
     }
     float mod = 0.f;
@@ -647,6 +653,394 @@ fm_exact_ff_kernel(const float* __restrict__ amps, const float* __restrict__ sta
     if ((carriers >> i) & 1) sample = sample + y[i];
   const float o = fminf(fmaxf(sample / n_carriers[b] * master_volume[b], -1.f), 1.f);
   *at = o * scale[n];
+}
+
+// F2b, F2's backward (fm_exact_bwd): the cotangent of the waveform ->
+// those of F1's amplitudes, phase starts and increments, the feedback
+// gain and the master volume (fm_torch.exact_pass_vjp). The forward under
+// autograd keeps the loop source's output y_src on a tape (B, T*32). The
+// destination sees only fb[n] = 0.5 fba (y_src[n-1] + y_src[n-2]) and
+// only y_src leaves the loop, so with the tape the loop's adjoint is a
+// LINEAR recurrence backward in time:
+//   a[n] = e[n] + k[n+1] a[n+1] + k[n+2] a[n+2],
+// e[n] the cotangent that reaches y_src[n] from outside the loop, k[m] =
+// 0.5 fba prod_j (amp_j cos(arg_j) 2 pi MOD_SCALE) over the loop's
+// operators at sample m. Three launches on the caller's stream:
+//  - fm_exact_bwd_ff (a): a block per item walks its ticks 8 at a time,
+//    one sample a thread; recomputes the operators off the loop (the
+//    source read from the tape), backpropagates through the fade, the
+//    clip (half the gradient at a tie, as jnp.clip), the volume, the
+//    carrier sum and the off-loop operators from low to high, and writes
+//    e and k, and the off-loop operators' per-tick sums;
+//  - fm_exact_bwd_rec (b): one thread per item with feedback runs the
+//    recurrence, two multiplies and two adds a sample, a overwriting e,
+//    its loads kept REC_STAGES ticks ahead by cp.async;
+//  - fm_exact_bwd_loop (c): as (a), on the items with feedback: the loop's
+//    1-3 operators recomputed at each sample and their cotangents from
+//    a[n], and the feedback gain's.
+// Per-tick sums: g_starts[t] = sum_s g_ph, g_incs[t] = sum_s s g_ph; a
+// sample's amplitude cotangent goes w_s to amps[t] and 1 - w_s to
+// amps[t-1], so a tick's amps cotangent is its own share plus the next
+// tick's. Each sample leaves its four parts per operator in shared memory
+// and one thread per (tick, operator, sum) adds a tick's 32 in order; the
+// block owns its item's ticks, carries the seam from one step to the next,
+// and reduces the per-item sums itself: no atomics, and every output
+// element written once. Bound: (a) and (c) by their f32
+// operations and sines (the forward recomputed, ~3x its work), (b) by
+// its chain, 88,576 dependent multiply-adds an item at 4 s.
+#define BWD_TICKS 8
+#define BWD_THREADS (BWD_TICKS * BLOCK)
+#define BWD_SCRATCH 2  // (B, T*32) f32 rows F2b allocates: e (then a), k
+#define BWD_SUMS 4     // per tick and operator: sum g_ph, sum s g_ph, sum w g_amp, sum (1-w) g_amp
+#define REC_THREADS 32
+#define REC_STAGES 5   // ticks of e and k in flight per thread of the recurrence
+
+struct BwdShared {
+  float amp[BWD_TICKS + 1][N_OPS], st[BWD_TICKS][N_OPS], in[BWD_TICKS][N_OPS];
+  // each sample's parts of the per-tick sums, row k * 24 + 4 i + c for tick k,
+  // operator i and sum c (padded: a reducing thread's 32 reads hit 32 banks)
+  float part[BWD_TICKS * N_OPS * BWD_SUMS][BLOCK + 1];
+  float tick[BWD_SUMS][BWD_TICKS][N_OPS];  // the sums
+  float red[BWD_TICKS][2];
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// stages ticks t0 .. t0+7 of item b as fm_exact_ff does: amp[k] is tick
+// t0 + k - 1's amplitudes (zero before tick 0 and past T)
+__device__ __forceinline__ void bwd_stage(BwdShared& s, const float* __restrict__ amps,
+                                          const float* __restrict__ starts,
+                                          const float* __restrict__ incs, int B, int T, int b,
+                                          int t0, int tid) {
+  if (tid < (BWD_TICKS + 1) * N_OPS) {
+    const int t = t0 + tid / N_OPS - 1;
+    s.amp[tid / N_OPS][tid % N_OPS] =
+        (t >= 0 && t < T) ? amps[((size_t)t * B + b) * N_OPS + tid % N_OPS] : 0.f;
+  } else if (tid < (2 * BWD_TICKS + 1) * N_OPS) {
+    const int e = tid - (BWD_TICKS + 1) * N_OPS, t = t0 + e / N_OPS;
+    s.st[e / N_OPS][e % N_OPS] = t < T ? starts[((size_t)t * B + b) * N_OPS + e % N_OPS] : 0.f;
+  } else if (tid < (3 * BWD_TICKS + 1) * N_OPS) {
+    const int e = tid - (2 * BWD_TICKS + 1) * N_OPS, t = t0 + e / N_OPS;
+    s.in[e / N_OPS][e % N_OPS] = t < T ? incs[((size_t)t * B + b) * N_OPS + e % N_OPS] : 0.f;
+  }
+}
+
+// a sample's parts of the per-tick sums of operator i's cotangents
+__device__ __forceinline__ void sample_parts(BwdShared& s, int k, int lane, int i, float g_ph,
+                                             float g_amp, float sv, float w) {
+  float* row = &s.part[(k * N_OPS + i) * BWD_SUMS][lane];
+  row[0] = g_ph;
+  row[BLOCK + 1] = g_ph * sv;
+  row[2 * (BLOCK + 1)] = g_amp * w;
+  row[3 * (BLOCK + 1)] = g_amp - g_amp * w;
+}
+
+// threads 0-191 each sum one row of parts over its tick's 32 samples, in
+// order, for the operators in own
+__device__ __forceinline__ void tick_sums(BwdShared& s, int own, int tid) {
+  if (tid < BWD_TICKS * N_OPS * BWD_SUMS) {
+    const int k = tid / (N_OPS * BWD_SUMS), i = tid % (N_OPS * BWD_SUMS) / BWD_SUMS;
+    if ((own >> i) & 1) {
+      float r = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < BLOCK; ++j) r = r + s.part[tid][j];
+      s.tick[tid % BWD_SUMS][k][i] = r;
+    }
+  }
+}
+
+// writes the step's ticks of the operators in own: threads 0-47 a (tick,
+// operator) each; tick t's amps cotangent is cur[t] + prv[t+1], so the
+// step's last tick waits for the next step's first in carry (threads
+// 48-53, one per operator)
+__device__ __forceinline__ void write_ticks(const BwdShared& s, int own, int B, int T, int b,
+                                            int t0, int tid, float& carry,
+                                            float* __restrict__ g_amps,
+                                            float* __restrict__ g_starts,
+                                            float* __restrict__ g_incs) {
+  if (tid < BWD_TICKS * N_OPS) {
+    const int k = tid / N_OPS, i = tid % N_OPS, t = t0 + k;
+    if (((own >> i) & 1) && t < T) {
+      const size_t at = ((size_t)t * B + b) * N_OPS + i;
+      g_starts[at] = s.tick[0][k][i];
+      g_incs[at] = s.tick[1][k][i];
+      if (k < BWD_TICKS - 1)
+        g_amps[at] = t + 1 < T ? s.tick[2][k][i] + s.tick[3][k + 1][i] : s.tick[2][k][i];
+    }
+  } else if (tid < (BWD_TICKS + 1) * N_OPS) {
+    const int i = tid - BWD_TICKS * N_OPS, t = t0 + BWD_TICKS - 1;
+    if ((own >> i) & 1) {
+      if (t0 > 0) g_amps[((size_t)(t0 - 1) * B + b) * N_OPS + i] = carry + s.tick[3][0][i];
+      if (t + 1 < T) carry = s.tick[2][BWD_TICKS - 1][i];
+      else if (t < T) g_amps[((size_t)t * B + b) * N_OPS + i] = s.tick[2][BWD_TICKS - 1][i];
+    }
+  }
+}
+
+// the block's sum of v (one value per thread), for thread 0; slot 0 or 1 of red
+__device__ __forceinline__ float block_sum(BwdShared& s, float v, int slot, int tid) {
+  v = warp_sum(v);
+  if (tid % BLOCK == 0) s.red[tid / BLOCK][slot] = v;
+  __syncthreads();
+  float r = 0.f;
+  if (tid == 0)
+    for (int k = 0; k < BWD_TICKS; ++k) r = r + s.red[k][slot];
+  return r;
+}
+
+// F2b (a): one block per item. Writes the off-loop operators' columns of
+// g_amps, g_starts and g_incs, g_mv, and for an item with feedback e[n]
+// and k[n]; for an item without feedback (every operator off the loop)
+// also its g_fb: the destination's modulation cotangent times the source's
+// half sum of its two previous outputs, the term that meets a zero gain.
+__global__ void __launch_bounds__(BWD_THREADS)
+fm_exact_bwd_ff_kernel(const float* __restrict__ amps, const float* __restrict__ starts,
+                       const float* __restrict__ incs, const int* __restrict__ alg,
+                       const float* __restrict__ fb_amt, const float* __restrict__ n_carriers,
+                       const float* __restrict__ master_volume, const float* __restrict__ scale,
+                       const float* __restrict__ tape, const float* __restrict__ g_out, int B,
+                       int T, float* __restrict__ e, float* __restrict__ k_out,
+                       float* __restrict__ g_amps, float* __restrict__ g_starts,
+                       float* __restrict__ g_incs, float* __restrict__ g_fb,
+                       float* __restrict__ g_mv) {
+  __shared__ BwdShared s;
+  __shared__ float s_y[BWD_THREADS + 2];  // y_src of the step, after the last two of the previous
+  const int b = blockIdx.x, tid = threadIdx.x, k = tid / BLOCK, lane = tid % BLOCK;
+  const int a = alg[b];
+  int mods[N_OPS];
+#pragma unroll
+  for (int i = 0; i < N_OPS; ++i) mods[i] = c_alg[a][ALG_MODS + i];
+  const int carriers = c_alg[a][ALG_CARRIERS], fb_src = c_alg[a][ALG_FB_SRC];
+  const int fb_dst = c_alg[a][ALG_FB_DST], len = c_alg[a][ALG_LOOP_LEN];
+  const int ops[3] = {c_alg[a][ALG_LOOP_OPS], c_alg[a][ALG_LOOP_OPS + 1],
+                      c_alg[a][ALG_LOOP_OPS + 2]};
+  const float fba = fb_amt[b], nc = n_carriers[b], mv = master_volume[b];
+  const bool on = fba != 0.f;
+  const int loop = on ? c_alg[a][ALG_LOOP_MASK] : 0;
+  const float sv = (float)(lane + 1), w = sv / (float)BLOCK;
+  const size_t row = (size_t)b * T * BLOCK;
+  float carry = 0.f, acc_mv = 0.f, acc_fb = 0.f;
+  if (tid < 2) s_y[tid] = 0.f;
+  for (int t0 = 0; t0 < T; t0 += BWD_TICKS) {
+    __syncthreads();  // the previous step is done with s
+    bwd_stage(s, amps, starts, incs, B, T, b, t0, tid);
+    __syncthreads();
+    const bool valid = t0 + k < T;
+    const size_t n = (size_t)(t0 + k) * BLOCK + lane;
+    // ---- forward, as fm_exact_ff
+    float y[N_OPS], sn[N_OPS], cs[N_OPS], am[N_OPS], y_src = 0.f;
+#pragma unroll
+    for (int i = N_OPS - 1; i >= 0; --i) {
+      sn[i] = cs[i] = am[i] = 0.f;
+      if ((loop >> i) & 1) {
+        y[i] = (i == fb_src && valid) ? tape[row + n] : 0.f;
+      } else {
+        float mod = 0.f;
+#pragma unroll
+        for (int m = i + 1; m < N_OPS; ++m)
+          if ((mods[i] >> m) & 1) mod = mod + y[m];
+        const float prev = s.amp[k][i];
+        am[i] = prev + (s.amp[k + 1][i] - prev) * w;
+        const float ph = s.st[k][i] + s.in[k][i] * sv;
+        sincosf(TWO_PI_F * (ph + mod * MOD_SCALE_F), &sn[i], &cs[i]);
+        y[i] = sn[i] * am[i];
+      }
+      if (i == fb_src) y_src = y[i];
+    }
+    float sample = 0.f;
+#pragma unroll
+    for (int i = 0; i < N_OPS; ++i)
+      if ((carriers >> i) & 1) sample = sample + y[i];
+    // ---- backward: fade, clip, volume, carrier sum
+    const float q = sample / nc, o = q * mv;
+    const float m1 = fmaxf(o, -1.f);
+    const float g_fade = valid ? g_out[row + n] * scale[n] : 0.f;
+    const float g_o = g_fade * (m1 < 1.f ? 1.f : (m1 == 1.f ? 0.5f : 0.f)) *
+                      (o > -1.f ? 1.f : (o == -1.f ? 0.5f : 0.f));
+    acc_mv = acc_mv + g_o * q;
+    const float g_sample = g_o * mv / nc;
+    float gy[N_OPS];
+#pragma unroll
+    for (int i = 0; i < N_OPS; ++i) gy[i] = ((carriers >> i) & 1) ? g_sample : 0.f;
+    // ---- the off-loop operators, low to high
+    float e_n = 0.f, g_dst = 0.f;
+#pragma unroll
+    for (int i = 0; i < N_OPS; ++i) {
+      if (on && i == fb_src) e_n = gy[i];  // complete: only lower operators take y_src
+      if ((loop >> i) & 1) continue;  // block-uniform
+      const float g_amp = gy[i] * sn[i];
+      const float g_u = gy[i] * am[i] * cs[i] * TWO_PI_F;
+      const float g_mod = g_u * MOD_SCALE_F;
+#pragma unroll
+      for (int m = i + 1; m < N_OPS; ++m)
+        if ((mods[i] >> m) & 1) gy[m] = gy[m] + g_mod;
+      if (i == fb_dst) g_dst = g_mod;
+      sample_parts(s, k, lane, i, g_u, g_amp, sv, w);
+    }
+    s_y[tid + 2] = y_src;
+    __syncthreads();  // the tick sums and s_y are written
+    const float half = 0.5f * (s_y[tid + 1] + s_y[tid]);
+    __syncwarp();
+    if (tid < 2) s_y[tid] = s_y[BWD_THREADS + tid];  // the next step's previous two
+    if (!on) {
+      acc_fb = acc_fb + g_dst * half;
+    } else if (valid) {
+      // k[n]: the loop from its input at n, as fm_fb_loop runs it
+      float ly = half * fba, d = 1.f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        if (j < len) {
+          const int op = ops[j];
+          const float prev = s.amp[k][op];
+          const float amp = prev + (s.amp[k + 1][op] - prev) * w;
+          const float ph = s.st[k][op] + s.in[k][op] * sv;
+          float sj, cj;
+          sincosf(TWO_PI_F * (ph + ly * MOD_SCALE_F), &sj, &cj);
+          ly = sj * amp;
+          d = d * (amp * cj * TWO_PI_F * MOD_SCALE_F);
+        }
+      }
+      e[row + n] = e_n;
+      k_out[row + n] = d * fba * 0.5f;
+    }
+    tick_sums(s, ~loop & 63, tid);
+    __syncthreads();
+    write_ticks(s, ~loop & 63, B, T, b, t0, tid, carry, g_amps, g_starts, g_incs);
+  }
+  __syncthreads();
+  const float r_mv = block_sum(s, acc_mv, 0, tid);
+  const float r_fb = block_sum(s, acc_fb, 1, tid);
+  if (tid == 0) {
+    g_mv[b] = r_mv;
+    if (!on) g_fb[b] = r_fb;
+  }
+}
+
+// 16 bytes from global to shared memory, asynchronously (cp.async)
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem));
+}
+
+// F2b (b): thread i takes item i if it has feedback and walks its N
+// samples backward, a overwriting e in place; k[n+1], k[n+2], a[n+1] and
+// a[n+2] in registers. The chain is two dependent operations a sample, so
+// the loads must run far ahead of it: each thread keeps REC_STAGES ticks
+// of its row's e and k in flight (cp.async into its own column of shared
+// memory, one commit group a tick) and waits only for the oldest.
+__global__ void __launch_bounds__(REC_THREADS)
+fm_exact_bwd_rec_kernel(const float* __restrict__ fb_amt, const float* __restrict__ k_in,
+                        float* ea, int B, int T) {
+  __shared__ float4 s_buf[REC_STAGES][2][BLOCK / 4][REC_THREADS];
+  const int lane = threadIdx.x, b = blockIdx.x * blockDim.x + lane;
+  if (b >= B || fb_amt[b] == 0.f) return;  // no barrier below: each thread reads its own column
+  float4* a4 = reinterpret_cast<float4*>(ea + (size_t)b * T * BLOCK);
+  const float4* k4 = reinterpret_cast<const float4*>(k_in + (size_t)b * T * BLOCK);
+  // tick t's stage is (T - 1 - t) % REC_STAGES; a group is committed for every
+  // step, empty past tick 0, so that waiting on all but the newest
+  // REC_STAGES - 1 groups always means the oldest tick has landed
+  auto fetch = [&](int t) {
+    if (t >= 0) {
+      const int st = (T - 1 - t) % REC_STAGES;
+#pragma unroll
+      for (int q = 0; q < BLOCK / 4; ++q) {
+        copy16_async(&s_buf[st][0][q][lane], a4 + (size_t)t * (BLOCK / 4) + q);
+        copy16_async(&s_buf[st][1][q][lane], k4 + (size_t)t * (BLOCK / 4) + q);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  for (int i = 0; i < REC_STAGES - 1; ++i) fetch(T - 1 - i);
+  float a1 = 0.f, a2 = 0.f, k1 = 0.f, k2 = 0.f;  // a[n+1], a[n+2], k[n+1], k[n+2]
+  for (int t = T - 1; t >= 0; --t) {
+    fetch(t - (REC_STAGES - 1));
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(REC_STAGES - 1));
+    const int st = (T - 1 - t) % REC_STAGES;
+#pragma unroll
+    for (int q = BLOCK / 4 - 1; q >= 0; --q) {
+      const float4 ev = s_buf[st][0][q][lane], kv = s_buf[st][1][q][lane];
+      float4 r;
+      r.w = (ev.w + k2 * a2) + k1 * a1;
+      a2 = a1; a1 = r.w; k2 = k1; k1 = kv.w;
+      r.z = (ev.z + k2 * a2) + k1 * a1;
+      a2 = a1; a1 = r.z; k2 = k1; k1 = kv.z;
+      r.y = (ev.y + k2 * a2) + k1 * a1;
+      a2 = a1; a1 = r.y; k2 = k1; k1 = kv.y;
+      r.x = (ev.x + k2 * a2) + k1 * a1;
+      a2 = a1; a1 = r.x; k2 = k1; k1 = kv.x;
+      a4[(size_t)t * (BLOCK / 4) + q] = r;
+    }
+  }
+}
+
+// F2b (c): one block per item with feedback (the others exit). From a[n],
+// the loop's operators at n, source back to destination: their columns of
+// g_amps, g_starts and g_incs, and the feedback gain's cotangent, the
+// destination's modulation cotangent times 0.5 (y_src[n-1] + y_src[n-2]).
+__global__ void __launch_bounds__(BWD_THREADS)
+fm_exact_bwd_loop_kernel(const float* __restrict__ amps, const float* __restrict__ starts,
+                         const float* __restrict__ incs, const int* __restrict__ alg,
+                         const float* __restrict__ fb_amt, const float* __restrict__ tape,
+                         const float* __restrict__ a_in, int B, int T,
+                         float* __restrict__ g_amps, float* __restrict__ g_starts,
+                         float* __restrict__ g_incs, float* __restrict__ g_fb) {
+  __shared__ BwdShared s;
+  const int b = blockIdx.x, tid = threadIdx.x, k = tid / BLOCK, lane = tid % BLOCK;
+  const float fba = fb_amt[b];
+  if (fba == 0.f) return;  // the whole block
+  const int a = alg[b];
+  const int len = c_alg[a][ALG_LOOP_LEN], loop = c_alg[a][ALG_LOOP_MASK];
+  const int ops[3] = {c_alg[a][ALG_LOOP_OPS], c_alg[a][ALG_LOOP_OPS + 1],
+                      c_alg[a][ALG_LOOP_OPS + 2]};
+  const float sv = (float)(lane + 1), w = sv / (float)BLOCK;
+  const size_t row = (size_t)b * T * BLOCK;
+  float carry = 0.f, acc_fb = 0.f;
+  for (int t0 = 0; t0 < T; t0 += BWD_TICKS) {
+    __syncthreads();
+    bwd_stage(s, amps, starts, incs, B, T, b, t0, tid);
+    __syncthreads();
+    const bool valid = t0 + k < T;
+    const size_t n = (size_t)(t0 + k) * BLOCK + lane;
+    const float y1 = valid && n >= 1 ? tape[row + n - 1] : 0.f;
+    const float y2 = valid && n >= 2 ? tape[row + n - 2] : 0.f;
+    const float half = 0.5f * (y1 + y2);
+    float ly = half * fba, lsn[3], lcs[3], lam[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      lsn[j] = lcs[j] = lam[j] = 0.f;
+      if (j < len) {
+        const int op = ops[j];
+        const float prev = s.amp[k][op];
+        lam[j] = prev + (s.amp[k + 1][op] - prev) * w;
+        const float ph = s.st[k][op] + s.in[k][op] * sv;
+        sincosf(TWO_PI_F * (ph + ly * MOD_SCALE_F), &lsn[j], &lcs[j]);
+        ly = lsn[j] * lam[j];
+      }
+    }
+    float g = valid ? a_in[row + n] : 0.f;
+#pragma unroll
+    for (int j = 2; j >= 0; --j) {
+      if (j < len) {  // block-uniform
+        const float g_amp = g * lsn[j];
+        const float g_u = g * lam[j] * lcs[j] * TWO_PI_F;
+        g = g_u * MOD_SCALE_F;
+        sample_parts(s, k, lane, ops[j], g_u, g_amp, sv, w);
+      }
+    }
+    acc_fb = acc_fb + g * half;
+    __syncthreads();
+    tick_sums(s, loop, tid);
+    __syncthreads();
+    write_ticks(s, loop, B, T, b, t0, tid, carry, g_amps, g_starts, g_incs);
+  }
+  __syncthreads();
+  const float r_fb = block_sum(s, acc_fb, 1, tid);
+  if (tid == 0) g_fb[b] = r_fb;
 }
 
 static cudaError_t upload_algorithms(cudaStream_t stream) {
@@ -701,18 +1095,56 @@ int fm_fb_loop_launch(const float* amps, const float* starts, const float* incs,
   return (int)cudaGetLastError();
 }
 
+// tape: the loop source's output, or NULL where it is in out
 int fm_exact_ff_launch(const float* amps, const float* starts, const float* incs, const int* alg,
                        const float* fb_amt, const float* n_carriers, const float* master_volume,
-                       const float* scale, int B, int T, int t_begin, int t_end, float* out,
-                       cudaStream_t stream) {
+                       const float* scale, int B, int T, int t_begin, int t_end, const float* tape,
+                       float* out, cudaStream_t stream) {
   cudaError_t err = upload_algorithms(stream);
   if (err != cudaSuccess) return (int)err;
   const int n_tblk = (t_end - t_begin + FF_TICKS - 1) / FF_TICKS;
   const long grid = (long)B * n_tblk;
   if (grid > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
-  fm_exact_ff_kernel<<<(unsigned)grid, FF_THREADS, 0, stream>>>(
-      amps, starts, incs, alg, fb_amt, n_carriers, master_volume, scale, B, T, t_begin, t_end,
-      n_tblk, out);
+  if (tape)
+    fm_exact_ff_kernel<true><<<(unsigned)grid, FF_THREADS, 0, stream>>>(
+        amps, starts, incs, alg, fb_amt, n_carriers, master_volume, scale, B, T, t_begin, t_end,
+        n_tblk, tape, out);
+  else
+    fm_exact_ff_kernel<false><<<(unsigned)grid, FF_THREADS, 0, stream>>>(
+        amps, starts, incs, alg, fb_amt, n_carriers, master_volume, scale, B, T, t_begin, t_end,
+        n_tblk, nullptr, out);
+  return (int)cudaGetLastError();
+}
+
+int fm_exact_bwd_ff_launch(const float* amps, const float* starts, const float* incs,
+                           const int* alg, const float* fb_amt, const float* n_carriers,
+                           const float* master_volume, const float* scale, const float* tape,
+                           const float* g_out, int B, int T, float* e, float* k, float* g_amps,
+                           float* g_starts, float* g_incs, float* g_fb, float* g_mv,
+                           cudaStream_t stream) {
+  cudaError_t err = upload_algorithms(stream);
+  if (err != cudaSuccess) return (int)err;
+  fm_exact_bwd_ff_kernel<<<B, BWD_THREADS, 0, stream>>>(
+      amps, starts, incs, alg, fb_amt, n_carriers, master_volume, scale, tape, g_out, B, T, e, k,
+      g_amps, g_starts, g_incs, g_fb, g_mv);
+  return (int)cudaGetLastError();
+}
+
+int fm_exact_bwd_rec_launch(const float* fb_amt, const float* k, float* ea, int B, int T,
+                            cudaStream_t stream) {
+  const int grid = (B + REC_THREADS - 1) / REC_THREADS;
+  fm_exact_bwd_rec_kernel<<<grid, REC_THREADS, 0, stream>>>(fb_amt, k, ea, B, T);
+  return (int)cudaGetLastError();
+}
+
+int fm_exact_bwd_loop_launch(const float* amps, const float* starts, const float* incs,
+                             const int* alg, const float* fb_amt, const float* tape,
+                             const float* a, int B, int T, float* g_amps, float* g_starts,
+                             float* g_incs, float* g_fb, cudaStream_t stream) {
+  cudaError_t err = upload_algorithms(stream);
+  if (err != cudaSuccess) return (int)err;
+  fm_exact_bwd_loop_kernel<<<B, BWD_THREADS, 0, stream>>>(
+      amps, starts, incs, alg, fb_amt, tape, a, B, T, g_amps, g_starts, g_incs, g_fb);
   return (int)cudaGetLastError();
 }
 

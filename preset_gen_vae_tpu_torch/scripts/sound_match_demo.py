@@ -2,7 +2,8 @@
 detuned and muted corruption of a structured preset and recover the
 target's spectrum by Adam on the continuous preset parameters, the
 gradient taken through the FM render (on the card, F1 forward and F1b
-backward, the unrolled audio pass in torch ops). Counterpart of
+backward, the unrolled audio pass in torch ops; a ``render_fn`` that
+pins ``'exact'`` takes F2 and F2b as well). Counterpart of
 ``scripts/sound_match_demo.py``, with its constants.
 
     python -m preset_gen_vae_tpu_torch.scripts.sound_match_demo [--device cuda]
@@ -61,12 +62,12 @@ def render(p, render_fn=fm_torch.render_batch):
                      feedback="unrolled", fb_iters=3)
 
 
-def problem(dev):
+def problem(dev, render_fn=fm_torch.render_batch):
     """-> (the corrupted preset (1, 155), the mask of the optimized columns,
     the target's spectra at each scale), on ``dev``."""
     p_target, _, _ = generate_structured_corpus(1, seed=TARGET_SEED)
     with torch.no_grad():
-        wav = render(torch.from_numpy(p_target).to(dev))
+        wav = render(torch.from_numpy(p_target).to(dev), render_fn)
         targets = [_mag(wav, n, h) for n, h in SCALES]
     # corrupt the timbre: mute/bend output levels and EG level shapes
     p = p_target.copy()
@@ -101,16 +102,18 @@ def fit(p0, mask, targets, steps: int, render_fn=fm_torch.render_batch):
     return p.detach(), torch.stack(losses).tolist(), lrs
 
 
-def main(argv=None) -> dict:
+def main(argv=None, render_fn=fm_torch.render_batch) -> dict:
+    """``render_fn`` takes ``render_batch``'s arguments (a caller may pin
+    another feedback mode)."""
     ap = argparse.ArgumentParser(description="Fit a preset to a target sound through the synth")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    p, mask, targets = problem(dev)
+    p, mask, targets = problem(dev, render_fn)
     with torch.no_grad():
-        l0 = float(spec_loss(render(p), targets))
+        l0 = float(spec_loss(render(p, render_fn), targets))
     t0 = time.time()
-    _, losses, _ = fit(p, mask, targets, STEPS)
+    _, losses, _ = fit(p, mask, targets, STEPS, render_fn)
     l1 = losses[-1]
     summary = {
         "demo": "sound_match_through_synth",

@@ -25,11 +25,14 @@ not the C++ engine's interpolated table.
   on two streams. Their plain versions are ``feedback_loop_pass`` and
   ``feedforward_pass``, which together compute ``exact_pass``. The kernels
   live in ``csrc/fm_render.cu``, are built with nvcc at first use and
-  bound with ctypes. F1 has a backward, F1b (``fm_control_bwd``, through
-  ``FmControl``), so that the ``'unrolled'`` render is differentiable on
-  the card; F2 has none, and an ``'exact'`` render of an input that
-  requires a gradient raises, as does a failed build or launch. Nothing
-  falls back to the plain loops.
+  bound with ctypes. Both have a backward, so that either render is
+  differentiable on the card: F1b (``fm_control_bwd``, through
+  ``FmControl``) and F2b (``fm_exact_bwd``, through ``FmExact``: the
+  operators off the feedback loop one thread a sample, the loop's
+  adjoint as a linear recurrence over F2's taped loop output, the loop's
+  operators one thread a sample again). Their plain versions are
+  ``control_pass_vjp`` and ``exact_pass_vjp``. A failed build or launch
+  raises; nothing falls back to the plain loops.
 
 The decode and the per-item constants of the control pass
 (``control_params``) are torch ops on either device; they pack into one
@@ -59,10 +62,14 @@ SH_SEED = 0x12345678  # the S&H LCG's state at note-on (fm_jax.py:336)
 # launches of each hand-written kernel, counted by its wrapper at the launch;
 # "fm_exact" counts calls of F2's wrapper, each of which launches
 # "fm_fb_loop" and "fm_exact_ff" once per segment of ``exact_segments``
+# "fm_exact_bwd" counts calls of F2b's wrapper, each of which launches
+# "fm_exact_bwd_ff", "fm_exact_bwd_rec" and "fm_exact_bwd_loop" once
 LAUNCHES = {"fm_control": 0, "fm_exact": 0, "fm_fb_loop": 0, "fm_exact_ff": 0,
-            "fm_control_bwd": 0}
+            "fm_control_bwd": 0, "fm_exact_bwd": 0, "fm_exact_bwd_ff": 0,
+            "fm_exact_bwd_rec": 0, "fm_exact_bwd_loop": 0}
 F1_LANES = 8  # F1's and F1b's threads per item (csrc/fm_render.cu's F1_LANES)
 TAPE_LANE_BYTES = 8  # F1b's tape: one float2 per lane and tick
+EXACT_BWD_SCRATCH = 2  # F2b's (B, T*32) f32 scratch rows: e (then a) and k (BWD_SCRATCH)
 
 # ---------------------------------------------------------------------------
 # Algorithm table (public DX7 spec; fm_jax.py:56-127, dx7_engine.cc:155-188)
@@ -564,8 +571,11 @@ def exact_pass(phases, amps, alg, fb_amt):
     edges = [[m for m in range(i + 1, N_OPS) if bool(adj[:, i, m].any())] for i in range(N_OPS)]
     adj_im = {(i, m): adj[:, i, m] for i in range(N_OPS) for m in edges[i]}
     dst_i = [dst[:, i] for i in range(N_OPS)]
-    ph = [phases[:, i].t().contiguous() for i in range(N_OPS)]  # (N, B) per operator
-    am = [amps[:, i].t().contiguous() for i in range(N_OPS)]
+    # per operator the N samples' (B,) rows; unbind, so that autograd keeps
+    # one node for all of them (an index per sample would make a full-size
+    # zero gradient per sample)
+    ph = [phases[:, i].t().contiguous().unbind(0) for i in range(N_OPS)]
+    am = [amps[:, i].t().contiguous().unbind(0) for i in range(N_OPS)]
     fb1 = fb2 = phases.new_zeros((B,))
     zero = phases.new_zeros((B,))
     out = []
@@ -593,8 +603,9 @@ def feedback_loop_pass(phases, amps, alg, fb_amt):
     rows = torch.from_numpy(algorithm_rows()).to(phases.device)[alg.long()]
     length = rows[:, ALG_LOOP_LEN]
     idx = rows[:, ALG_LOOP_OPS:ALG_LOOP_OPS + 3].clamp(min=0).long()[:, :, None].expand(B, 3, N)
-    ph = torch.gather(phases, 1, idx).permute(1, 2, 0).contiguous()  # (3, N, B)
-    am = torch.gather(amps, 1, idx).permute(1, 2, 0).contiguous()
+    # (3, N, B) as per-operator tuples of (B,) rows, unbound as in exact_pass
+    ph = [r.unbind(0) for r in torch.gather(phases, 1, idx).permute(1, 2, 0).contiguous()]
+    am = [r.unbind(0) for r in torch.gather(amps, 1, idx).permute(1, 2, 0).contiguous()]
     on = fb_amt != 0
     n_loop = int(length[on].max()) if bool(on.any()) else 1
     longer = [length > j for j in range(n_loop)]
@@ -603,7 +614,7 @@ def feedback_loop_pass(phases, amps, alg, fb_amt):
     for n in range(N):
         y = 0.5 * (fb1 + fb2) * fb_amt  # the destination's modulation: the feedback term
         for j in range(n_loop):
-            y_j = torch.sin(TWO_PI * (ph[j, n] + (zero + y) * MOD_SCALE)) * am[j, n]
+            y_j = torch.sin(TWO_PI * (ph[j][n] + (zero + y) * MOD_SCALE)) * am[j][n]
             y = y_j if j == 0 else torch.where(longer[j], y_j, y)
         fb1, fb2 = y, fb1
         out.append(y)
@@ -649,6 +660,26 @@ def fade_and_volume(sample, n_carriers, master_volume, sample_rate: int):
     out = sample / n_carriers[:, None] * master_volume[:, None]
     out = _clip(out, -1.0, 1.0)
     return out * torch.from_numpy(fade_scale(sample.shape[1], sample_rate)).to(out.device)
+
+
+def exact_pass_vjp(amps_t, starts, incs, alg, fb_amt, n_carriers, master_volume,
+                   sample_rate: int, g_out):
+    """F2b's plain version: the gradients of ``<g_out, waveform>`` by
+    ``amps_t``, ``starts``, ``incs`` (each (T, B, 6)), ``fb_amt`` and
+    ``master_volume`` (each (B,)), where the waveform is the exact render
+    of F1's outputs, ``fade_and_volume(exact_pass(...))``; autograd on
+    the inputs' device. ``alg`` and ``n_carriers`` take no gradient.
+
+    An item at feedback 0 has a nonzero ``fb_amt`` gradient here: the
+    source's output still meets a zero gain (``render_batch`` zeroes it on
+    the way to the preset)."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(True) for t in (amps_t, starts, incs, fb_amt,
+                                                         master_volume)]
+        out = fade_and_volume(exact_pass(sample_phases(xs[1], xs[2]), upsample_amps(xs[0]), alg,
+                                         xs[3]), n_carriers, xs[4], sample_rate)
+        grads = torch.autograd.grad(out, xs, g_out, allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads))
 
 
 # ---------------------------------------------------------------------------
@@ -703,9 +734,8 @@ def render_batch(presets, pitches, velocities, note_on_s: float = 3.0, total_s: 
     :param presets: (B, 155) normalized full preset matrix, a tensor; the
         device it lies on picks the path: the CPU takes ``plain_render``,
         the card F1 and then F2 (``'exact'``) or the unrolled pass in torch
-        ops. On the card the ``'unrolled'`` render is differentiable (F1's
-        backward is F1b); ``'exact'`` raises for an input that requires a
-        gradient, since F2 has no backward
+        ops. On the card both are differentiable: F1's backward is F1b,
+        F2's is F2b
     :param pitches/velocities: (B,) integers, any array-like
     :returns: (B, N) float32 waveforms, N rounded up to the 512-sample
         engine block (the C++ engine's contract)
@@ -717,9 +747,6 @@ def render_batch(presets, pitches, velocities, note_on_s: float = 3.0, total_s: 
                             feedback, fb_iters)
     if dev.type != "cuda":
         raise ValueError(f"no FM render for device {dev}")
-    if feedback == "exact" and presets.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("F2 (the 'exact' render) has no backward yet: the input "
-                                  "requires a gradient; 'unrolled' is differentiable")
     d, alg, fb_amt, n_carriers, ctl, n_ticks = _prepare(presets, pitches, velocities, total_s,
                                                         sample_rate, feedback)
     amps_t, _, starts, incs = fm_control(ctl, n_ticks, int(note_on_s * sample_rate), sample_rate)
@@ -749,7 +776,8 @@ def fm_build_command():
 
 @functools.lru_cache(maxsize=None)
 def _fm_library() -> ctypes.CDLL:
-    """Builds (first use only) and loads F1, F1b and F2's two kernels, and hands
+    """Builds (first use only) and loads F1, F1b, F2's two kernels and F2b's
+    three, and hands
     them the algorithm table, which F2's launches copy into constant
     memory. The table is built first, so that one whose feedback loops F2
     cannot split raises before anything is built. Never called at import."""
@@ -766,7 +794,13 @@ def _fm_library() -> ctypes.CDLL:
     lib.fm_fb_loop_launch.restype = i
     lib.fm_fb_loop_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p, p]
     lib.fm_exact_ff_launch.restype = i
-    lib.fm_exact_ff_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p, p]
+    lib.fm_exact_ff_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p, p, p]
+    lib.fm_exact_bwd_ff_launch.restype = i
+    lib.fm_exact_bwd_ff_launch.argtypes = [p] * 10 + [i, i] + [p] * 8
+    lib.fm_exact_bwd_rec_launch.restype = i
+    lib.fm_exact_bwd_rec_launch.argtypes = [p, p, p, i, i, p]
+    lib.fm_exact_bwd_loop_launch.restype = i
+    lib.fm_exact_bwd_loop_launch.argtypes = [p] * 7 + [i, i] + [p] * 5
     for name, want in (("fm_ctl_width", CTL_WIDTH), ("fm_alg_width", rows.shape[1])):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
@@ -955,12 +989,13 @@ def _launch_loop(lib, amps, starts, incs, alg, fb_amt, slots, t0, t1, fb, out, s
 
 
 def _launch_ff(lib, out, amps, starts, incs, alg, fb_amt, n_carriers, master_volume, scale, t0,
-               t1, stream):
+               t1, stream, tape=None):
+    """``tape``: the loop source's output where it is not in ``out``."""
     T, B, _ = amps.shape
     err = lib.fm_exact_ff_launch(
         amps.data_ptr(), starts.data_ptr(), incs.data_ptr(), alg.data_ptr(), fb_amt.data_ptr(),
         n_carriers.data_ptr(), master_volume.data_ptr(), scale.data_ptr(), B, T, t0, t1,
-        out.data_ptr(), stream.cuda_stream)
+        None if tape is None else tape.data_ptr(), out.data_ptr(), stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"fm_exact_ff kernel launch failed: cudaError_t {err}")
     LAUNCHES["fm_exact_ff"] += 1
@@ -969,30 +1004,142 @@ def _launch_ff(lib, out, amps, starts, incs, alg, fb_amt, n_carriers, master_vol
 def fm_exact(amps, starts, incs, alg, fb_amt, n_carriers, master_volume, sample_rate: int):
     """F2's wrapper: F1's (T, B, 6) arrays and the per-item algorithm (int32),
     feedback gain, carrier count and master volume -> (B, T*32) float32
-    waveforms, faded, scaled and clipped: the buffer K1 reads. Runs the
-    loop phase (``fm_fb_loop``) and the feed-forward phase
-    (``fm_exact_ff``) on one buffer as a pipeline over ``exact_segments``:
-    each loop segment on a high-priority side stream, and the feed-forward
-    segment that reads it on the caller's stream once it is done, so that
-    the feed-forward work overlaps the next loop segment."""
+    waveforms, faded, scaled and clipped: the buffer K1 reads.
+    Differentiable in ``amps``, ``starts``, ``incs``, ``fb_amt`` and
+    ``master_volume`` through ``FmExact`` (F2b backward); a call that needs
+    no gradient launches F2 alone and keeps no tape."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (amps, starts, incs, fb_amt,
+                                                                  master_volume)):
+        return FmExact.apply(amps, starts, incs, alg, fb_amt, n_carriers, master_volume,
+                             sample_rate)
+    return _fm_exact_launch(amps, starts, incs, alg, fb_amt, n_carriers, master_volume,
+                            sample_rate, taped=False)[0]
+
+
+class FmExact(torch.autograd.Function):
+    """F2 forward with the loop source on a tape, F2b backward. ``alg`` and
+    ``n_carriers`` take no gradient."""
+
+    @staticmethod
+    def forward(ctx, amps, starts, incs, alg, fb_amt, n_carriers, master_volume, sample_rate):
+        out, tape = _fm_exact_launch(amps, starts, incs, alg, fb_amt, n_carriers, master_volume,
+                                     sample_rate, taped=True)
+        ctx.save_for_backward(tape, amps, starts, incs, alg, fb_amt, n_carriers, master_volume)
+        ctx.sample_rate = sample_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        tape, *args = ctx.saved_tensors
+        g_amps, g_starts, g_incs, g_fb_amt, g_mv = fm_exact_bwd(tape, *args, ctx.sample_rate,
+                                                                g_out)
+        return g_amps, g_starts, g_incs, None, g_fb_amt, None, g_mv, None
+
+
+def _fm_exact_launch(amps, starts, incs, alg, fb_amt, n_carriers, master_volume,
+                     sample_rate: int, taped: bool):
+    """F2: -> (waveforms, tape). Runs the loop phase (``fm_fb_loop``) and
+    the feed-forward phase (``fm_exact_ff``) as a pipeline over
+    ``exact_segments``: each loop segment on a high-priority side stream,
+    and the feed-forward segment that reads it on the caller's stream once
+    it is done, so that the feed-forward work overlaps the next loop
+    segment. The loop writes the source's output into ``out`` itself,
+    which the feed-forward phase overwrites, or, ``taped``, into a (B,
+    T*32) tape of its own that F2b reads (the tape is ``out`` otherwise)."""
     dev, T, B = _check_exact(amps, starts, incs, alg, fb_amt, n_carriers, master_volume)
     out = torch.empty((B, T * BLOCK), dtype=torch.float32, device=dev)  # 256-byte aligned
+    tape = torch.empty_like(out) if taped else out
     fb = torch.empty((B, 2), dtype=torch.float32, device=dev)  # the loop's two-sample history
     slots = loop_slots(alg, fb_amt)
     scale = _fade_table(T * BLOCK, int(sample_rate), dev)
     lib = _fm_library()
     main, side = torch.cuda.current_stream(dev), _loop_stream(dev)
     side.wait_stream(main)
-    for t in (amps, starts, incs, alg, fb_amt, slots, fb, out):
+    for t in (amps, starts, incs, alg, fb_amt, slots, fb, out, tape):
         t.record_stream(side)  # no reuse of their memory before the side stream is done
     with torch.cuda.device(dev):
         for t0, t1 in exact_segments(T):
-            _launch_loop(lib, amps, starts, incs, alg, fb_amt, slots, t0, t1, fb, out, side)
+            _launch_loop(lib, amps, starts, incs, alg, fb_amt, slots, t0, t1, fb, tape, side)
             main.wait_stream(side)
             _launch_ff(lib, out, amps, starts, incs, alg, fb_amt, n_carriers, master_volume,
-                       scale, t0, t1, main)
+                       scale, t0, t1, main, tape if taped else None)
     LAUNCHES["fm_exact"] += 1
-    return out
+    return out, tape
+
+
+def exact_bwd_scratch_bytes(n_items: int, n_samples: int) -> int:
+    """Device bytes of F2b's scratch, e (then a) and k, f32 a sample and
+    item each (0.73 GB at 1,024 items and 88,576 samples); the forward's
+    tape under a gradient is another 4 bytes a sample and item."""
+    return EXACT_BWD_SCRATCH * 4 * n_items * n_samples
+
+
+def fm_exact_bwd(tape, amps, starts, incs, alg, fb_amt, n_carriers, master_volume,
+                 sample_rate: int, g_out):
+    """F2b's wrapper: F2's tape (B, T*32) (the loop source's output on the
+    items with feedback), F2's inputs and the waveforms' cotangent (None
+    reads as zeros; any strides) on the card -> the gradients of
+    ``amps``, ``starts``, ``incs`` ((T, B, 6) float32), ``fb_amt`` and
+    ``master_volume`` ((B,) float32), as ``exact_pass_vjp`` gives them.
+    Three launches on the caller's stream: ``fm_exact_bwd_ff`` (the
+    operators off the loop; e and k), ``fm_exact_bwd_rec`` (the loop's
+    linear recurrence) and ``fm_exact_bwd_loop`` (the loop's operators).
+    Keeps ``exact_bwd_scratch_bytes(B, T*32)`` on the card and raises
+    where that does not fit."""
+    dev = amps.device
+    if dev.type != "cuda":
+        raise ValueError(f"F2b runs on the card; the plain version is exact_pass_vjp ({dev})")
+    dev, T, B = _check_exact(amps, starts, incs, alg, fb_amt, n_carriers, master_volume)
+    N = T * BLOCK
+    _check("tape", tape, torch.float32, (B, N), dev)
+    g_out = torch.zeros((B, N), dtype=torch.float32, device=dev) if g_out is None \
+        else g_out.contiguous()
+    _check("g_out", g_out, torch.float32, (B, N), dev)
+    try:
+        ea = torch.empty((B, N), dtype=torch.float32, device=dev)
+        k = torch.empty((B, N), dtype=torch.float32, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(f"F2b's scratch needs {exact_bwd_scratch_bytes(B, N) / 2**30:.2f} GiB "
+                           f"for {B} items x {N} samples, more than {dev} has free") from e
+    g_amps, g_starts, g_incs = (torch.empty((T, B, N_OPS), dtype=torch.float32, device=dev)
+                                for _ in range(3))
+    g_fb, g_mv = (torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(2))
+    scale = _fade_table(N, int(sample_rate), dev)
+    ptrs = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    with torch.cuda.device(dev):
+        _launch_bwd("fm_exact_bwd_ff", *ptrs(amps, starts, incs, alg, fb_amt, n_carriers,
+                                             master_volume, scale, tape, g_out), B, T,
+                    *ptrs(ea, k, g_amps, g_starts, g_incs, g_fb, g_mv))
+        _launch_bwd("fm_exact_bwd_rec", *ptrs(fb_amt, k, ea), B, T)
+        _launch_bwd("fm_exact_bwd_loop", *ptrs(amps, starts, incs, alg, fb_amt, tape, ea), B, T,
+                    *ptrs(g_amps, g_starts, g_incs, g_fb))
+    LAUNCHES["fm_exact_bwd"] += 1
+    return g_amps, g_starts, g_incs, g_fb, g_mv
+
+
+def _launch_bwd(name: str, *args):
+    """Launches F2b's kernel ``name`` on the current stream with ``args``
+    (pointers and ints); raises where the launch fails; counts it."""
+    err = getattr(_fm_library(), f"{name}_launch")(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
+
+
+def fm_exact_bwd_rec(fb_amt, k, ea):
+    """F2b's recurrence alone, on the caller's stream: ``ea`` (B, T*32)
+    holds e and is overwritten with a on the items with feedback, ``k``
+    (B, T*32) as ``fm_exact_bwd`` makes them. Returns ``ea``."""
+    dev, B = ea.device, ea.shape[0]
+    if dev.type != "cuda":
+        raise ValueError(f"F2b runs on the card; the plain version is exact_pass_vjp ({dev})")
+    _check("fb_amt", fb_amt, torch.float32, (B,), dev)
+    _check("k", k, torch.float32, tuple(ea.shape), dev)
+    _check("ea", ea, torch.float32, (B, ea.shape[1] // BLOCK * BLOCK), dev)
+    with torch.cuda.device(dev):
+        _launch_bwd("fm_exact_bwd_rec", fb_amt.data_ptr(), k.data_ptr(), ea.data_ptr(), B,
+                    ea.shape[1] // BLOCK)
+    return ea
 
 
 def fm_fb_loop(amps, starts, incs, alg, fb_amt):

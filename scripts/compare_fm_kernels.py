@@ -3,7 +3,9 @@ checkout (the parent commit) on one GPU, in turns parent, change, change,
 parent, on the same inputs: F1 (``fm_control``) at (B, 2,768 ticks) and
 F2 (``fm_exact``) on F1's outputs at (B, 88,576 samples), B = 1,024, 8,192
 and 20,480 structured2 presets (seed 0, note 60, velocity 85), and
-whether the two checkouts' outputs are equal bit for bit.
+whether the two checkouts' outputs are equal bit for bit; and this
+checkout's F2 with its tape on (``FmExact``, the forward under a
+gradient) against F2 without it, bit for bit, and timed.
 
 Make the other checkout in a directory that .gitignore lists, e.g.
 
@@ -71,6 +73,9 @@ def main() -> int:
                 mod.fm_exact(*f2_args).clone()]
         row["bit-equal"] = [bool(torch.equal(a, b)) for a, b in zip(outs["parent"],
                                                                       outs["change"])]
+        row["F2 taped"] = cs.cuda_ms(lambda a: ft.FmExact.apply(*a), [f2_args], reps=3)
+        row["F2 taped bit-equal"] = bool(torch.equal(ft.FmExact.apply(*f2_args),
+                                                     outs["change"][-1]))
         print(json.dumps({"B": B, **row}), flush=True)
         del p, f2_args, ctl, outs
         torch.cuda.empty_cache()
