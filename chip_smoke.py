@@ -50,7 +50,20 @@ through the render on the card (F1 and F1b each step; at least a 10x
 loss reduction), its first 10 losses against the plain render's and a
 profile of its step; and the demo's objective through the ``'exact'``
 render (F1, F2, F2b and F1b each step): its gradient against the plain
-render's, 400 steps whose losses fall, and a profile. Each path prints
+render's, 400 steps whose losses fall, and a profile. Last, three paths of
+the epoch loop's observability and multi-process data path, each with the
+card's name and power limit: ``profile`` trains the flagship one epoch on
+1,536 presets (6 steps) with the step profiler on and reads its trace of
+the first 5 steps (the kernel launches in each, the 5 kernels with the most
+device time, the device-busy share); ``multiproc1`` trains the train
+path's configuration again under an NCCL process group of one with
+``force_multihost_data`` and holds its validation losses to the train
+path's (2e-3 relative); ``multiproc2`` spawns two processes on the card
+(gloo), each taking one flagship train step on 80 of 160 seeded rows, and
+holds the loss, every averaged gradient and every BatchNorm running
+statistic to one process's step on the 160 rows (1e-4 of each tensor's
+largest entry, in float64; float32's differences printed: the step is
+ill-conditioned there). Each path prints
 its wall time, launches of every kernel and peak memory, the training
 paths also their model build time, steady step, corpus and render
 seconds. Runs and caches live in a
@@ -1317,7 +1330,8 @@ def check_train_summary(name: str, summary: dict, epochs_trained: int,
 
 def phase_main_path(root: str):
     """The flagship through the port's entry points, three paths in turn:
-    train 2 epochs, resume for a third, evaluate the validation split."""
+    train 2 epochs, resume for a third, evaluate the validation split;
+    -> (launch counts by path, the train path's summary)."""
     from preset_gen_vae_tpu_torch import config as cfg
     from preset_gen_vae_tpu_torch.evaluation.evaluate import evaluate_model_from_dir
     from preset_gen_vae_tpu_torch.logs.logger import list_checkpoint_epochs, load_checkpoint
@@ -1334,6 +1348,7 @@ def phase_main_path(root: str):
         model_c, train_c, dataset_kwargs=fresh_corpus(CORPUS, root, "train"), device="cuda",
         use_tensorboard=False))
     check_train_summary("train", summary, 2)
+    train_summary = summary
     if list_checkpoint_epochs(model_c) != [1]:
         raise AssertionError(f"train: checkpoints {list_checkpoint_epochs(model_c)}, want [1]")
     sched = load_checkpoint(model_c, 1)["scheduler"]
@@ -1391,7 +1406,256 @@ def phase_main_path(root: str):
     print(f"[eval path] wall {wall:.2f} s, launches {counts['eval']}, 164 items (2 batches), "
           f"re-render of 328 notes on the card {phases['render']:.3f} s, seconds per phase "
           f"{json.dumps(phases)}, peak device memory {mem:.2f} GiB", flush=True)
-    return counts
+    return counts, train_summary
+
+
+# the profile path's corpus: 6 train steps an epoch at batch 160 (1,024
+# presets give 4), so that the first epoch holds the profiler's 5-step window
+PROFILE_CORPUS = {"n_synthetic_presets": 1536}
+VALID_LOSSES = ("ReconsLoss/Backprop/Valid", "LatLoss/Valid", "Controls/BackpropLoss/Valid")
+
+
+def trace_report(trace_path: pathlib.Path, n_steps: int = 5) -> dict:
+    """The profiler's Chrome trace: the ``train_step`` spans, the kernel
+    launches the host made inside each, the kernels' device time by name,
+    and the device-busy share of the window (from the first span's start
+    to the last kernel's end; the union of the kernels' intervals)."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == "train_step" and e.get("cat") == "user_annotation")
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    launches = [e["ts"] for e in events if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in str(e.get("name"))]
+    per_step = [sum(a <= t <= b for t in launches) for a, b in spans]
+    if len(spans) != n_steps or not kernels or min(per_step, default=0) < 1:
+        raise AssertionError(f"profile: {len(spans)} train_step spans, {len(kernels)} kernel "
+                             f"events, launches by step {per_step}; want {n_steps} steps, each "
+                             f"launching kernels")
+    start = spans[0][0]
+    end = max(e["ts"] + e["dur"] for e in kernels)
+    busy, cursor = 0.0, start
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+        a, b = max(a, cursor), min(b, end)
+        if b > a:
+            busy, cursor = busy + b - a, b
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e["name"]] += e["dur"]
+    return {"steps": len(spans), "window_ms": (end - start) / 1e3, "device_ms": busy / 1e3,
+            "busy_share": busy / (end - start), "kernel_events": len(kernels),
+            "launches_by_step": per_step,
+            "top": [(name[:80], us / 1e3) for name, us in by_name.most_common(5)]}
+
+
+def phase_profile_path(root: str):
+    """The flagship trains one epoch with the step profiler on: the trace
+    of the first 5 steps lands in ``<run_dir>/profile/trace.json``."""
+    from preset_gen_vae_tpu_torch import config as cfg
+    from preset_gen_vae_tpu_torch.training.loop import train_config
+
+    model_c = cfg.ModelConfig(logs_root_dir=root, run_name="profile")
+    train_c = cfg.TrainConfig(n_epochs=1, minibatch_size=160, lr_warmup_epochs=0, verbosity=1,
+                              profiler_args={"enabled": True})
+    summary, counts, wall, mem = drive("profile", lambda: train_config(
+        model_c, train_c, dataset_kwargs=fresh_corpus(PROFILE_CORPUS, root, "profile"),
+        device="cuda", use_tensorboard=False))
+    check_train_summary("profile", summary, 1)
+    rep = trace_report(pathlib.Path(summary["run_dir"]) / "profile" / "trace.json")
+    top = "; ".join(f"{name} {ms:.3f} ms" for name, ms in rep["top"])
+    print(f"[profile path] {card_line()}: wall {wall:.2f} s, K1 launches {counts['logmel']}, "
+          f"{summary['train_steps']} steps (steady {summary['step_ms']:.2f} ms, first "
+          f"{summary['first_step_ms']:.1f} ms, profiled); trace of {rep['steps']} steps: window "
+          f"{rep['window_ms']:.2f} ms, device busy {rep['device_ms']:.2f} ms "
+          f"({rep['busy_share']:.1%}), {rep['kernel_events']} kernels, "
+          f"{rep['kernel_events'] / rep['steps']:.0f} a step (launches by step "
+          f"{rep['launches_by_step']}); top 5 by device time over the window: {top}; peak "
+          f"device memory {mem:.2f} GiB", flush=True)
+    return {"profile": counts}
+
+
+def phase_multiproc1(root: str, train_summary: dict):
+    """The main train path again under an NCCL process group of one, with
+    ``force_multihost_data``: the loaders carved, rank 0's weights
+    broadcast, gradients and scalars all-reduced; the validation losses
+    held to the train path's within 2e-3 relative."""
+    import torch.distributed as dist
+
+    from preset_gen_vae_tpu_torch import config as cfg
+    from preset_gen_vae_tpu_torch.training.loop import train_config
+
+    dist.init_process_group("nccl", init_method=f"file://{root}/nccl_store", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    try:
+        model_c = cfg.ModelConfig(logs_root_dir=root, run_name="multiproc1")
+        train_c = cfg.TrainConfig(n_epochs=2, minibatch_size=160, lr_warmup_epochs=0,
+                                  save_period=1, verbosity=1, force_multihost_data=True)
+        summary, counts, wall, mem = drive("multiproc1", lambda: train_config(
+            model_c, train_c, dataset_kwargs=fresh_corpus(CORPUS, root, "multiproc1"),
+            device="cuda", use_tensorboard=False))
+    finally:
+        dist.destroy_process_group()
+    check_train_summary("multiproc1", summary, 2)
+    rel = {k: abs(summary[k] - train_summary[k]) / abs(train_summary[k]) for k in VALID_LOSSES}
+    if summary["world_size"] != 1 or max(rel.values()) > 2e-3:
+        raise AssertionError(f"multiproc1: world {summary['world_size']}, validation losses "
+                             f"{rel} relative from the train path's (bar 2e-3)")
+    print(f"[multiproc1 path] {card_line()}: NCCL world of 1, wall {wall:.2f} s, K1 launches "
+          f"{counts['logmel']}, steady step {summary['step_ms']:.2f} ms (train path "
+          f"{train_summary['step_ms']:.2f} ms), validation losses relative to the train path's "
+          f"{json.dumps(rel)} (bar 2e-3), peak device memory {mem:.2f} GiB", flush=True)
+    return {"multiproc1": counts}
+
+
+MULTIPROC2_BATCH = 160
+
+
+def multiproc2_inputs():
+    """The flagship's configs and 160 seeded rows (x, v, info) made on the
+    card; rows 0-2 have three silent operators (the categorical loss's
+    useful items then differ between the two halves)."""
+    from preset_gen_vae_tpu_torch import config as cfg
+    from preset_gen_vae_tpu_torch.data.dexed_spec import build_dexed_preset_spec
+    from preset_gen_vae_tpu_torch.data.preset import PresetIndexesHelper
+    from preset_gen_vae_tpu_torch.synth import dexed_params as dx
+
+    B = MULTIPROC2_BATCH
+    helper = PresetIndexesHelper(build_dexed_preset_spec())
+    L = helper.learnable_preset_size
+    model_c, train_c = cfg.resolve(cfg.ModelConfig(),
+                                   cfg.TrainConfig(minibatch_size=B, compute_dtype="float32"))
+    model_c = dataclasses.replace(model_c, synth_params_count=L,
+                                  learnable_params_tensor_length=L, dim_z=L,
+                                  input_tensor_size=(B, 1, 257, 347))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((B, 1, 257, 347), device="cuda", generator=g) * 0.3
+    full = torch.rand((B, helper.full_preset_size), device="cuda", generator=g)
+    full[:3, torch.as_tensor(dx.operator_volume_indexes()[:3], device="cuda")] = 0.0
+    v = torch.from_numpy(helper.full_to_learnable_batch(full.cpu().numpy())).cuda()
+    info = torch.tensor([[i, 60, 85] for i in range(B)], dtype=torch.int32, device="cuda")
+    return model_c, train_c, helper, x, v, info
+
+
+def flagship_step(model_c, train_c, helper, x, v, info, dtype) -> dict:
+    """One train step of the flagship built from seed 0 in ``dtype`` (TF32
+    off), dropout and noise from a generator seeded 11: the total loss
+    (averaged over a group's processes), every gradient and every running
+    statistic, on the host."""
+    from preset_gen_vae_tpu_torch.models.build import build_extended_ae_model
+    from preset_gen_vae_tpu_torch.parallel import multihost
+    from preset_gen_vae_tpu_torch.training.train_step import Criteria, make_optimizer, \
+        train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_extended_ae_model(model_c, train_c, helper, seed=0).to("cuda", dtype)
+    generator = torch.Generator(device="cuda").manual_seed(11)
+    m = train_step(model, make_optimizer(model, train_c), Criteria(model_c, train_c, helper),
+                   train_c, x.to(dtype), v.to(dtype), info, 0.2, generator)
+    loss = m["TotalLoss"].reshape(1).clone()
+    multihost.all_reduce_mean_([loss])
+    return {"loss": loss.cpu(),
+            "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+            "stats": {k: b.cpu() for k, b in model.named_buffers()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+MULTIPROC2_DTYPES = ("float64", "float32")
+
+
+def multiproc2_rank(rank: int, world: int, store: str, out: str):
+    """Process ``rank`` of 2 under gloo on the one card: the flagship step on
+    its 80 of the 160 rows, in each of ``MULTIPROC2_DTYPES``."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        model_c, train_c, helper, x, v, info = multiproc2_inputs()
+        b = MULTIPROC2_BATCH // world
+        rows = slice(rank * b, (rank + 1) * b)
+        train_c = dataclasses.replace(train_c, minibatch_size=b)
+        for name in MULTIPROC2_DTYPES:
+            torch.save(flagship_step(model_c, train_c, helper, x[rows], v[rows], info[rows],
+                                     getattr(torch, name)), f"{out}/rank{rank}_{name}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def module_scales(step: dict) -> dict:
+    """``kind:name`` -> the largest entry of the tensor, or of its module's
+    tensors where the tensor is zero in exact arithmetic: under 1e-6 of
+    its module's largest entry in the float64 step (a bias feeding a
+    train-mode BatchNorm, the running mean of a BatchNorm whose input has
+    zero batch mean)."""
+    out = {"loss": float(step["loss"].abs())}
+    for kind in ("grads", "stats"):
+        module = collections.defaultdict(float)
+        for k, t in step[kind].items():
+            module[k.rsplit(".", 1)[0]] = max(module[k.rsplit(".", 1)[0]], float(t.abs().max()))
+        for k, t in step[kind].items():
+            own, mod = float(t.abs().max()), module[k.rsplit(".", 1)[0]]
+            out[f"{kind}:{k}"] = own if own >= 1e-6 * mod else mod
+    return out
+
+
+def step_errors(got: dict, want: dict, scales: dict) -> dict:
+    """Each tensor's largest difference over its scale (``module_scales``)."""
+    out = {"loss": float((got["loss"] - want["loss"]).abs()) / scales["loss"]}
+    for kind in ("grads", "stats"):
+        for k, t in want[kind].items():
+            out[f"{kind}:{k}"] = float((got[kind][k] - t).abs().max()) / scales[f"{kind}:{k}"]
+    return out
+
+
+def phase_multiproc2(root: str):
+    """Two processes on the one card (gloo, spawned) each take one flagship
+    train step on 80 of the same 160 rows, from the same initial weights;
+    against one process's step on the 160 rows: the loss, every averaged
+    gradient and every BatchNorm running statistic within 1e-4 of the
+    tensor's largest entry, in float64; float32's differences printed."""
+    import torch.multiprocessing as mp
+
+    out = pathlib.Path(root) / "multiproc2"
+    out.mkdir()
+
+    def run():
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=multiproc2_rank, args=(r, 2, str(out / "store"), str(out)))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        hung = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            p.kill()
+        if hung or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"multiproc2: ranks hung {hung}, exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        inputs = multiproc2_inputs()
+        return {name: flagship_step(*inputs, getattr(torch, name)) for name in MULTIPROC2_DTYPES}
+
+    want, counts, wall, mem = drive("multiproc2", run, k1=0)
+    scales = module_scales(want["float64"])
+    worst = {}
+    for name in MULTIPROC2_DTYPES:
+        errs = {}
+        for r in range(2):
+            got = torch.load(out / f"rank{r}_{name}.pt")
+            for k, e in step_errors(got, want[name], scales).items():
+                errs[k] = max(errs.get(k, 0.0), e)
+        worst[name] = sorted(errs.items(), key=lambda kv: -kv[1])
+    n_zero = sum(scales[f"{kind}:{k}"] != float(t.abs().max())
+                 for kind in ("grads", "stats") for k, t in want["float64"][kind].items())
+    print(f"[multiproc2] {card_line()}: 2 processes x 80 rows (gloo) against 1 x 160, wall "
+          f"{wall:.2f} s, peak device memory of this process {mem:.2f} GiB; {n_zero} of "
+          f"{len(scales)} tensors zero in exact arithmetic, held at their module's scale; "
+          + "; ".join(f"{name}: loss {dict(worst[name])['loss']:.2e}, worst "
+                      f"{[(k, f'{e:.2e}') for k, e in worst[name][:3]]}"
+                      for name in MULTIPROC2_DTYPES), flush=True)
+    if worst["float64"][0][1] > 1e-4:
+        raise AssertionError(f"multiproc2: float64 {worst['float64'][:5]} (bar 1e-4)")
+    return {"multiproc2": counts}
 
 
 SAVED_RUNS = pathlib.Path(__file__).resolve().parent / "saved" / "FlVAE2"
@@ -1825,13 +2089,17 @@ def main() -> int:
     f2b = phase_f2b()
     root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     try:
-        counts = phase_main_path(root)
+        counts, train_summary = phase_main_path(root)
         counts.update(phase_variant_paths(root))
         counts.update(phase_syx_path(root))
         counts.update(phase_disk_jax(root))
         sound_match_counts, reduction = phase_sound_match()
         counts.update(sound_match_counts)
         counts.update(phase_sound_match_exact(reduction))
+        # last, so that the earlier paths run where they ran before them
+        counts.update(phase_profile_path(root))
+        counts.update(phase_multiproc1(root, train_summary))
+        counts.update(phase_multiproc2(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = [k1, *fm, f1b, f2b]

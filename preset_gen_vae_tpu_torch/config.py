@@ -4,8 +4,10 @@ unchanged apart from this paragraph, one default of ``EvalConfig``
 ``dataset_corpus_render_backend``, ``dataset_corpus_cache_policy``,
 ``steps_per_dispatch``, ``audio_render_backend``, ``audio_batch_size``,
 ``cache_gt_audio``,
-``main_cuda_device_idx``, the profiler fields, ``compute_dtype`` and
-``dataset_cache_device``, which say what the fields mean in this package.
+``main_cuda_device_idx``, the profiler fields, the parallel fields
+(``data_parallel_devices`` to ``force_multihost_data``), ``compute_dtype``
+and ``dataset_cache_device``, which say what the fields mean in this
+package.
 
 Typed, functional configuration system.
 
@@ -150,21 +152,24 @@ class TrainConfig:
     verbosity: int = 1
     init_security_pause: float = 0.0
     logged_samples_count: int = 4
-    # the step profiler is not ported: training raises for enabled=True
+    # enabled=True: a torch.profiler window over the first epoch's first 5
+    # train steps, written to <run_dir>/profile/trace.json (utils/profile.py)
     profiler_args: Dict = field(default_factory=lambda: {"enabled": False})
+    # with the profiler on: stop after 3 train steps, before validation
     profiler_full_trace: bool = False
     profiler_1_GPU: bool = False  # kept for config parity; unused
-    # the JAX package's additions (not in the reference); this package reads
-    # compute_dtype and keeps the others for config parity (one device)
-    data_parallel_devices: int = -1  # data-axis size; -1: all remaining devices
-    # >1: 2-D (data, model) mesh — the large dense kernels and their Adam
-    # moments shard over the 'model' axis (parallel/sharding_rules.py);
-    # the reference's only distribution is DataParallel replication.
+    # the JAX package's additions (not in the reference). The port trains
+    # data-parallel one process a card (torchrun, parallel/multihost.py):
+    # data_parallel_devices above 1 must equal the number of processes, else
+    # training raises; -1 (or 1) takes the processes there are
+    data_parallel_devices: int = -1
+    # >1 raises: the 2-D tensor-parallel mesh is JAX-only
     model_parallel_devices: int = 1
-    tp_min_elements: int = 1 << 18  # min kernel size eligible for TP sharding
-    # Multi-host (pod) data pipeline: auto-engages when process_count > 1
-    # (each host loads only its corpus shard, parallel/multihost.py); True
-    # forces the path in single-process jobs (integration tests).
+    tp_min_elements: int = 1 << 18  # the JAX mesh's; unused here
+    # The multi-process data path (each process trains on its carve of every
+    # split, parallel/multihost.py) engages with a process group of more
+    # than one; True takes it in one process too (the tests do). It refuses
+    # dataset_corpus_cache_policy='device', as the JAX package does.
     force_multihost_data: bool = False
     compute_dtype: str = "bfloat16"  # bf16 autocast on the card; 'float32' runs in full f32
     dataset_cache_device: bool = True  # the corpus stays in device memory (always, here)

@@ -10,7 +10,7 @@ as in the JAX package, so both packages visit the same batches.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -20,16 +20,20 @@ from .sampler import build_subset_item_indexes
 
 class SplitLoader:
     """Batches of one subset; ``drop_last`` for train only, ``pad_to_full``
-    cyclically pads the last partial batch of the other subsets."""
+    cyclically pads the last partial batch of the other subsets.
+    ``batch_weights`` overrides ``batch_weight``: a loader carved for one of
+    several processes counts the real rows of every process's local batch
+    (``parallel/multihost.py``)."""
 
     def __init__(self, tensors: Dict[str, torch.Tensor], item_indexes: np.ndarray,
                  batch_size: int, shuffle: bool, drop_last: bool, seed: int = 0,
-                 pad_to_full: bool = False):
+                 pad_to_full: bool = False, batch_weights: Optional[np.ndarray] = None):
         self.tensors = tensors
         self.item_indexes = np.asarray(item_indexes)
         self.batch_size = int(batch_size)
         self.shuffle, self.drop_last, self.seed = shuffle, drop_last, seed
         self.pad_to_full = pad_to_full
+        self.batch_weights = None if batch_weights is None else np.asarray(batch_weights, float)
 
     def __len__(self):
         n = len(self.item_indexes)
@@ -41,6 +45,8 @@ class SplitLoader:
 
     def batch_weight(self, i: int) -> float:
         """Fraction of batch ``i``'s rows that are real, not padding."""
+        if self.batch_weights is not None:
+            return float(self.batch_weights[i])
         n_real = min(self.batch_size, self.n_items - i * self.batch_size)
         return max(n_real, 0) / self.batch_size
 

@@ -74,12 +74,22 @@ class RunLogger:
         eval_config: Optional[cfg.EvalConfig] = None,
         restart_from_checkpoint: bool = False,
         use_tensorboard: bool = True,
+        write: bool = True,
     ):
+        """``write=False`` (the processes other than rank 0 of a
+        multi-process run) touches no file and prints nothing."""
         self.model_config = model_config
         self.train_config = train_config
-        self.verbosity = train_config.verbosity
+        self.write = write
+        self.verbosity = train_config.verbosity if write else 0
         self.restart = restart_from_checkpoint
         self.run_dir = get_run_dir(model_config)
+        self.tensorboard = None
+        self._epoch_t0 = time.time()
+        self._minibatch_times = []
+        self._epoch_durations = []
+        if not write:
+            return
 
         if not restart_from_checkpoint and self.run_dir.exists():
             if not model_config.allow_erase_run:
@@ -93,22 +103,19 @@ class RunLogger:
 
         # frozen config sidecar (reference: logger.py:158-162)
         cfg.save_config(self.run_dir / "config.json", model_config, train_config, eval_config)
-        self.tensorboard = None
         if use_tensorboard:  # raises ImportError where tensorboard is missing
             from .tbwriter import TensorboardSummaryWriter
 
             self.tensorboard = TensorboardSummaryWriter(
                 self.run_dir / "tensorboard", model_config, train_config)
-        # timing (reference: logger.py:179-188, 204-217)
-        self._epoch_t0 = time.time()
-        self._minibatch_times = []
-        self._epoch_durations = []
 
     # ------------------------------------------------------------------
     def init_with_model(self, model: torch.nn.Module) -> None:
         """Writes the parameter count and the module tree to
         ``model_summary.txt`` (reference: logger.py:155-172, a torchinfo
         summary)."""
+        if not self.write:
+            return
         n_params = sum(p.numel() for p in model.parameters())
         msg = f"{model.__class__.__name__}: {n_params:,} parameters"
         with open(self.run_dir / "model_summary.txt", "w") as f:
@@ -149,6 +156,8 @@ class RunLogger:
                         generator: torch.Generator, scheduler) -> None:
         """(reference: logger.py:199-202). ``scheduler`` is the host-side
         ReduceLROnPlateau."""
+        if not self.write:
+            return
         d = self.run_dir / "checkpoints" / str(epoch)
         if d.exists():
             shutil.rmtree(d)
@@ -158,6 +167,13 @@ class RunLogger:
         with open(d / "meta.json", "w") as f:
             json.dump({"epoch": epoch, "scheduler": scheduler.state_dict()}, f)
         self.log(f"checkpoint saved at epoch {epoch}", level=2)
+
+    def save_profiler_results(self, profiler) -> None:
+        """Writes the profiler's window as a Chrome trace to
+        ``<run_dir>/profile/trace.json`` and logs the path (reference:
+        logger.py:204-205; the JAX package's only logs)."""
+        if self.write:
+            self.log(f"profiler trace in {profiler.export()}", level=1)
 
 
 def erase_run(model_config: cfg.ModelConfig):

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..data.preset import PresetIndexesHelper
+from ..parallel.multihost import global_count, world_size
 
 
 class _Tables:
@@ -94,7 +95,8 @@ class SynthParamsLoss:
         if self.G > 0:  # (loss.py:137-181)
             q, tgt, pad = v_out[:, t["idx_m"]], v_in[:, t["idx_m"]], t["pad"]
             useful = 1.0 - cat_useless[:, : self.G].float()
-            n_useful = torch.clamp(useful.sum(0), min=1.0)
+            # the items that count, over every process's rows
+            n_useful = torch.clamp(global_count(useful.sum(0)), min=1.0 / world_size())
             if not self.cat_bce:
                 if self.cat_softmax:
                     q = torch.softmax(torch.where(

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .layers import TConv2DBlock, _pair, dropout, f32_linear
+from .layers import TConv2DBlock, _pair, dropout, f32_linear, widen
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,7 +147,7 @@ class DecoderCNN(nn.Module):
     def forward(self, x):
         for name in self.names:
             x = getattr(self, name)(x)
-        return torch.clamp(x.float(), -1.0, 1.0)  # Hardtanh (decoder.py:160-161)
+        return torch.clamp(widen(x), -1.0, 1.0)  # Hardtanh (decoder.py:160-161)
 
 
 class SpectrogramDecoder(nn.Module):

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .layers import BatchNorm, Conv2DBlock, conv_output_size, dropout, f32_linear
+from .layers import BatchNorm, Conv2DBlock, conv_output_size, dropout, f32_linear, widen
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +184,7 @@ class SpectrogramEncoder(nn.Module):
         for name in self.mixers:
             h = getattr(self, name)(h)
         h = h.permute(0, 2, 3, 1).reshape(B, -1)  # flax's NHWC flatten order
-        h = dropout(h.float(), self.fc_dropout, self.training, generator)
+        h = dropout(widen(h), self.fc_dropout, self.training, generator)
         h = f32_linear(self.mlp_out, h)
         if self.output_bn:
             h = self.lat_in_regularization(h)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.multihost import batch_moments, world_size
 from .layers import BatchNorm, dropout, widen
 
 
@@ -117,7 +118,9 @@ class BatchNormFlow(nn.Module):
     """Invertible BatchNorm flow layer (flows.py:140-179): train mode
     normalises with the batch statistics and updates the running ones with
     the biased variance (momentum 0.9, flax convention); eval mode and the
-    inverse use the running statistics."""
+    inverse use the running statistics. Under a process group of more than
+    one the batch statistics span every process's rows, as in
+    ``layers.BatchNorm``."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -129,7 +132,10 @@ class BatchNormFlow(nn.Module):
 
     def forward(self, x, generator=None):
         if self.training:
-            var, mean = torch.var_mean(x, dim=0, unbiased=False)
+            if world_size() > 1:
+                mean, var = batch_moments(x, [0])
+            else:
+                var, mean = torch.var_mean(x, dim=0, unbiased=False)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
                 self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.multihost import batch_moments, global_draw, world_size
+
 
 def _pair(v):
     return (int(v[0]), int(v[1])) if isinstance(v, (tuple, list)) else (int(v), int(v))
@@ -49,7 +51,7 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     ``nn.Dropout`` semantics: keep with probability 1-p, scale by 1/(1-p))."""
     if not training or p <= 0.0:
         return x
-    keep = torch.rand(x.shape, device=x.device, generator=generator) >= p
+    keep = global_draw(torch.rand, x.shape, device=x.device, generator=generator) >= p
     return x * keep / (1.0 - p)
 
 
@@ -60,9 +62,9 @@ def widen(x: torch.Tensor) -> torch.Tensor:
 
 def f32_linear(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """A Dense that the JAX package leaves in float32 (no ``dtype``), kept in
-    float32 under bf16 autocast."""
+    float32 under bf16 autocast (float64 stays)."""
     with torch.autocast(x.device.type, enabled=False):
-        return linear(x.float())
+        return linear(widen(x))
 
 
 class BatchNorm(nn.Module):
@@ -71,7 +73,10 @@ class BatchNorm(nn.Module):
     BIASED batch variance (torch's own BatchNorm uses the unbiased one, which
     drifts by B/(B-1) per step at the flows' 160-row batches), and flax
     ``momentum=0.9`` is ``running = 0.9 * running + 0.1 * batch``. Computes in
-    float32 at least (bf16 inputs are widened, float64 stays)."""
+    float32 at least (bf16 inputs are widened, float64 stays). Under a process
+    group of more than one, the batch statistics span every process's rows
+    (``parallel/multihost.py:batch_moments``), as the JAX package's BatchNorm
+    reduces over the global batch."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -83,6 +88,15 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = widen(x)
+        if self.training and world_size() > 1:
+            dims = [0] + list(range(2, x.dim()))
+            mean, var = batch_moments(x, dims)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            scale = (self.weight * torch.rsqrt(var + self.eps)).reshape(shape)
+            return (x - mean.reshape(shape)) * scale + self.bias.reshape(shape)
         if self.training:
             with torch.no_grad():
                 dims = [0] + list(range(2, x.dim()))

@@ -15,7 +15,7 @@ from torch import nn
 
 from ..data.preset import PresetIndexesHelper
 from .flows import RegressionFlow
-from .layers import BatchNorm, dropout
+from .layers import BatchNorm, dropout, widen
 
 
 def segment_softmax_scatter(x: torch.Tensor, idx_matrix: np.ndarray, mask: np.ndarray,
@@ -81,7 +81,7 @@ class MLPRegression(nn.Module):
                 h = dropout(getattr(self, f"bn{l}")(h), self.dropout_p, self.training, generator)
             h = torch.relu(h)
         h = getattr(self, f"fc{self.n_layers + 1}")(h)
-        return preset_activation(h.float(), self.idx_helper, self.cat_softmax_activation)
+        return preset_activation(widen(h), self.idx_helper, self.cat_softmax_activation)
 
 
 class FlowRegression(nn.Module):

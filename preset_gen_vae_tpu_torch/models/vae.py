@@ -5,7 +5,9 @@ Counterpart: ``preset_gen_vae_tpu/models/vae.py:21-98`` (reference:
 model/VAE.py:19-193). ``forward`` returns the reference's 5-tuple
 ``(z0_mu_logvar, z0, zK, log_abs_det_jac, x_out)``. In train mode z0 is
 sampled with the reparameterization trick from ``noise`` when the caller
-injects it (the parity tests pass the JAX draw), else from ``generator``.
+injects it (the parity tests pass the JAX draw), else from ``generator``
+(at the global batch shape under a process group,
+``parallel/multihost.py:global_draw``).
 
 With ``concat_midi_to_z0`` (un-stacked multi-note datasets) the encoder
 emits dim_z - 2 values and the MIDI pitch and velocity of each item take
@@ -22,6 +24,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.multihost import global_draw
 from .flows import LatentFlow
 
 
@@ -30,7 +33,7 @@ def _reparameterize(mu_logvar, training: bool, noise, generator):
     if not training:
         return mu
     if noise is None:
-        noise = torch.randn(mu.shape, device=mu.device, generator=generator)
+        noise = global_draw(torch.randn, mu.shape, device=mu.device, generator=generator)
     return mu + torch.exp(mu_logvar[:, 1, :] / 2.0) * noise
 
 

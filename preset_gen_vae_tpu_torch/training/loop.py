@@ -16,14 +16,28 @@ train.py:37-342), with its epoch semantics:
 - validation means weighted by each padded batch's real rows, and the
   Spearman entanglement ``LatCorr/Valid`` of the real rows' latents
   (loop.py:739-810);
-- TensorBoard scalars and hparams metrics when ``use_tensorboard`` (the
-  figures wait for a later slice), checkpoints at each ``save_period``
-  (epoch > 0), at the last epoch and on early stop (loop.py:869-875).
+- every ``plot_period`` epochs, when TensorBoard writes and the run is one
+  process, ``LatCorr/Train`` of the epoch's train latents, and on such an
+  epoch or on early stop the four figures ``Spectrogram``, ``LatentMu``,
+  ``LatentEntanglement`` and ``SynthControlsError`` (loop.py:434, 504-515,
+  719-772, 824-844); a scalar without data is not written
+  (loop.py:846-867);
+- TensorBoard scalars and hparams metrics when ``use_tensorboard``,
+  checkpoints at each ``save_period`` (epoch > 0), at the last epoch and on
+  early stop (loop.py:869-875);
+- ``profiler_args['enabled']``: a ``torch.profiler`` window over the first
+  5 train steps of the first epoch (fewer if the epoch is shorter), written
+  to ``<run_dir>/profile/trace.json``; with ``profiler_full_trace`` the run
+  stops after 3 steps, before validation (loop.py:459-487, 693-710).
 
-The JAX-only dispatch machinery (meshes, multi-host, K-step scans) has no
-counterpart here. The step profiler (``profiler_args['enabled']``, which
-traces 5 steps in the JAX loop, loop.py:459-487 there) is not ported yet:
-asking for it raises ``NotImplementedError``.
+Several processes (``torchrun --nproc_per_node=N -m
+preset_gen_vae_tpu_torch.training.loop``, or ``initialize_distributed``
+before the call; loop.py:87-100, 204-239 there): each process trains on
+``cuda:LOCAL_RANK``, from rank 0's parameters, on its carve of every split
+(``parallel/multihost.py``), with the gradients and the scalars averaged
+over the processes and synchronised batch statistics; rank 0 alone writes.
+``force_multihost_data`` takes that path in one process. The K-step scans
+(``steps_per_dispatch``) and the 2-D tensor-parallel mesh are JAX-only.
 
     from preset_gen_vae_tpu_torch.training.loop import train_config
     summary = train_config(ModelConfig(), TrainConfig(n_epochs=1))  # on the card
@@ -33,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from typing import Dict, Optional, Tuple
 
@@ -46,8 +61,10 @@ from ..device import resolve_device
 from ..logs.logger import RunLogger, get_run_dir, load_checkpoint
 from ..logs.metrics import BufferedMetric, EpochMetric, LatentMetric, SimpleMetric
 from ..models.build import build_extended_ae_model
+from ..parallel import multihost
 from ..utils.exception import check_nan_values
 from ..utils.hparams import LinearDynamicParam
+from ..utils.profile import get_optional_profiler
 from .schedulers import ReduceLROnPlateau
 from .train_step import Criteria, eval_step, make_optimizer, train_step
 
@@ -56,6 +73,7 @@ NAN_CHECKED = ("ReconsLoss/Backprop", "LatLoss", "FlowInputReg", "Controls/Backp
 # hparams metrics of TensorBoard: buffered validation scalars (loop.py:447-454)
 TB_METRICS = ("ReconsLoss/MSE/Valid", "LatLoss/Valid", "LatCorr/Valid", "Controls/QLoss/Valid",
               "Controls/Accuracy/Valid")
+PROFILE_STEPS = 5  # the profiler's window: the first epoch's first train steps (loop.py:482)
 
 
 class EpochSchedule:
@@ -122,6 +140,20 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def check_parallel_fields(train_c: cfg.TrainConfig, world: int) -> None:
+    """The port's data parallelism is one process a card: ``data_parallel_devices``
+    above 1 must be the world size, and the JAX package's tensor-parallel
+    mesh (``model_parallel_devices`` above 1) has no counterpart."""
+    if train_c.model_parallel_devices > 1:
+        raise ValueError(f"model_parallel_devices={train_c.model_parallel_devices}: the 2-D "
+                         "tensor-parallel mesh is JAX-only; the port trains data-parallel, "
+                         "one process a card")
+    if train_c.data_parallel_devices > 1 and train_c.data_parallel_devices != world:
+        raise ValueError(f"data_parallel_devices={train_c.data_parallel_devices} in a world of "
+                         f"{world} process(es): the port trains one process a card; launch "
+                         f"them with torchrun --nproc_per_node={train_c.data_parallel_devices}")
+
+
 def train_config(model_config: Optional[cfg.ModelConfig] = None,
                  train_config: Optional[cfg.TrainConfig] = None,
                  dataset: Optional[DexedDataset] = None, device="cuda",
@@ -133,22 +165,39 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
                                    train_config or cfg.TrainConfig())
     if train_c.start_epoch >= train_c.n_epochs:
         raise ValueError(f"start_epoch {train_c.start_epoch} >= n_epochs {train_c.n_epochs}")
-    if train_c.profiler_args.get("enabled"):
-        raise NotImplementedError("profiler_args['enabled']: the step profiler is not ported to "
-                                  "the PyTorch package yet")
+    rank, world = multihost.rank_and_world()
+    check_parallel_fields(train_c, world)
+    multiproc = world > 1 or train_c.force_multihost_data
+    if multiproc and dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(dev)
     if dev.type == "cuda" and train_c.compute_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False  # float32 convolutions in full f32
-    model_c, train_c, dataset = prepare_dataset(model_c, train_c, dev, dataset, dataset_kwargs)
+    # rank 0's corpus pass first: a cold 'disk' pass writes the cache, which
+    # the other processes then reload warm, instead of racing on its files
+    if rank == 0:
+        model_c, train_c, dataset_r = prepare_dataset(model_c, train_c, dev, dataset,
+                                                      dataset_kwargs)
+    multihost.barrier()
+    if rank != 0:
+        model_c, train_c, dataset_r = prepare_dataset(model_c, train_c, dev, dataset,
+                                                      dataset_kwargs)
+    dataset = dataset_r
     loaders = get_split_loaders(dataset, train_c)
+    if multiproc:  # each process's carve of every split (loop.py:87-100 there)
+        loaders = multihost.shard_loaders_for_host(loaders, rank, world,
+                                                   dataset.corpus_cache_policy,
+                                                   force=train_c.force_multihost_data)
     helper = dataset.preset_indexes_helper
 
     start_checkpoint = None
-    if train_c.start_epoch > 0:  # resume (loop.py:103-112)
+    if train_c.start_epoch > 0:  # resume (loop.py:103-112): every process restores
         with open(get_run_dir(model_c) / "config.json") as f:
             cfg.check_configs_on_resume_from_checkpoint(model_c, train_c, json.load(f))
         start_checkpoint = load_checkpoint(model_c, train_c.start_epoch - 1)
+    multihost.barrier()  # read before rank 0's logger rewrites config.json
     logger = RunLogger(model_c, train_c, restart_from_checkpoint=start_checkpoint is not None,
-                       use_tensorboard=use_tensorboard)
+                       use_tensorboard=use_tensorboard, write=rank == 0)
 
     t_build = time.perf_counter()
     model = build_extended_ae_model(model_c, train_c, helper, seed=train_c.seed).to(dev)
@@ -168,17 +217,23 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         step = int(state["step"])
         generator.set_state(state["generator"])
         schedule.plateau.load_state_dict(start_checkpoint["scheduler"])
+    multihost.broadcast_(model.state_dict().values())  # every process from rank 0's weights
     start_step = step
 
     scalars: Dict[str, object] = {f"{k}/{split}": EpochMetric()
                                   for k in criteria.scalars for split in ("Train", "Valid")}
     scalars["TotalLoss/Train"] = EpochMetric()
+    scalars["LatCorr/Train"] = LatentMetric(model_c.dim_z)
     scalars["LatCorr/Valid"] = LatentMetric(model_c.dim_z)
     scalars["Sched/LR"] = SimpleMetric(train_c.initial_learning_rate)
     metrics = {f"{k}_": BufferedMetric() for k in TB_METRICS}
     metrics["epochs"] = train_c.start_epoch
     if logger.tensorboard is not None:
         logger.tensorboard.init_hparams_and_metrics(metrics)
+    # the trace is rank 0's; every process follows the same steps
+    profiling = bool(train_c.profiler_args.get("enabled"))
+    profiler = get_optional_profiler(train_c.profiler_args if logger.write else None,
+                                     logger.run_dir / "profile", dev)
 
     train_loader, valid_loader = loaders["train"], loaders["validation"]
     train_keys = criteria.scalars + ("TotalLoss",)
@@ -192,25 +247,47 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         set_learning_rate(optimizer, lr)
         if start_lr is None:
             start_lr = [g["lr"] for g in optimizer.param_groups]
+        # the plot epochs: the train latents' LatCorr/Train, the figures
+        # (loop.py:504-515, 719-723 there)
+        should_plot = (epoch % train_c.plot_period == 0 and logger.tensorboard is not None
+                       and world == 1)
 
         # ---- train: the epoch's index batches go to the device in one copy
         batches = list(train_loader.epoch_index_batches(epoch))
         if not batches:
             raise ValueError("train split smaller than one (drop_last) minibatch")
+        trace_active = profiling and epoch == train_c.start_epoch
+        if trace_active:
+            profiler.start()
         t0 = time.perf_counter()
         idx = torch.from_numpy(np.stack(batches)).to(dev)
-        rows = []
+        rows, train_latents = [], []
         for i in range(len(batches)):
             x, v, info = train_loader.gather(idx[i])
-            rows.append(train_step(model, optimizer, criteria, train_c, x, v, info, beta,
-                                   generator))
+            with profiler.record_function("train_step"):
+                m = train_step(model, optimizer, criteria, train_c, x, v, info, beta, generator,
+                               latents=should_plot)
+            rows.append(m)
+            if should_plot:
+                train_latents.append((m["z0_mu"], m["z0"]))
             step += 1
             if first_step_s is None:  # includes cuDNN's algorithm search
                 _sync(dev)
                 first_step_s, t0 = time.perf_counter() - t0, time.perf_counter()
             logger.on_minibatch_finished(i)
-        # the epoch's one host fetch of the train scalars (loop.py:572-582)
+            if trace_active and i + 1 >= PROFILE_STEPS:
+                profiler.stop()
+                trace_active = False
+                logger.save_profiler_results(profiler)
+            if profiling and train_c.profiler_full_trace and i == 2:
+                break
+        if trace_active:  # an epoch shorter than PROFILE_STEPS
+            profiler.stop()
+            logger.save_profiler_results(profiler)
+        # the epoch's one host fetch of the train scalars (loop.py:572-582),
+        # averaged over the processes first, so that all stop on a NaN
         train_rows = torch.stack([torch.stack([m[k] for k in train_keys]) for m in rows])
+        multihost.all_reduce_mean_([train_rows])
         train_rows = train_rows.cpu().numpy()
         steady_s += time.perf_counter() - t0
         steady_steps += len(rows) - 1 if epoch == train_c.start_epoch else len(rows)
@@ -218,23 +295,38 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         for j, k in enumerate(train_keys):
             for value in train_rows[:, j]:
                 scalars[f"{k}/Train"].append(value)
+        if train_latents:
+            scalars["LatCorr/Train"].append(*(torch.cat(z).float().cpu().numpy()
+                                              for z in zip(*train_latents)))
+        if profiling and train_c.profiler_full_trace and epoch == train_c.start_epoch:
+            break  # before validation (loop.py:708-709 there)
 
-        # ---- validation: padded batches weighted by their real rows
-        val_rows, latents = [], []
+        # ---- validation: padded batches weighted by their real rows; each
+        # process's batch means averaged over the processes; the latents of
+        # one process only (loop.py:768-770 there)
+        val_rows, latents, v_errors, first_batch = [], [], [], None
         for i, sel in enumerate(valid_loader.epoch_index_batches(epoch)):
             x, v, info = valid_loader.gather(sel)
             m = eval_step(model, criteria, train_c, x, v, info)
             val_rows.append(torch.stack([m[k] for k in criteria.scalars]))
             n_real = min(valid_loader.batch_size, valid_loader.n_items - i * valid_loader.batch_size)
-            latents.append(torch.stack([m["z0_mu"][:n_real], m["z0"][:n_real]]))
+            if world == 1:
+                latents.append(torch.stack([m["z0_mu"][:n_real], m["z0"][:n_real]]))
+            if should_plot:
+                v_errors.append((m["v_out"].float() - v)[:n_real])
+                if i == 0:
+                    first_batch = (x, m["x_out"], info)
         if not val_rows:
             raise ValueError("empty validation split")
-        val_rows = torch.stack(val_rows).cpu().numpy()
-        latents = torch.cat(latents, dim=1).cpu().numpy()
+        val_rows = torch.stack(val_rows)
+        multihost.all_reduce_mean_([val_rows])
+        val_rows = val_rows.cpu().numpy()
         for i, row in enumerate(val_rows):
             for k, value in zip(criteria.scalars, row):
                 scalars[f"{k}/Valid"].append(value, weight=valid_loader.batch_weight(i))
-        scalars["LatCorr/Valid"].append(latents[0], latents[1])
+        if latents:
+            latents = torch.cat(latents, dim=1).cpu().numpy()
+            scalars["LatCorr/Valid"].append(latents[0], latents[1])
         for split in ("Train", "Valid"):
             scalars[f"VAELoss/{split}"] = SimpleMetric(
                 scalars[f"ReconsLoss/Backprop/{split}"].get() + scalars[f"LatLoss/{split}"].get())
@@ -245,13 +337,17 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         set_learning_rate(optimizer, lr)
         scalars["Sched/LR"] = SimpleMetric(lr)
 
-        if logger.tensorboard is not None:  # (loop.py:846-867)
-            for k, s in scalars.items():
+        if logger.tensorboard is not None:
+            if world == 1 and (should_plot or early_stop):  # (loop.py:824-844)
+                add_figures(logger.tensorboard, epoch, scalars["LatCorr/Valid"], helper,
+                            first_batch, v_errors)
+            for k, s in scalars.items():  # (loop.py:846-867)
                 if getattr(s, "has_data", True):
                     logger.tensorboard.add_scalar(k, s.get(), epoch)
             metrics["epochs"] = epoch + 1
             for k in TB_METRICS:
-                metrics[f"{k}_"].append(scalars[k].get())
+                if getattr(scalars[k], "has_data", True):
+                    metrics[f"{k}_"].append(scalars[k].get())
             logger.tensorboard.update_metrics(metrics)
 
         if ((epoch > 0 and epoch % train_c.save_period == 0) or epoch == train_c.n_epochs - 1
@@ -273,6 +369,7 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         "train_steps": step - start_step,
         "run_dir": str(logger.run_dir),
         "device": str(dev),
+        "world_size": world,
         "dim_z": model_c.dim_z,
         "input_size": list(model_c.input_tensor_size),
         "n_params": sum(p.numel() for p in model.parameters()),
@@ -284,13 +381,39 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         "step_ms": step_s * 1e3,
         "spectrograms_per_s": train_c.minibatch_size / step_s,
     }
-    for k, s in scalars.items():
-        if k != "Sched/LR":
+    for k, s in scalars.items():  # the scalars that have data (loop.py:892-896 there)
+        if k != "Sched/LR" and getattr(s, "has_data", True):
             summary[k] = s.get()
     return summary
 
 
+def add_figures(writer, epoch: int, latent_valid: LatentMetric, helper, first_batch,
+                v_errors) -> None:
+    """The four TensorBoard figures of a plot epoch (loop.py:824-844 there):
+    the first validation batch's spectrograms against their
+    reconstructions, the validation latents' distributions and Spearman
+    matrix, the validation presets' errors; all figures closed after."""
+    import matplotlib.pyplot as plt
+
+    from ..utils import figures
+
+    if first_batch is not None:
+        x, x_out, info = (t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+                          for t in first_batch)
+        writer.add_figure("Spectrogram", figures.plot_train_spectrograms(x, x_out, info)[0], epoch)
+    writer.add_figure("LatentMu", figures.plot_latent_distributions_stats(latent_valid)[0], epoch)
+    writer.add_figure("LatentEntanglement", figures.plot_spearman_correlation(latent_valid)[0],
+                      epoch)
+    if v_errors:
+        writer.add_figure("SynthControlsError", figures.plot_synth_preset_error(
+            torch.cat(v_errors).cpu().numpy(), helper)[0], epoch)
+    plt.close("all")
+
+
 if __name__ == "__main__":
     # `python -m preset_gen_vae_tpu_torch.training.loop` trains the default
-    # configs on the card, as the root train.py does for the JAX package
+    # configs on the card, as the root train.py does for the JAX package;
+    # under torchrun, one process a card
+    multihost.initialize_distributed("env://", int(os.environ.get("WORLD_SIZE", 1)),
+                                     int(os.environ.get("RANK", 0)))
     print(train_config(cfg.ModelConfig(), cfg.TrainConfig()))

@@ -52,6 +52,7 @@ from ..losses.vae_losses import (
 )
 from ..models.layers import widen
 from ..ops.probability import gaussian_log_probability
+from ..parallel.multihost import average_gradients
 
 SCALARS = ("ReconsLoss/Backprop", "ReconsLoss/MSE", "Controls/BackpropLoss",
            "Controls/QLoss", "Controls/Accuracy", "LatLoss", "FlowInputReg")
@@ -156,7 +157,7 @@ class Criteria:
     def controls_loss(self, model, outs, v_in, generator=None, stats_before=None):
         """-> (controls loss, per-item pulled-back log-densities or None)."""
         if not self.flow_params:
-            return self.controls(outs[5].float(), v_in), None
+            return self.controls(widen(outs[5]), v_in), None
         swap = (_eval_on_stats(model, stats_before) if model.training and
                 not self.flow_loss_train_bn else contextlib.nullcontext())
         with swap, autocast(v_in.device, self.train_config):
@@ -165,7 +166,7 @@ class Criteria:
 
     def losses(self, outs, x_in, cont, train: bool) -> Dict[str, torch.Tensor]:
         z0_mu_logvar, z0, zK, logdet, x_out, v_out = outs
-        recons = reconstruction_loss(x_out.float(), x_in.float(), self.normalize)
+        recons = reconstruction_loss(widen(x_out), widen(x_in), self.normalize)
         if self.latent_flow:
             lat = flow_vae_latent_loss(z0_mu_logvar, z0, zK, logdet, self.normalize)
         else:
@@ -179,11 +180,11 @@ class Criteria:
     @torch.no_grad()
     def metrics(self, terms, outs, x_in, v_in, pulled_back=None) -> Dict[str, torch.Tensor]:
         """Monitoring scalars (train_step.py:346-371)."""
-        x_out, v_out = outs[4].float(), outs[5].float()
+        x_out, v_out = widen(outs[4]), widen(outs[5])
         m = {
             "ReconsLoss/Backprop": terms["recons"].detach(),
             "ReconsLoss/MSE": (terms["recons"].detach() if self.normalize
-                               else torch.mean(torch.square(x_out - x_in.float()))),
+                               else torch.mean(torch.square(x_out - widen(x_in)))),
             "Controls/BackpropLoss": terms["cont"].detach(),
             "Controls/QLoss": self.qloss(v_out, v_in),
             "Controls/Accuracy": self.accuracy(v_out, v_in),
@@ -206,9 +207,13 @@ def autocast(device: torch.device, train_config: TrainConfig):
 def train_step(model, optimizer, criteria: Criteria, train_config: TrainConfig,
                x_in, v_in, sample_info, beta: float,
                generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               noise: Optional[torch.Tensor] = None,
+               latents: bool = False) -> Dict[str, torch.Tensor]:
     """One optimisation step (train_step.py:222-343); returns the metrics as
-    0-d tensors on the device (plus ``TotalLoss``), without a host sync."""
+    0-d tensors on the device (plus ``TotalLoss``), without a host sync, and
+    with ``latents`` the rows' ``z0_mu`` and ``z0`` (B, dim_z), detached in
+    the forward's dtype. Under a process group the gradients are averaged
+    over the processes before the update (``parallel/multihost.py``)."""
     model.train()
     stats_before = criteria.stats_before_step(model)
     with autocast(x_in.device, train_config):
@@ -218,9 +223,12 @@ def train_step(model, optimizer, criteria: Criteria, train_config: TrainConfig,
     total = terms["recons"] + terms["lat"] * beta + terms["flow_in_reg"] + terms["cont"]
     optimizer.zero_grad(set_to_none=True)
     total.backward()
+    average_gradients(model)
     optimizer.step()
     m = criteria.metrics(terms, outs, x_in, v_in, pulled_back)
     m["TotalLoss"] = total.detach()
+    if latents:
+        m["z0_mu"], m["z0"] = outs[0][:, 0, :].detach(), outs[1].detach()
     return m
 
 
@@ -229,7 +237,8 @@ def eval_step(model, criteria: Criteria, train_config: TrainConfig, x_in, v_in,
               sample_info) -> Dict[str, torch.Tensor]:
     """Validation / inference step (train_step.py:374-415): the metrics as
     0-d tensors, plus the latents ``z0_mu`` and ``z0`` (B, dim_z) in float32
-    (train_step.py:364-367 there), equal in eval mode."""
+    (train_step.py:364-367 there), equal in eval mode, and the outputs
+    ``x_out`` and ``v_out`` in the forward's dtype."""
     model.eval()
     with autocast(x_in.device, train_config):
         outs = model.forward_full(x_in, sample_info)
@@ -237,4 +246,5 @@ def eval_step(model, criteria: Criteria, train_config: TrainConfig, x_in, v_in,
     terms = criteria.losses(outs, x_in, cont, train=False)
     m = criteria.metrics(terms, outs, x_in, v_in, pulled_back)
     m["z0_mu"], m["z0"] = outs[0][:, 0, :].float(), outs[1].float()
+    m["x_out"], m["v_out"] = outs[4], outs[5]
     return m

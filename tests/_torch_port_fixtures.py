@@ -30,3 +30,17 @@ def two_torch_threads():
     torch.set_num_threads(min(n, 2))
     yield
     torch.set_num_threads(n)
+
+
+def tiny_configs(config_module, logs_root, run_name, **train_kwargs):
+    """(ModelConfig, TrainConfig) of ``config_module`` (the port's or the JAX
+    package's ``config``): the tiny model of the JAX package's loop tests
+    (``tests/test_loop.py:_configs``), BasicVAE with dim_z 16 and an MLP
+    head, at full-size log-mels, batch 8, 2 epochs, float32."""
+    model_c = config_module.ModelConfig(
+        name="TestVAE", run_name=run_name, latent_flow_arch=None,
+        params_regression_architecture="mlp_2l64", dim_z=16, logs_root_dir=str(logs_root))
+    kw = dict(minibatch_size=8, n_epochs=2, save_period=1, lr_warmup_epochs=1,
+              beta_warmup_epochs=2, compute_dtype="float32", verbosity=0)
+    kw.update(train_kwargs)
+    return model_c, config_module.TrainConfig(**kw)

@@ -78,7 +78,9 @@ def test_every_module_imports_without_the_blocked_packages():
     assert len(modules) > 30 and "preset_gen_vae_tpu_torch.evaluation.evaluate" in modules
     assert {f"preset_gen_vae_tpu_torch.{m}" for m in (
         "synth.sysex", "utils.audio_io", "evaluation.interpolate", "scripts.train_from_syx",
-        "scripts.preset_morph_demo", "scripts.sound_match_demo")} <= set(modules)
+        "scripts.preset_morph_demo", "scripts.sound_match_demo", "utils.profile",
+        "utils.figures", "utils.label", "parallel.multihost", "scripts.dump_figures")
+    } <= set(modules)
     code = _GUARD.format(blocked=BLOCKED, modules=modules)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                           timeout=300)
@@ -92,8 +94,8 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from preset_gen_vae_tpu_torch.evaluation import evaluate as ev
     from preset_gen_vae_tpu_torch.evaluation.interpolate import interpolate_presets
     from preset_gen_vae_tpu_torch.evaluation.similarity import SimilarityEvaluator
-    from preset_gen_vae_tpu_torch.scripts import preset_morph_demo, sound_match_demo, \
-        train_from_syx
+    from preset_gen_vae_tpu_torch.scripts import dump_figures, preset_morph_demo, \
+        sound_match_demo, train_from_syx
     from preset_gen_vae_tpu_torch.synth import database, sysex
     from preset_gen_vae_tpu_torch.training.loop import train_config
     from preset_gen_vae_tpu_torch.training.queue import run_queue
@@ -113,6 +115,7 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         lambda: preset_morph_demo.main(["--logs-root", str(tmp_path)]),
         lambda: train_from_syx.main([str(bank), "--logs-root", str(tmp_path)]),
         lambda: sound_match_demo.main([]),
+        lambda: dump_figures.main([str(tmp_path)]),
         lambda: resolve_device(),
     ]
     for call in calls:

@@ -225,19 +225,6 @@ def test_nan_loss_raises(dataset, tmp_path, monkeypatch):
         _run(tmp_path, dataset, "nan", n_epochs=2)
 
 
-def test_enabled_profiler_raises_before_any_work(tmp_path, monkeypatch):
-    """``profiler_args['enabled']`` asks for the JAX loop's 5-step trace,
-    which the port has not ported: training raises NotImplementedError
-    before it builds a dataset, instead of ignoring the flag."""
-    monkeypatch.setattr(loop, "prepare_dataset", lambda *a, **k: pytest.fail("built a dataset"))
-    model_c = cfg.ModelConfig(logs_root_dir=str(tmp_path))
-    train_c = cfg.TrainConfig(n_epochs=1, profiler_args={"enabled": True})
-    with pytest.raises(NotImplementedError, match="profiler"):
-        loop.train_config(model_c, train_c, device="cpu", use_tensorboard=False)
-    assert jcfg.TrainConfig().profiler_args == cfg.TrainConfig().profiler_args == {
-        "enabled": False}
-
-
 def test_run_queue_retries_with_new_seeds_then_aborts(monkeypatch):
     """tests/test_loop.py::test_run_queue_nan_retry for the port: each
     retry bumps the seed by 1000 x restart; after max_restarts the queue
