@@ -11,13 +11,16 @@ corpus pass's shape of 1,024 presets at 4 s, and F2 against the C++
 engine at 4 s), times each beside its bound, its plain version and, where
 there is one, a library call, times the FM kernels' serial chains (F2 on
 32 items of each loop length, its loop phase alone, F1 on 8 items), holds
-F1b, F1's backward, against its plain version (``control_pass_vjp``) on
-the short renders' presets, at the sound-match demo's shape and at the
-corpus pass's, and times it there beside F1, holds F2b, F2's backward,
-against its plain version (``exact_pass_vjp``) on the same F1 outputs and
-seeded cotangents at those three shapes (at the corpus pass's shape
-against F2's plain phases composed) and times it beside F2 and its
-recurrence alone, then
+F1b, F1's backward (three kernels over the tape that F1 writes under a
+gradient), against its plain version (``control_pass_vjp``) on the short
+renders' presets, at the sound-match demo's shape and at the corpus
+pass's, and times it there beside F1 with and without its tape, holds
+F2b, F2's backward (three kernels), against its plain version
+(``exact_pass_vjp``) on the same F1 outputs and seeded cotangents at
+those three shapes (at the corpus pass's shape against F2's plain phases
+composed) and times it beside F2, each of the two backwards' kernels by
+CUDA events, and their serial chains (F1b on 8 items, F2b on one), with
+the earlier designs' times beside, then
 drives the port's main path through its user entry
 points with the flagship FlVAE2 at full width (257x347 log-mels, dim_z 610,
 batch 160) on a seeded synthetic 1,024-preset corpus, in three paths, each
@@ -63,7 +66,10 @@ path's (2e-3 relative); ``multiproc2`` spawns two processes on the card
 holds the loss, every averaged gradient and every BatchNorm running
 statistic to one process's step on the 160 rows (1e-4 of each tensor's
 largest entry, in float64; float32's differences printed: the step is
-ill-conditioned there). Each path prints
+ill-conditioned there); ``remat`` takes the flagship's step at batch 160
+with ``TrainConfig.remat`` and without, holds them to each other in
+float64 at the same bar (the generator's state equal), and prints each
+one's steady step and peak device memory in bf16. Each path prints
 its wall time, launches of every kernel and peak memory, the training
 paths also their model build time, steady step, corpus and render
 seconds. Runs and caches live in a
@@ -74,9 +80,12 @@ Run from the repository root with one GPU:
     python3 chip_smoke.py
 
 It prints the card's name and power limit, one line per phase, the
-kernels' JSON line, and as its last line
-``{"ok": true, "device": {...}}``. Any failed phase ends the run with a
-non-zero exit code; without a GPU it fails before printing any result.
+kernels' JSON line, a compact summary of every path and kernel, and as
+its last line ``{"ok": true, "device": {...}}``; every printed line also
+goes to ``build/chip_smoke/output.txt`` and the kernels', summary's and
+last lines to ``build/chip_smoke/results.jsonl`` (``--out DIR`` moves
+both). Any failed phase ends the run with a non-zero exit code; without
+a GPU it fails before printing any result.
 """
 
 from __future__ import annotations
@@ -760,13 +769,41 @@ def fm_control_bwd_work(B: int, n_ticks: int):
     return 4 * (2 * B * ft.CTL_WIDTH + n_ticks * B * 19), B * n_ticks * 540
 
 
+# the earlier F1b design, one kernel that walked F1's state forward onto a
+# tape and then the whole reverse on 8 lanes an item, on an NVIDIA H100
+# 80GB HBM3 at 700 W: ms at (1,024 items, 2,768 ticks), at the demo's shape
+# (1 item, 1,040 ticks), and on 8 items (its serial chain)
+F1B_EARLIER = {"ms": 4.261, "ms_demo_shape": 1.443, "serial_chain_ms": 4.223}
+
+
+def kernel_event_ms(fn, calls: int = 3) -> dict:
+    """{kernel: device ms a call} of the F1b and F2b kernels that ``fn()``
+    launches, by the CUDA events that ``fm_torch.kernel_events`` records on
+    the stream around each launch, over ``calls`` calls after a warm-up."""
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    fn()
+    torch.cuda.synchronize()
+    with ft.kernel_events() as marks:
+        for _ in range(calls):
+            fn()
+    torch.cuda.synchronize()
+    out = {}
+    for name, start, stop in marks:
+        out[name] = out.get(name, 0.0) + start.elapsed_time(stop) / calls
+    return out
+
+
 def phase_f1b():
-    """F1b against ``control_pass_vjp`` on the card, on seeded cotangents:
-    the short renders' 28 presets of each seed (4,096 samples) and the
-    sound-match demo's one preset and shape (1,040 ticks); then F1b beside
-    F1 and the plain version at the corpus pass's shape (1,024, 2,768
-    ticks), held against the plain version there too, at the demo's shape,
-    and its serial chain on 8 items."""
+    """F1b against ``control_pass_vjp`` on the card, on seeded cotangents,
+    over the tape that F1 writes under a gradient (F1's outputs with the
+    tape bit-equal to its outputs without): the short renders' 28 presets
+    of each seed (4,096 samples) and the sound-match demo's one preset and
+    shape (1,040 ticks); then F1b beside F1, taped and not, and the plain
+    version at the corpus pass's shape (1,024, 2,768 ticks), held against
+    the plain version there too, each of its three kernels by CUDA events,
+    at the demo's shape, and on 8 items (the serial chain), with the
+    earlier design's numbers beside."""
     from preset_gen_vae_tpu_torch.scripts import sound_match_demo as demo
     from preset_gen_vae_tpu_torch.synth import database as db
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
@@ -774,22 +811,33 @@ def phase_f1b():
     rng = np.random.default_rng(8)
     sr = 22050
 
+    def taped(ctl, n_ticks, note_off):
+        *outs, tape = ft._fm_control_launch(ctl, n_ticks, note_off, sr, taped=True)
+        if not all(torch.equal(a, b) for a, b in zip(outs, ft.fm_control(ctl, n_ticks, note_off,
+                                                                          sr))):
+            raise AssertionError("F1's outputs with the tape differ from without")
+        return tape
+
     def check(name, p, pitch, vel, n_ticks, note_off):
         d = ft.decode_presets(p)
         ctl = ft.control_params(d, torch.as_tensor(pitch).cuda(), torch.as_tensor(vel).cuda(), sr)
         gs = cotangents(rng, len(p), n_ticks)
-        got = ft.fm_control_bwd(ctl, n_ticks, note_off, sr, *gs)
+        got = ft.fm_control_bwd(ctl, taped(ctl, n_ticks, note_off), n_ticks, note_off, sr, *gs)
         want = ft.control_pass_vjp(ctl, n_ticks, note_off, sr, *gs)
         torch.cuda.synchronize()
         errs = f1b_errors(got, want)
         worst = max(errs.values())
-        print(f"[F1b {name}] {len(p)} items x {n_ticks} ticks: max |err| / largest entry by "
-              f"field {short_json(errs)} (bar {F1B_BAR})", flush=True)
+        print(f"[F1b {name}] {len(p)} items x {n_ticks} ticks, "
+              f"{ft.control_bwd_chunks(len(p), n_ticks)} (chunks, ticks a chunk): max |err| / "
+              f"largest entry by field {short_json(errs)} (bar {F1B_BAR})", flush=True)
         if not torch.isfinite(got).all() or worst > F1B_BAR:
             raise AssertionError(f"F1b against control_pass_vjp, {name}: {errs}")
         err["rel"] = max(err["rel"], worst)
         err["abs"] = max(err["abs"], float((got - want).abs().max()))
 
+    regs = {k: v for k, v in ptxas_registers(ptxas_report(
+        "fm_render", ft.fm_build_command(), ft.FM_SOURCE)).items() if "control" in k}
+    print(f"[build] F1 and F1b registers and spills: {json.dumps(regs)}", flush=True)
     err = {"rel": 0.0, "abs": 0.0}  # the largest of f1b_errors, and of max |err| itself
     for seed in (0, 1):
         pr = short_check_presets(seed)
@@ -806,10 +854,15 @@ def phase_f1b():
     d = ft.decode_presets(torch.from_numpy(pr).cuda())
     ctl = ft.control_params(d, torch.full((1024,), 60).cuda(), torch.full((1024,), 85).cuda(), sr)
     gs = cotangents(rng, 1024, n_ticks)
+    tape = taped(ctl, n_ticks, note_off)
     row = {"F1": cuda_ms(lambda c: ft.fm_control(c, n_ticks, note_off, sr), [ctl], reps=3),
-           "F1b": cuda_ms(lambda c: ft.fm_control_bwd(c, n_ticks, note_off, sr, *gs), [ctl],
+           "F1 taped": cuda_ms(lambda c: ft._fm_control_launch(c, n_ticks, note_off, sr,
+                                                               taped=True), [ctl], reps=3),
+           "F1b": cuda_ms(lambda c: ft.fm_control_bwd(c, tape, n_ticks, note_off, sr, *gs), [ctl],
                           reps=3)}
-    got = ft.fm_control_bwd(ctl, n_ticks, note_off, sr, *gs)
+    row["F1b kernels"] = kernel_event_ms(
+        lambda: ft.fm_control_bwd(ctl, tape, n_ticks, note_off, sr, *gs))
+    got = ft.fm_control_bwd(ctl, tape, n_ticks, note_off, sr, *gs)
     t0 = time.perf_counter()
     want = ft.control_pass_vjp(ctl, n_ticks, note_off, sr, *gs)
     torch.cuda.synchronize()
@@ -821,34 +874,48 @@ def phase_f1b():
     err["abs"] = max(err["abs"], float((got - want).abs().max()))
     del got, want
     c8, g8 = ctl[:8].contiguous(), [g[:, :8].contiguous() for g in gs]
-    row["F1b 8 items"] = cuda_ms(lambda c: ft.fm_control_bwd(c, n_ticks, note_off, sr, *g8), [c8],
-                                 reps=3)
+    tape8 = taped(c8, n_ticks, note_off)
+    row["F1b 8 items"] = cuda_ms(
+        lambda c: ft.fm_control_bwd(c, tape8, n_ticks, note_off, sr, *g8), [c8], reps=3)
     row["F1b bound"], row["F1b bound_by"] = bound(fm_control_bwd_work(1024, n_ticks))
     row["tape GB"] = ft.tape_bytes(1024, n_ticks) / 1e9
-    del gs, g8
+    row["chunks"] = ft.control_bwd_chunks(1024, n_ticks)
+    del gs, g8, tape, tape8
     d1 = ft.decode_presets(p_demo)
     ctl1 = ft.control_params(d1, torch.tensor([demo.PITCH]).cuda(),
                              torch.tensor([demo.VELOCITY]).cuda(), sr)
     g1 = cotangents(rng, 1, demo_ticks)
+    tape1 = taped(ctl1, demo_ticks, demo_off)
     row["F1b demo shape"] = cuda_ms(
-        lambda c: ft.fm_control_bwd(c, demo_ticks, demo_off, sr, *g1), [ctl1], reps=10)
+        lambda c: ft.fm_control_bwd(c, tape1, demo_ticks, demo_off, sr, *g1), [ctl1], reps=10)
     row["F1 demo shape"] = cuda_ms(lambda c: ft.fm_control(c, demo_ticks, demo_off, sr), [ctl1],
                                    reps=10)
+    row["F1 taped demo shape"] = cuda_ms(lambda c: ft._fm_control_launch(
+        c, demo_ticks, demo_off, sr, taped=True), [ctl1], reps=10)
     row["F1b demo shape bound"] = bound(fm_control_bwd_work(1, demo_ticks))[0]
+    row["chunks demo shape"] = ft.control_bwd_chunks(1, demo_ticks)
     print(f"[F1b at (1024, {n_ticks} ticks)] against control_pass_vjp, max |err| / largest entry "
           f"by field (bar {F1B_BAR}) {short_json(corpus_errs)}", flush=True)
-    print(f"[F1b timing] {json.dumps(row)}; F1b = {row['F1b'] / row['F1']:.3f} x F1, "
-          f"{row['F1b'] / row['F1b 8 items']:.3f} x its chain (8 items alone)", flush=True)
+    print(f"[F1b timing] {card_line()}: {json.dumps(row)}; F1b = {row['F1b'] / row['F1']:.3f} x "
+          f"F1, {row['F1b'] / row['F1b bound']:.1f} x its bound, {row['F1b 8 items']:.3f} ms on "
+          f"8 items (its chain); F1 taped = {row['F1 taped'] / row['F1']:.4f} x F1; the earlier "
+          f"design's recorded times (not of this run) {json.dumps(F1B_EARLIER)}: "
+          f"{F1B_EARLIER['ms'] / row['F1b']:.1f}x at the corpus shape, "
+          f"{F1B_EARLIER['ms_demo_shape'] / row['F1b demo shape']:.1f}x at the demo's",
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return {"name": "fm_control_bwd", "route": "cuda",
             "source": "preset_gen_vae_tpu_torch/csrc/fm_render.cu",
             "replaces": "preset_gen_vae_tpu/synth/fm_jax.py:339", "launches": None,
+            "kernels": list(ft.F1B_KERNELS),
             "max_abs_err": err["abs"], "max_err_over_field_max": err["rel"],
             "ms": row["F1b"], "plain_ms": row["F1b plain"],
             "bound_ms": row["F1b bound"], "bound_by": row["F1b bound_by"], "library_ms": None,
+            "kernel_ms": row["F1b kernels"],
             "serial_chain_ms": row["F1b 8 items"], "ms_demo_shape": row["F1b demo shape"],
-            "bound_ms_demo_shape": row["F1b demo shape bound"]}
+            "bound_ms_demo_shape": row["F1b demo shape bound"], "f1_ms": row["F1"],
+            "f1_taped_ms": row["F1 taped"], "chunks": row["chunks"], "registers": regs}
 
 
 # F2b against exact_pass_vjp: each gradient field's max |err| over its
@@ -967,6 +1034,16 @@ def ptxas_registers(report: str) -> dict:
     return out
 
 
+# the earlier F2b design, three kernels with the recurrence one thread per
+# item, on an NVIDIA H100 80GB HBM3 at 700 W: ms at (1,024 items, 88,576
+# samples) and its kernels' device time by the profiler, at 20,480 items,
+# at the demo's shape (1 item, 33,280 samples), and its recurrence on 32
+# items (its serial chain)
+F2B_EARLIER = {"ms": 6.835, "kernel_ms_profiled": {
+    "fm_exact_bwd_ff": 3.252, "fm_exact_bwd_rec": 1.591, "fm_exact_bwd_loop": 2.002},
+    "ms_20480": 98.18, "ms_demo_shape": 0.795, "serial_chain_ms": 1.647}
+
+
 def phase_f2b():
     """F2b against ``exact_pass_vjp`` on the card, both fed the same F1
     outputs, on seeded cotangents: the short renders' 28 presets of each
@@ -974,8 +1051,10 @@ def phase_f2b():
     output without it), the sound-match demo's one preset and shape
     (33,280 samples), and the corpus pass's shape (1,024 items, 88,576
     samples) against the plain phases' composition (``split_vjp``); F2b
-    timed there and at 20,480 items beside F2, at the demo's shape, and
-    its recurrence alone on all items and on 32 (its serial chain)."""
+    timed there (each kernel by CUDA events) and at 20,480 items beside
+    F2, at the demo's shape, and on one item with a loop of three
+    operators at full length (its serial chain), with the earlier design's
+    numbers beside."""
     from preset_gen_vae_tpu_torch.scripts import sound_match_demo as demo
     from preset_gen_vae_tpu_torch.synth import database as db
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
@@ -1043,19 +1122,8 @@ def phase_f2b():
     row["F2"] = cuda_ms(lambda a: ft.fm_exact(*a), [args], reps=3)
     row["F2 taped"] = cuda_ms(lambda a: ft._fm_exact_launch(*a, taped=True), [args], reps=3)
     row["F2b"] = cuda_ms(lambda a: ft.fm_exact_bwd(tape, *a, g), [args], reps=3)
-    # each kernel's share, from the profiler over 3 calls
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            ft.fm_exact_bwd(tape, *args, g)
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        for k in ("fm_exact_bwd_ff", "fm_exact_bwd_rec", "fm_exact_bwd_loop"):
-            if k + "_kernel" in e.key:
-                dev_us = getattr(e, "self_device_time_total", None)
-                dev_us = getattr(e, "self_cuda_time_total", 0) if dev_us is None else dev_us
-                row[f"{k} profiled"] = dev_us / 1e3 / 3
+    row["F2b kernels"] = kernel_event_ms(lambda: ft.fm_exact_bwd(tape, *args, g))
+    row["splits"] = ft.exact_bwd_splits(1024, n_ticks)
     # memory of a backward above its forward
     gc.collect()
     torch.cuda.synchronize()
@@ -1065,19 +1133,20 @@ def phase_f2b():
     torch.cuda.synchronize()
     row["F2b peak above its inputs GiB"] = (torch.cuda.max_memory_allocated() - before) / 2**30
     row["tape GB"] = tape.numel() * 4 / 1e9
-    # the serial chain: the recurrence alone, on every item and on 32 with feedback
+    # the serial chain: one item with a loop of three operators alone, its
+    # ticks in the most splits (a step or two each): the splits' walks and
+    # the chain over the splits
     fba = args[4]
-    ea = normal(*tape.shape)
-    kk = torch.full_like(ea, 0.3)
-    row["F2b recurrence"] = cuda_ms(lambda x: ft.fm_exact_bwd_rec(fba, kk, x), [ea], reps=3)
-    idx = torch.nonzero(fba != 0).flatten()[:32]
-    e32, k32, f32 = ea[idx].contiguous(), kk[idx].contiguous(), fba[idx].contiguous()
-    row["F2b recurrence 32 items"] = cuda_ms(lambda x: ft.fm_exact_bwd_rec(f32, k32, x), [e32],
-                                             reps=3)
-    lengths = ft.loop_lengths(args[3], args[4])
+    lengths = ft.loop_lengths(args[3], fba)
+    i3 = torch.nonzero(lengths == 3).flatten()[:1]
+    one = [a[:, i3].contiguous() if a.dim() == 3 else a[i3].contiguous() for a in args[:7]]
+    tape_1, g_1 = tape[i3].contiguous(), g[i3].contiguous()
+    row["F2b 1 item"] = cuda_ms(lambda a: ft.fm_exact_bwd(tape_1, *a, sr, g_1), [one], reps=10)
+    row["splits 1 item"] = ft.exact_bwd_splits(1, n_ticks)
+    del one, tape_1, g_1
     row["F2b bound"], row["F2b bound_by"] = bound(fm_exact_bwd_work(lengths, n_ticks))
     row["items by loop length"] = {n: lengths.tolist().count(n) for n in range(4)}
-    del args, g, tape, ea, kk, e32, k32, p
+    del args, g, tape, p
     gc.collect()
     torch.cuda.empty_cache()
     pr, _, _ = db.generate_structured_corpus_v2(20480, seed=0)
@@ -1092,19 +1161,22 @@ def phase_f2b():
     del args, g, tape, p
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[F2b timing] {json.dumps(row)}; F2b = {row['F2b'] / row['F2']:.3f} x F2, "
-          f"{row['F2b'] / row['F2b bound']:.1f} x its bound; its recurrence on 32 items (the "
-          f"chain) {row['F2b recurrence 32 items']:.3f} ms", flush=True)
+    print(f"[F2b timing] {card_line()}: {json.dumps(row)}; F2b = {row['F2b'] / row['F2']:.3f} x "
+          f"F2, {row['F2b'] / row['F2b bound']:.1f} x its bound; one item with a loop of three "
+          f"(the chain) {row['F2b 1 item']:.3f} ms; the earlier design's recorded times (not of "
+          f"this run) {json.dumps(F2B_EARLIER)}: "
+          f"{F2B_EARLIER['ms'] / row['F2b']:.1f}x at the corpus shape, "
+          f"{F2B_EARLIER['ms_demo_shape'] / row['F2b demo shape']:.1f}x at the demo's",
+          flush=True)
     return {"name": "fm_exact_bwd", "route": "cuda",
             "source": "preset_gen_vae_tpu_torch/csrc/fm_render.cu",
             "replaces": "preset_gen_vae_tpu/synth/fm_jax.py:489", "launches": None,
+            "kernels": list(ft.F2B_KERNELS),
             "max_abs_err": err["abs"], "max_err_over_field_max": err["rel"],
             "ms": row["F2b"], "plain_ms": row["F2b plain (split_vjp)"],
             "bound_ms": row["F2b bound"], "bound_by": row["F2b bound_by"], "library_ms": None,
-            "serial_chain_ms": row["F2b recurrence 32 items"],
-            "recurrence_ms": row["F2b recurrence"],
-            "kernel_ms_profiled": {k: row.get(f"{k} profiled") for k in (
-                "fm_exact_bwd_ff", "fm_exact_bwd_rec", "fm_exact_bwd_loop")},
+            "serial_chain_ms": row["F2b 1 item"],
+            "kernel_ms": row["F2b kernels"], "splits": row["splits"],
             "ms_20480": row["F2b 20480"], "bound_ms_20480": row["F2b bound 20480"],
             "ms_demo_shape": row["F2b demo shape"],
             "bound_ms_demo_shape": row["F2b demo shape bound"], "registers": regs}
@@ -1277,6 +1349,10 @@ def fresh_corpus(corpus: dict, root, name: str) -> dict:
     return dict(corpus, data_root=str(pathlib.Path(root) / "data_cache" / name.replace(" ", "_")))
 
 
+# one compact line per driven path, printed again just before the last line
+SUMMARY = []
+
+
 def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0, bwd2: int = 0,
           n_ticks: int = SAMPLES // 32):
     """Runs one path of the main path with every kernel's launch count set
@@ -1286,9 +1362,10 @@ def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0, bwd2: int 
     one per note of a 'jax' corpus pass, one per eval batch; ``f1`` for F1
     where it differs: the unrolled renders of the sound-match path) and
     F2's two phases (``fm_fb_loop``, ``fm_exact_ff``) once per segment of
-    each F2 call (renders of ``n_ticks`` ticks), unless F1b launched ``bwd``
-    times (one per gradient through the render) and F2b and each of its
-    three kernels ``bwd2`` times (one per gradient through F2).
+    each F2 call (renders of ``n_ticks`` ticks), unless F1b and each of its
+    three kernels launched ``bwd`` times (one per gradient through the
+    render) and F2b and each of its three kernels ``bwd2`` times (one per
+    gradient through F2). Records the path's line of ``SUMMARY``.
     -> (result, launches, wall seconds, peak device GiB)."""
     from preset_gen_vae_tpu_torch.ops import spectrogram as sp
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
@@ -1308,12 +1385,18 @@ def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0, bwd2: int 
                              f"{'at least 1' if k1 is None else k1}: {launches}")
     n_seg = len(ft.exact_segments(n_ticks))
     want = {"fm_control": fm if f1 is None else f1, "fm_exact": fm, "fm_fb_loop": fm * n_seg,
-            "fm_exact_ff": fm * n_seg, "fm_control_bwd": bwd,
-            **{k: bwd2 for k in ("fm_exact_bwd", "fm_exact_bwd_ff", "fm_exact_bwd_rec",
-                                 "fm_exact_bwd_loop")}}
+            "fm_exact_ff": fm * n_seg, **{k: bwd for k in ("fm_control_bwd", *ft.F1B_KERNELS)},
+            **{k: bwd2 for k in ("fm_exact_bwd", *ft.F2B_KERNELS)}}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"{name} path: F1/F2/F1b/F2b launched {launches}, want {want}")
-    return result, launches, wall, torch.cuda.max_memory_allocated() / 2**30
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    line = {"path": name, "wall_s": round(wall, 3), "peak_gib": round(peak, 3),
+            "launches": {k: n for k, n in launches.items() if n}}
+    if isinstance(result, dict):
+        line.update({k: result[k] for k in ("step_ms", "corpus_seconds", "reduction")
+                     if isinstance(result.get(k), (int, float))})
+    SUMMARY.append(line)
+    return result, launches, wall, peak
 
 
 def check_train_summary(name: str, summary: dict, epochs_trained: int,
@@ -1538,8 +1621,8 @@ def multiproc2_inputs():
 def flagship_step(model_c, train_c, helper, x, v, info, dtype) -> dict:
     """One train step of the flagship built from seed 0 in ``dtype`` (TF32
     off), dropout and noise from a generator seeded 11: the total loss
-    (averaged over a group's processes), every gradient and every running
-    statistic, on the host."""
+    (averaged over a group's processes), every gradient, every running
+    statistic and the generator's state after the step, on the host."""
     from preset_gen_vae_tpu_torch.models.build import build_extended_ae_model
     from preset_gen_vae_tpu_torch.parallel import multihost
     from preset_gen_vae_tpu_torch.training.train_step import Criteria, make_optimizer, \
@@ -1556,7 +1639,8 @@ def flagship_step(model_c, train_c, helper, x, v, info, dtype) -> dict:
     return {"loss": loss.cpu(),
             "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
             "stats": {k: b.cpu() for k, b in model.named_buffers()
-                      if k.endswith(("running_mean", "running_var"))}}
+                      if k.endswith(("running_mean", "running_var"))},
+            "generator": generator.get_state()}
 
 
 MULTIPROC2_DTYPES = ("float64", "float32")
@@ -1656,6 +1740,73 @@ def phase_multiproc2(root: str):
     if worst["float64"][0][1] > 1e-4:
         raise AssertionError(f"multiproc2: float64 {worst['float64'][:5]} (bar 1e-4)")
     return {"multiproc2": counts}
+
+
+def remat_step_timing(model_c, train_c, helper, x, v, info, remat: bool, steps: int = 5):
+    """The flagship's train step in bf16 autocast on float32 weights, with
+    or without ``remat``: (steady ms a step over ``steps`` after 2 warm-up
+    steps, peak device GiB during them, and that peak above what was
+    allocated before them)."""
+    from preset_gen_vae_tpu_torch.models.build import build_extended_ae_model
+    from preset_gen_vae_tpu_torch.training.train_step import Criteria, make_optimizer, \
+        train_step
+
+    tc = dataclasses.replace(train_c, remat=remat, compute_dtype="bfloat16")
+    model = build_extended_ae_model(model_c, tc, helper, seed=0).to("cuda")
+    opt, crit = make_optimizer(model, tc), Criteria(model_c, tc, helper)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for _ in range(2):
+        train_step(model, opt, crit, tc, x, v, info, 0.2, gen)
+    torch.cuda.synchronize()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        train_step(model, opt, crit, tc, x, v, info, 0.2, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated()
+    return ms, peak / 2**30, (peak - before) / 2**30
+
+
+def phase_remat():
+    """``TrainConfig.remat`` on the card: one flagship step at batch 160 (the
+    multiproc2 rows) with remat and without, in float64 (TF32 off): the
+    loss, every gradient and every running statistic within 1e-4 of each
+    tensor's scale (multiproc2's rule, ``module_scales``) and the
+    generator's state equal; then in bf16 autocast the steady step time
+    and the peak device memory of each."""
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+    def run():
+        model_c, train_c, helper, x, v, info = multiproc2_inputs()
+        steps = {on: flagship_step(model_c, dataclasses.replace(train_c, remat=on), helper, x, v,
+                                   info, torch.float64) for on in (False, True)}
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        timing = {on: remat_step_timing(model_c, train_c, helper, x, v, info, on)
+                  for on in (False, True)}
+        return steps, timing
+
+    (steps, timing), counts, wall, _ = drive("remat", run, k1=0)
+    scales = module_scales(steps[False])
+    errs = sorted(step_errors(steps[True], steps[False], scales).items(), key=lambda kv: -kv[1])
+    same_gen = torch.equal(steps[True]["generator"], steps[False]["generator"])
+    print(f"[remat] {card_line()}: flagship step at batch 160, remat on against off: float64 "
+          f"loss {dict(errs)['loss']:.2e}, worst {[(k, f'{e:.2e}') for k, e in errs[:3]]} of "
+          f"{len(errs)} tensors (bar 1e-4 of each tensor's scale), generator state equal "
+          f"{same_gen}; bf16 steady step {timing[False][0]:.2f} ms off, {timing[True][0]:.2f} ms "
+          f"on ({timing[True][0] / timing[False][0]:.3f}x); peak device memory during the steps "
+          f"{timing[False][1]:.3f} GiB off, {timing[True][1]:.3f} GiB on (above the model and "
+          f"optimizer: {timing[False][2]:.3f} / {timing[True][2]:.3f} GiB); wall {wall:.2f} s",
+          flush=True)
+    SUMMARY[-1].update(step_ms_bf16={("on" if k else "off"): round(v[0], 3)
+                                     for k, v in timing.items()},
+                       step_peak_gib_bf16={("on" if k else "off"): round(v[1], 3)
+                                           for k, v in timing.items()})
+    if errs[0][1] > 1e-4 or not same_gen:
+        raise AssertionError(f"remat: float64 {errs[:5]} (bar 1e-4), generator equal {same_gen}")
+    return {"remat": counts}
 
 
 SAVED_RUNS = pathlib.Path(__file__).resolve().parent / "saved" / "FlVAE2"
@@ -2075,10 +2226,50 @@ def phase_disk_jax(root: str):
     return counts
 
 
-def main() -> int:
+class Tee:
+    """Standard output, also written line for line into a file."""
+
+    def __init__(self, stream, path: pathlib.Path):
+        self.stream, self.file = stream, open(path, "w")
+
+    def write(self, text):
+        self.file.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.file.flush()
+        self.stream.flush()
+
+
+def print_summary(kernels):
+    """A compact line per driven path and per kernel, for the end of the
+    output."""
+    print(f"[summary] {card_line()}", flush=True)
+    for line in SUMMARY:
+        rest = {k: v for k, v in line.items() if k not in ("path", "launches")}
+        print(f"[summary] {line['path']}: {json.dumps(rest)} launches "
+              f"{json.dumps(line['launches'])}", flush=True)
+    for e in kernels:
+        print(f"[summary] kernel {e['name']}: {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms by "
+              f"{e['bound_by']}, plain {e['plain_ms']:.1f} ms), launches {e['launches']}"
+              + (f" ({json.dumps(e['launches_by_kernel'])})" if "launches_by_kernel" in e else ""),
+              flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--out", default=str(pathlib.Path(__file__).resolve().parent / "build" /
+                                         "chip_smoke"),
+                    help="directory of output.txt (every line printed) and results.jsonl")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    out = pathlib.Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    sys.stdout = Tee(sys.stdout, out / "output.txt")
     print(card_line(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -2100,18 +2291,26 @@ def main() -> int:
         counts.update(phase_profile_path(root))
         counts.update(phase_multiproc1(root, train_summary))
         counts.update(phase_multiproc2(root))
+        counts.update(phase_remat())
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = [k1, *fm, f1b, f2b]
     for entry in kernels:
         entry["launches_by_path"] = {name: c[entry["name"]] for name, c in counts.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        if entry["launches"] < 1:
+        if "kernels" in entry:
+            entry["launches_by_kernel"] = {k: sum(c[k] for c in counts.values())
+                                           for k in entry["kernels"]}
+        if entry["launches"] < 1 or min(entry.get("launches_by_kernel", {0: 1}).values()) < 1:
             raise AssertionError(f"{entry['name']} was launched on no path of the main path")
+    ok = {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}
+    with open(out / "results.jsonl", "w") as f:
+        for obj in ({"kernels": kernels}, {"summary": SUMMARY}, ok):
+            f.write(json.dumps(obj) + "\n")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print_summary(kernels)
+    print(json.dumps(ok), flush=True)
     return 0
 
 

@@ -46,18 +46,15 @@
 // F1b, F1's backward (fm_control_bwd): the adjoint of the control scan,
 // the cotangents of F1's four outputs -> the gradient of the packed row.
 // The scan's carried state (EG levels and stages, the LFO, the pitch EG)
-// cannot be run backwards, so F1b keeps F1's 8 lanes per item and walks
-// the ticks twice: forward with F1's exact operations, recording on a tape
-// in device memory each tick's pre-tick EG level and stage (lanes 0-5) and
-// pitch-EG level and stage (lane 6), and the LFO's phase and S&H value
-// after its step (lane 7), one float2 a lane and tick; then in reverse,
-// re-deriving each tick's branch decisions and values from the tape and
-// carrying the adjoints: each operator's EG level and phase start on its
-// lane, the item's LFO phase and pitch-EG level on every lane alike. The
-// pitch factor's and the LFO value's adjoints gather contributions from
-// all operators, summed over the 8 lanes each tick by warp shuffle. Like
-// F1 it is bound by its serial chain, the two walks, and not by its bytes:
-// the cotangents and the tape are read once.
+// cannot be run backwards, so F1 under a gradient records it on a tape in
+// device memory (each tick's pre-tick EG level and stage, pitch-EG level
+// and stage, and the LFO's phase and S&H value after its step, one float2
+// a lane and tick). F1b re-derives each tick's branch decisions and values
+// from the tape with F1's own operations, on F1's 8 lanes per item, and
+// carries the adjoints in reverse; since they are affine in their values
+// where a span of ticks begins, the ticks are cut into chunks walked in
+// parallel and combined per item; see the note above
+// fm_control_bwd_starts_kernel.
 //
 // F2b, F2's backward (fm_exact_bwd), is three kernels; see the note above
 // fm_exact_bwd_ff_kernel.
@@ -216,12 +213,18 @@ __device__ __forceinline__ float lfo_ramp_bwd(float t_s, float delay, float g) {
 // in uint32) and the pitch EG; lane i < 6 then steps operator i's EG, the
 // AM term and amplitude floor, the increment and the wrapped phase start,
 // and writes them into the (T, B, 6) arrays (a warp's 4 items write 96
-// contiguous bytes a tick); lane 6 writes pitch_fact (T, B).
+// contiguous bytes a tick); lane 6 writes pitch_fact (T, B). TAPED (F1
+// under a gradient, for F1b) also writes the tape (T, B, 8) float2: lane i
+// < 6 its pre-tick EG level and stage, lane 6 the pre-tick pitch-EG level
+// and stage and the LFO's phase and S&H value after its step (entries 6
+// and 7, one 16-byte store): 64 bytes a tick and item, the state F1b
+// re-derives each tick from. The arithmetic is the same in both.
+template <bool TAPED>
 __global__ void __launch_bounds__(F1_THREADS)
 fm_control_kernel(const float* __restrict__ ctl, int B, int T, int note_off, float fs,
                   float tick_s, float ln10_over_20, float* __restrict__ amps,
                   float* __restrict__ pitch_fact, float* __restrict__ starts,
-                  float* __restrict__ incs) {
+                  float* __restrict__ incs, float2* __restrict__ tape) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = g / F1_LANES, op = g % F1_LANES;
   if (b >= B || op > N_OPS) return;
@@ -265,6 +268,11 @@ fm_control_kernel(const float* __restrict__ ctl, int B, int T, int note_off, flo
       rng = rng * 1664525u + 1013904223u;
       sh = (float)(rng >> 8) / 8388608.f - 1.f;
     }
+    if (TAPED) {
+      float2* rec = tape + ((size_t)t * B + b) * F1_LANES;
+      if (is_op) rec[op] = make_float2(eg, (float)stage);
+      else reinterpret_cast<float4*>(rec)[3] = make_float4(peg, (float)peg_stage, lfo_phase, sh);
+    }
     const float lfo = lfo_wave_value(wave, lfo_phase, sh) * ramp;
 
     eg_tick(peg, peg_stage, peg_targets, peg_slews, off);
@@ -296,74 +304,106 @@ __device__ __forceinline__ float lanes_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 1, F1_LANES);
 }
 
-// F1b: the adjoint of F1 (fm_torch.control_pass_vjp). F1's lanes: lane i
-// < 6 is operator i, lane 6 the pitch factor, lane 7 keeps the LFO on the
-// tape. Every lane of every item in the block runs both walks, padding
-// items too (their memory accesses are skipped), so that the shuffles
-// see full warps. Writes every column of the item's gradient row.
+// F1b, F1's backward (fm_torch.control_pass_vjp), three launches over F1's
+// tape. The reverse walk's adjoints are affine in their values where the
+// walk enters a span of ticks: a_start (a phase start's adjoint) is a
+// suffix sum; a_eg and a_peg (the post-tick EG and pitch-EG levels') pass
+// eg_tick_bwd's multiplier (0, 1 or 1 - 0.05) each tick, plus injections;
+// a_lfo (the LFO phase's) is a suffix sum; and every gradient accumulator
+// adds a term linear in the running adjoints. F1b's outputs are per-item
+// totals, so the ticks split into chunks that run in parallel:
+//  - fm_control_bwd_starts: thread (chunk, item, operator) sums the chunk's
+//    g_starts, latest tick first (a_start entering each chunk is the sum of
+//    the later chunks');
+//  - fm_control_bwd_chunks: F1's 8 lanes per (item, chunk) walk the
+//    chunk's ticks in reverse from zero incoming a_eg, a_peg and a_lfo and
+//    the true a_start, re-deriving each tick's branch decisions and values
+//    from the tape with F1's own operations; a lane keeps its accumulators
+//    (the zero-start run), the product of its multipliers, and the
+//    accumulators' sensitivities to the incoming a_eg (operator lanes) or
+//    a_peg (every lane), which eg_tick_bwd run on the running product
+//    gives; the pitch factor's and the LFO value's adjoints gather every
+//    operator's part by warp shuffle each tick;
+//  - fm_control_bwd_combine: the 8 lanes of an item walk the chunks from
+//    the last, carrying the incoming adjoints, and write the gradient row.
+// One chunk is the serial walk. Bound: the chunks' walks, ~540 operations a
+// tick and item on 8 lanes with transcendental functions on the dependent
+// path, over many more warps than items; the bytes are the cotangents and
+// the tape, read once.
+#define F1B_SUM 24  // floats of a lane's chunk summary (F1B_SUM / 4 float4 stores)
+
+__global__ void fm_control_bwd_starts_kernel(const float* __restrict__ g_starts, int B, int T,
+                                             int n_chunk, int chunk_ticks,
+                                             float* __restrict__ sums) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long row = (long)B * N_OPS;
+  if (i >= n_chunk * row) return;
+  const int c = (int)(i / row);
+  const int tb = c * chunk_ticks, te = min(T, tb + chunk_ticks);
+  float s = 0.f;
+  for (int t = te - 1; t >= tb; --t) s = s + g_starts[(size_t)t * row + i % row];
+  sums[i] = s;
+}
+
+// lane layout of a chunk summary (operator lanes / lane 6): 0-3 the target
+// (pitch-EG target) gradients of the zero-start run, 4-7 the slews', 8-11
+// and 12-15 their sensitivities to the incoming a_eg (a_peg); 16 g_gain
+// (g_hz), 17 g_ams (the g_hz sensitivity to the incoming a_lfo), 18 g_freq
+// (g_delay), 19 g_amd (g_pmd), 20 a_eg (a_peg) leaving the chunk from a
+// zero start, 21 the product of the multipliers; lane 6: 22 a_lfo leaving
+// the chunk from a zero start, 23 g_pms
 __global__ void __launch_bounds__(F1_THREADS)
-fm_control_bwd_kernel(const float* __restrict__ ctl, int B, int T, int note_off, float fs,
-                      float tick_s, float ln10_over_20, const float* __restrict__ g_amps,
-                      const float* __restrict__ g_pitch_fact, const float* __restrict__ g_starts,
-                      const float* __restrict__ g_incs, float2* __restrict__ tape,
-                      float* __restrict__ gctl) {
+fm_control_bwd_chunks_kernel(const float* __restrict__ ctl, int B, int T, int note_off,
+                             float fs, float tick_s, float ln10_over_20,
+                             const float* __restrict__ g_amps,
+                             const float* __restrict__ g_pitch_fact,
+                             const float* __restrict__ g_starts, const float* __restrict__ g_incs,
+                             const float2* __restrict__ tape,
+                             const float* __restrict__ start_sums, int n_chunk, int chunk_ticks,
+                             float* __restrict__ summ) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = g % F1_LANES;
-  const bool valid = g / F1_LANES < B;
-  const int b = valid ? g / F1_LANES : B - 1;
-  const float* c = ctl + (size_t)b * CTL_WIDTH;
+  const int lane = g % F1_LANES, ic = g / F1_LANES;  // ic = chunk * B + item
+  const bool valid = ic < n_chunk * B;
+  const int c = valid ? ic / B : 0, b = valid ? ic % B : B - 1;
+  const int tb = c * chunk_ticks, te = min(T, tb + chunk_ticks);
+  const float* cr = ctl + (size_t)b * CTL_WIDTH;
   const bool is_op = lane < N_OPS;
   const int k_op = is_op ? lane : 0;  // lanes 6 and 7 read operator 0's row and never use it
   float targets[4], slews[4], peg_targets[4], peg_slews[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    targets[k] = c[CTL_TARGETS + 4 * k_op + k];
-    slews[k] = c[CTL_SLEWS + 4 * k_op + k];
-    peg_targets[k] = c[CTL_PEG_TARGETS + k];
-    peg_slews[k] = c[CTL_PEG_SLEWS + k];
+    targets[k] = cr[CTL_TARGETS + 4 * k_op + k];
+    slews[k] = cr[CTL_SLEWS + 4 * k_op + k];
+    peg_targets[k] = cr[CTL_PEG_TARGETS + k];
+    peg_slews[k] = cr[CTL_PEG_SLEWS + k];
   }
-  const float gain = c[CTL_OP_GAIN_DB + k_op], ams = c[CTL_AMS_DB + k_op];
-  const float freq = c[CTL_FREQS + k_op];
-  const bool on = c[CTL_ON + k_op] > 0.f;
-  const float lfo_hz = c[CTL_LFO_HZ], lfo_delay_s = c[CTL_LFO_DELAY_S];
-  const float pmd = c[CTL_PMD], amd = c[CTL_AMD], pms = c[CTL_PMS];
-  const int wave = (int)c[CTL_LFO_WAVE];
+  const float gain = cr[CTL_OP_GAIN_DB + k_op], ams = cr[CTL_AMS_DB + k_op];
+  const float freq = cr[CTL_FREQS + k_op];
+  const bool on = cr[CTL_ON + k_op] > 0.f;
+  const float lfo_delay_s = cr[CTL_LFO_DELAY_S];
+  const float pmd = cr[CTL_PMD], amd = cr[CTL_AMD], pms = cr[CTL_PMS];
+  const int wave = (int)cr[CTL_LFO_WAVE];
 
-  // ---- forward: F1's state walk, the tape written
-  {
-    float eg = c[CTL_EG0 + k_op], peg = c[CTL_PEG0], lfo_phase = c[CTL_LFO_PHASE0], sh = 0.f;
-    int stage = 0, peg_stage = 0;
-    uint32_t rng = SH_SEED;
-    for (int t = 0; t < T; ++t) {
-      const bool off = t * BLOCK >= note_off;
-      lfo_phase = lfo_phase + lfo_hz * tick_s;
-      if (lfo_phase >= 1.f) {
-        lfo_phase = lfo_phase - floorf(lfo_phase);
-        rng = rng * 1664525u + 1013904223u;
-        sh = (float)(rng >> 8) / 8388608.f - 1.f;
-      }
-      const float2 rec = is_op ? make_float2(eg, (float)stage)
-                               : (lane == N_OPS ? make_float2(peg, (float)peg_stage)
-                                                : make_float2(lfo_phase, sh));
-      if (valid) tape[((size_t)t * B + b) * F1_LANES + lane] = rec;
-      eg_tick(peg, peg_stage, peg_targets, peg_slews, off);
-      eg_tick(eg, stage, targets, slews, off);
-    }
-  }
-
-  // ---- reverse: the adjoints of the post-tick EG level (a_eg), pitch-EG
-  // level (a_peg) and LFO phase (a_lfo), and the sum of the later phase
-  // starts' cotangents (a_start); the row's gradient in registers
-  float a_eg = 0.f, a_peg = 0.f, a_lfo = 0.f, a_start = 0.f;
+  // a_start entering the chunk: the later chunks' sums, the last first
+  float a_start = 0.f;
+  if (valid && is_op)
+    for (int cc = n_chunk - 1; cc > c; --cc)
+      a_start = a_start + start_sums[((size_t)cc * B + b) * N_OPS + lane];
+  // the adjoints of the post-tick EG level (a_eg), pitch-EG level (a_peg)
+  // and LFO phase (a_lfo) from a zero start, the products of the EG and
+  // pitch-EG multipliers (pm, pmp), and the sums
+  float a_eg = 0.f, a_peg = 0.f, a_lfo = 0.f, pm = 1.f, pmp = 1.f, s_hz = 0.f;
   float g_targets[4] = {0.f, 0.f, 0.f, 0.f}, g_slews[4] = {0.f, 0.f, 0.f, 0.f};
+  float s_targets[4] = {0.f, 0.f, 0.f, 0.f}, s_slews[4] = {0.f, 0.f, 0.f, 0.f};
   float g_peg_targets[4] = {0.f, 0.f, 0.f, 0.f}, g_peg_slews[4] = {0.f, 0.f, 0.f, 0.f};
+  float sp_targets[4] = {0.f, 0.f, 0.f, 0.f}, sp_slews[4] = {0.f, 0.f, 0.f, 0.f};
   float g_gain = 0.f, g_ams = 0.f, g_freq = 0.f, g_amd = 0.f;
   float g_hz = 0.f, g_delay = 0.f, g_pmd = 0.f, g_pms = 0.f;
   // this lane's tape entry and cotangents of tick t, loaded a tick ahead
   auto load = [&](int t, float2& rec, float& ga, float& gs, float& gi) {
     rec = make_float2(0.f, 0.f);
     ga = gs = gi = 0.f;
-    if (!valid || t < 0) return;
+    if (!valid || t < tb) return;
     rec = tape[((size_t)t * B + b) * F1_LANES + lane];
     if (is_op) {
       const size_t at = ((size_t)t * B + b) * N_OPS + lane;
@@ -376,8 +416,13 @@ fm_control_bwd_kernel(const float* __restrict__ ctl, int B, int T, int note_off,
   };
   float2 rec;
   float ga, gs, gi;
-  load(T - 1, rec, ga, gs, gi);
-  for (int t = T - 1; t >= 0; --t) {
+  load(te - 1, rec, ga, gs, gi);
+  // every lane of the warp takes chunk_ticks steps, so that the shuffles
+  // see full warps; a step before the chunk (the last chunk is shorter)
+  // changes nothing
+  for (int j = 0; j < chunk_ticks; ++j) {
+    const int t = te - 1 - j;
+    const bool act = valid && t >= tb;
     float2 rec_n;
     float ga_n, gs_n, gi_n;
     load(t - 1, rec_n, ga_n, gs_n, gi_n);
@@ -398,7 +443,7 @@ fm_control_bwd_kernel(const float* __restrict__ ctl, int B, int T, int note_off,
     const float pf = exp2f((peg * 0.08f + lfo * pmd * pms) / 12.f);
     // this lane's parts of the pitch factor's and the LFO value's adjoints
     float c_pf = 0.f, c_lfo = 0.f;
-    if (is_op) {
+    if (act && is_op) {
       const float eg_pre = rec.x;
       const int stage = (int)rec.y;
       float eg = eg_pre;
@@ -425,56 +470,139 @@ fm_control_bwd_kernel(const float* __restrict__ ctl, int B, int T, int note_off,
       g_freq = g_freq + g_fp * pf;
       c_pf = g_fp * freq;
       a_eg = eg_tick_bwd(eg_pre, stage, targets, slews, off, a_eg, g_targets, g_slews);
-    } else if (lane == N_OPS) {
+      pm = eg_tick_bwd(eg_pre, stage, targets, slews, off, pm, s_targets, s_slews);
+    } else if (act && lane == N_OPS) {
       c_pf = ga;
     }
     c_pf = lanes_sum(c_pf);
     c_lfo = lanes_sum(c_lfo);
-    // the item's shared chain, the same floats on every lane
-    const float g_semis = c_pf * pf * 0.6931472f / 12.f;
-    a_peg = a_peg + g_semis * 0.08f;
-    g_pms = g_pms + g_semis * (lfo * pmd);
-    const float g_lfo_pmd = g_semis * pms;
-    g_pmd = g_pmd + g_lfo_pmd * lfo;
-    const float g_lfo = c_lfo + g_lfo_pmd * pmd;
-    g_delay = g_delay + lfo_ramp_bwd(t_s, lfo_delay_s, g_lfo * lfo_raw);
-    // the wrap (phase - floor(phase)) passes the phase's adjoint on whole
-    a_lfo = a_lfo + lfo_wave_bwd(wave, lfo_phase, g_lfo * ramp);
-    g_hz = g_hz + a_lfo * tick_s;
-    a_peg = eg_tick_bwd(peg_pre, peg_stage, peg_targets, peg_slews, off, a_peg, g_peg_targets,
-                        g_peg_slews);
+    if (act) {
+      // the item's shared chain, the same floats on every lane
+      const float g_semis = c_pf * pf * 0.6931472f / 12.f;
+      a_peg = a_peg + g_semis * 0.08f;
+      g_pms = g_pms + g_semis * (lfo * pmd);
+      const float g_lfo_pmd = g_semis * pms;
+      g_pmd = g_pmd + g_lfo_pmd * lfo;
+      const float g_lfo = c_lfo + g_lfo_pmd * pmd;
+      g_delay = g_delay + lfo_ramp_bwd(t_s, lfo_delay_s, g_lfo * lfo_raw);
+      // the wrap (phase - floor(phase)) passes the phase's adjoint on whole
+      a_lfo = a_lfo + lfo_wave_bwd(wave, lfo_phase, g_lfo * ramp);
+      g_hz = g_hz + a_lfo * tick_s;
+      s_hz = s_hz + tick_s;
+      a_peg = eg_tick_bwd(peg_pre, peg_stage, peg_targets, peg_slews, off, a_peg, g_peg_targets,
+                          g_peg_slews);
+      pmp = eg_tick_bwd(peg_pre, peg_stage, peg_targets, peg_slews, off, pmp, sp_targets,
+                        sp_slews);
+    }
     rec = rec_n;
     ga = ga_n;
     gs = gs_n;
     gi = gi_n;
   }
-  g_amd = lanes_sum(g_amd);
-  if (!valid) return;
+  if (!valid || lane > N_OPS) return;
+  float v[F1B_SUM];
+  const bool op_lane = is_op;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = op_lane ? g_targets[k] : g_peg_targets[k];
+    v[4 + k] = op_lane ? g_slews[k] : g_peg_slews[k];
+    v[8 + k] = op_lane ? s_targets[k] : sp_targets[k];
+    v[12 + k] = op_lane ? s_slews[k] : sp_slews[k];
+  }
+  v[16] = op_lane ? g_gain : g_hz;
+  v[17] = op_lane ? g_ams : s_hz;
+  v[18] = op_lane ? g_freq : g_delay;
+  v[19] = op_lane ? g_amd : g_pmd;
+  v[20] = op_lane ? a_eg : a_peg;
+  v[21] = op_lane ? pm : pmp;
+  v[22] = op_lane ? 0.f : a_lfo;
+  v[23] = op_lane ? 0.f : g_pms;
+  float4* out = reinterpret_cast<float4*>(summ + ((size_t)ic * F1_LANES + lane) * F1B_SUM);
+#pragma unroll
+  for (int q = 0; q < F1B_SUM / 4; ++q)
+    out[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+// F1b (3): the 8 lanes of an item walk its chunks from the last, the
+// incoming adjoints (operator lane: a_eg; lane 6: a_peg and a_lfo) starting
+// at 0; each chunk adds its zero-start sums plus its sensitivities times the
+// incoming adjoints, and passes them on through its products. Writes every
+// column of the item's gradient row.
+__global__ void __launch_bounds__(F1_THREADS)
+fm_control_bwd_combine_kernel(int B, int n_chunk, const float* __restrict__ summ,
+                              float* __restrict__ gctl) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = g % F1_LANES;
+  const bool valid = g / F1_LANES < B;
+  const int b = valid ? g / F1_LANES : B - 1;
+  const bool use = valid && lane <= N_OPS;
+  const bool is_op = lane < N_OPS;
+  float tot[F1B_SUM];
+#pragma unroll
+  for (int k = 0; k < F1B_SUM; ++k) tot[k] = 0.f;
+  float a = 0.f, a_lfo = 0.f;  // a_eg (operator lanes) or a_peg (lane 6), and a_lfo
+  auto at = [&](int c) {
+    return reinterpret_cast<const float4*>(summ + (((size_t)c * B + b) * F1_LANES + lane) *
+                                                      F1B_SUM);
+  };
+  float4 nxt[F1B_SUM / 4];
+#pragma unroll
+  for (int q = 0; q < F1B_SUM / 4; ++q)
+    nxt[q] = use ? at(n_chunk - 1)[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = n_chunk - 1; c >= 0; --c) {
+    float v[F1B_SUM];
+#pragma unroll
+    for (int q = 0; q < F1B_SUM / 4; ++q) {
+      v[4 * q] = nxt[q].x;
+      v[4 * q + 1] = nxt[q].y;
+      v[4 * q + 2] = nxt[q].z;
+      v[4 * q + 3] = nxt[q].w;
+    }
+    if (use && c > 0) {  // the next chunk's summary, loaded a chunk ahead
+#pragma unroll
+      for (int q = 0; q < F1B_SUM / 4; ++q) nxt[q] = at(c - 1)[q];
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) tot[k] = tot[k] + (v[k] + v[8 + k] * a);
+    if (is_op) {
+#pragma unroll
+      for (int k = 16; k < 20; ++k) tot[k] = tot[k] + v[k];
+    } else {
+      tot[16] = tot[16] + (v[16] + v[17] * a_lfo);
+      tot[18] = tot[18] + v[18];
+      tot[19] = tot[19] + v[19];
+      tot[23] = tot[23] + v[23];
+      a_lfo = a_lfo + v[22];
+    }
+    a = v[21] * a + v[20];
+  }
+  const float g_amd = lanes_sum(use && is_op ? tot[19] : 0.f);
+  if (!use) return;
   float* gc = gctl + (size_t)b * CTL_WIDTH;
   if (is_op) {
-    gc[CTL_OP_GAIN_DB + lane] = g_gain;
+    gc[CTL_OP_GAIN_DB + lane] = tot[16];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      gc[CTL_TARGETS + 4 * lane + k] = g_targets[k];
-      gc[CTL_SLEWS + 4 * lane + k] = g_slews[k];
+      gc[CTL_TARGETS + 4 * lane + k] = tot[k];
+      gc[CTL_SLEWS + 4 * lane + k] = tot[4 + k];
     }
-    gc[CTL_EG0 + lane] = a_eg;
-    gc[CTL_AMS_DB + lane] = g_ams;
+    gc[CTL_EG0 + lane] = a;
+    gc[CTL_AMS_DB + lane] = tot[17];
     gc[CTL_ON + lane] = 0.f;  // a switch: no gradient
-    gc[CTL_FREQS + lane] = g_freq;
-  } else if (lane == N_OPS) {
+    gc[CTL_FREQS + lane] = tot[18];
+  } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      gc[CTL_PEG_TARGETS + k] = g_peg_targets[k];
-      gc[CTL_PEG_SLEWS + k] = g_peg_slews[k];
+      gc[CTL_PEG_TARGETS + k] = tot[k];
+      gc[CTL_PEG_SLEWS + k] = tot[4 + k];
     }
-    gc[CTL_PEG0] = a_peg;
-    gc[CTL_LFO_HZ] = g_hz;
+    gc[CTL_PEG0] = a;
+    gc[CTL_LFO_HZ] = tot[16];
     gc[CTL_LFO_PHASE0] = a_lfo;
-    gc[CTL_LFO_DELAY_S] = g_delay;
-    gc[CTL_PMD] = g_pmd;
+    gc[CTL_LFO_DELAY_S] = tot[18];
+    gc[CTL_PMD] = tot[19];
     gc[CTL_AMD] = g_amd;
-    gc[CTL_PMS] = g_pms;
+    gc[CTL_PMS] = tot[23];
     gc[CTL_LFO_WAVE] = 0.f;  // a switch: no gradient
   }
 }
@@ -665,35 +793,51 @@ fm_exact_ff_kernel(const float* __restrict__ amps, const float* __restrict__ sta
 //   a[n] = e[n] + k[n+1] a[n+1] + k[n+2] a[n+2],
 // e[n] the cotangent that reaches y_src[n] from outside the loop, k[m] =
 // 0.5 fba prod_j (amp_j cos(arg_j) 2 pi MOD_SCALE) over the loop's
-// operators at sample m. Three launches on the caller's stream:
-//  - fm_exact_bwd_ff (a): a block per item walks its ticks 8 at a time,
-//    one sample a thread; recomputes the operators off the loop (the
-//    source read from the tape), backpropagates through the fade, the
-//    clip (half the gradient at a tie, as jnp.clip), the volume, the
-//    carrier sum and the off-loop operators from low to high, and writes
-//    e and k, and the off-loop operators' per-tick sums;
-//  - fm_exact_bwd_rec (b): one thread per item with feedback runs the
-//    recurrence, two multiplies and two adds a sample, a overwriting e,
-//    its loads kept REC_STAGES ticks ahead by cp.async;
-//  - fm_exact_bwd_loop (c): as (a), on the items with feedback: the loop's
-//    1-3 operators recomputed at each sample and their cotangents from
-//    a[n], and the feedback gain's.
+// operators at sample m. In the state T[n] = (k[n] a[n], k[n+1] a[n+1])
+// (zero past the end) a sample is the affine step
+//   a[n] = (e[n] + T[n+1].y) + T[n+1].x,  T[n] = (k[n] a[n], T[n+1].x),
+// which needs e and k of its own sample only, so a tick's 32 samples make
+// one affine map T[32 t] = A_t T[32 t + 32] + b_t, and the recurrence is a
+// scan over ticks. An item's ticks are cut into splits of whole 8-tick
+// steps, a block per (item, split) in two of three launches on the
+// caller's stream:
+//  - fm_exact_bwd_ff (a): walks its ticks 8 at a time, one sample a
+//    thread; recomputes the operators off the loop (the source read from
+//    the tape), backpropagates through the fade, the clip (half the
+//    gradient at a tie, as jnp.clip), the volume, the carrier sum and the
+//    off-loop operators from low to high, and writes e and those
+//    operators' per-tick sums. On an item with feedback it also computes
+//    k, and 8 lanes walk the step's 8 ticks from the tick's end to make
+//    each tick's map (A_t, b_t); at the end the block composes the
+//    split's tick maps into the split's map as a tree (a thread's run of
+//    ticks in time order, then pairs), the product's entries renormalised
+//    by a power of two at each composition (a loud loop's product leaves
+//    float32's range where the recurrence's values do not);
+//  - fm_exact_bwd_loop (b), on the items with feedback: the split's
+//    incoming state from the later splits' maps, then its steps from the
+//    last: the loop's 1-3 operators and k recomputed at each sample, each
+//    tick's incoming state chained through the tick maps, 8 lanes walking
+//    the 8 ticks to give a[n], and from a[n] the loop operators'
+//    cotangents and the feedback gain's;
+//  - fm_exact_bwd_seams (c): a warp per item adds the splits' partial sums
+//    of the gain's and the volume's cotangents, and the amplitude
+//    cotangents that the ticks before the splits take from the splits'
+//    first ticks.
 // Per-tick sums: g_starts[t] = sum_s g_ph, g_incs[t] = sum_s s g_ph; a
 // sample's amplitude cotangent goes w_s to amps[t] and 1 - w_s to
 // amps[t-1], so a tick's amps cotangent is its own share plus the next
 // tick's. Each sample leaves its four parts per operator in shared memory
-// and one thread per (tick, operator, sum) adds a tick's 32 in order; the
-// block owns its item's ticks, carries the seam from one step to the next,
-// and reduces the per-item sums itself: no atomics, and every output
-// element written once. Bound: (a) and (c) by their f32
-// operations and sines (the forward recomputed, ~3x its work), (b) by
-// its chain, 88,576 dependent multiply-adds an item at 4 s.
+// and one thread per (tick, operator, sum) adds a tick's 32 in order; a
+// block carries the share across its steps, and leaves the share of its
+// split's first tick in a seam: no atomics. Bound: (a) and (b) by their
+// f32 operations and sines (the forward recomputed), with the splits
+// giving enough blocks at any batch; the recurrence's serial parts are
+// 32-sample walks on 8 lanes per step and a chain over the splits.
 #define BWD_TICKS 8
 #define BWD_THREADS (BWD_TICKS * BLOCK)
-#define BWD_SCRATCH 2  // (B, T*32) f32 rows F2b allocates: e (then a), k
-#define BWD_SUMS 4     // per tick and operator: sum g_ph, sum s g_ph, sum w g_amp, sum (1-w) g_amp
-#define REC_THREADS 32
-#define REC_STAGES 5   // ticks of e and k in flight per thread of the recurrence
+#define BWD_SUMS 4       // per tick and operator: sum g_ph, sum s g_ph, sum w g_amp, sum (1-w) g_amp
+#define MAP_WARP 6       // the warp whose lanes 0-7 walk the step's ticks
+#define MAX_SPLITS 256   // splits of an item's ticks (fm_torch.exact_bwd_splits)
 
 struct BwdShared {
   float amp[BWD_TICKS + 1][N_OPS], st[BWD_TICKS][N_OPS], in[BWD_TICKS][N_OPS];
@@ -702,12 +846,25 @@ struct BwdShared {
   float part[BWD_TICKS * N_OPS * BWD_SUMS][BLOCK + 1];
   float tick[BWD_SUMS][BWD_TICKS][N_OPS];  // the sums
   float red[BWD_TICKS][2];
+  // e[n] (then a[n]) and k[n] of the step's samples, a tick a row (padded:
+  // the 8 walking lanes read 8 banks)
+  float ea[BWD_TICKS][BLOCK + 1], kk[BWD_TICKS][BLOCK + 1];
+  float4 map_a[BWD_TICKS];  // the step's tick maps: A_t (row-major) and b_t
+  float2 map_b[BWD_TICKS], tin[BWD_TICKS];  // and the state entering each tick
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// [tb, te): split s's ticks; splits are whole 8-tick steps but the last
+__device__ __forceinline__ void split_ticks(int s, int n_split, int T, int& tb, int& te) {
+  const int steps = (T + BWD_TICKS - 1) / BWD_TICKS;
+  const int per = (steps + n_split - 1) / n_split;
+  tb = min(T, s * per * BWD_TICKS);
+  te = min(T, (s + 1) * per * BWD_TICKS);
 }
 
 // stages ticks t0 .. t0+7 of item b as fm_exact_ff does: amp[k] is tick
@@ -727,6 +884,40 @@ __device__ __forceinline__ void bwd_stage(BwdShared& s, const float* __restrict_
     const int e = tid - (2 * BWD_TICKS + 1) * N_OPS, t = t0 + e / N_OPS;
     s.in[e / N_OPS][e % N_OPS] = t < T ? incs[((size_t)t * B + b) * N_OPS + e % N_OPS] : 0.f;
   }
+}
+
+// the loop's operators at the sample of tick k and lane sv - 1, from its
+// input half * fba, as fm_fb_loop runs them: their sines, cosines and
+// amplitudes, and the loop's derivative by its input, d (k[n] = 0.5 fba d)
+__device__ __forceinline__ float loop_forward(const BwdShared& s, int k, float sv, float w,
+                                              const int* ops, int len, float half, float fba,
+                                              float* lsn, float* lcs, float* lam) {
+  float ly = half * fba, d = 1.f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    lsn[j] = lcs[j] = lam[j] = 0.f;
+    if (j < len) {
+      const int op = ops[j];
+      const float prev = s.amp[k][op];
+      lam[j] = prev + (s.amp[k + 1][op] - prev) * w;
+      const float ph = s.st[k][op] + s.in[k][op] * sv;
+      sincosf(TWO_PI_F * (ph + ly * MOD_SCALE_F), &lsn[j], &lcs[j]);
+      ly = lsn[j] * lam[j];
+      d = d * (lam[j] * lcs[j] * TWO_PI_F * MOD_SCALE_F);
+    }
+  }
+  return d;
+}
+
+// one operator's output and its sine's parts at sample sv - 1 of staged tick
+// k (fm_exact_ff's arithmetic); mod is its modulation
+__device__ __forceinline__ float op_forward(const BwdShared& s, int k, int i, float sv, float w,
+                                            float mod, float& sn, float& cs, float& am) {
+  const float prev = s.amp[k][i];
+  am = prev + (s.amp[k + 1][i] - prev) * w;
+  const float ph = s.st[k][i] + s.in[k][i] * sv;
+  sincosf(TWO_PI_F * (ph + mod * MOD_SCALE_F), &sn, &cs);
+  return sn * am;
 }
 
 // a sample's parts of the per-tick sums of operator i's cotangents
@@ -753,30 +944,47 @@ __device__ __forceinline__ void tick_sums(BwdShared& s, int own, int tid) {
   }
 }
 
-// writes the step's ticks of the operators in own: threads 0-47 a (tick,
-// operator) each; tick t's amps cotangent is cur[t] + prv[t+1], so the
-// step's last tick waits for the next step's first in carry (threads
-// 48-53, one per operator)
-__device__ __forceinline__ void write_ticks(const BwdShared& s, int own, int B, int T, int b,
-                                            int t0, int tid, float& carry,
+// writes the step's ticks t0 .. t0+7 (below te) of the operators in own:
+// threads 0-47 a (tick, operator) each: g_starts, g_incs, and g_amps of
+// the ticks whose next tick is in the step or past the split (own share +
+// the next tick's, or the own share alone at the split's end: the next
+// split's share is its seam). Threads 48-53, one per operator, the step's
+// edges: REVERSE false (steps in time order): tick t0 - 1 takes the carry
+// (the previous step's last own share) + tick t0's share, tick t0 + 7
+// leaves its own share in carry; REVERSE true (steps from the last): tick
+// t0 + 7 takes its own share + the carry (the next step's first tick's
+// share), tick t0 leaves its share in carry. At the split's first tick the
+// share goes to the seam.
+template <bool REVERSE>
+__device__ __forceinline__ void write_ticks(const BwdShared& s, int own, int B, int tb, int te,
+                                            int b, int t0, int tid, float& carry,
                                             float* __restrict__ g_amps,
                                             float* __restrict__ g_starts,
-                                            float* __restrict__ g_incs) {
+                                            float* __restrict__ g_incs, float* __restrict__ seam) {
   if (tid < BWD_TICKS * N_OPS) {
     const int k = tid / N_OPS, i = tid % N_OPS, t = t0 + k;
-    if (((own >> i) & 1) && t < T) {
+    if (((own >> i) & 1) && t < te) {
       const size_t at = ((size_t)t * B + b) * N_OPS + i;
       g_starts[at] = s.tick[0][k][i];
       g_incs[at] = s.tick[1][k][i];
       if (k < BWD_TICKS - 1)
-        g_amps[at] = t + 1 < T ? s.tick[2][k][i] + s.tick[3][k + 1][i] : s.tick[2][k][i];
+        g_amps[at] = t + 1 < te ? s.tick[2][k][i] + s.tick[3][k + 1][i] : s.tick[2][k][i];
     }
   } else if (tid < (BWD_TICKS + 1) * N_OPS) {
     const int i = tid - BWD_TICKS * N_OPS, t = t0 + BWD_TICKS - 1;
     if ((own >> i) & 1) {
-      if (t0 > 0) g_amps[((size_t)(t0 - 1) * B + b) * N_OPS + i] = carry + s.tick[3][0][i];
-      if (t + 1 < T) carry = s.tick[2][BWD_TICKS - 1][i];
-      else if (t < T) g_amps[((size_t)t * B + b) * N_OPS + i] = s.tick[2][BWD_TICKS - 1][i];
+      if (REVERSE) {
+        if (t < te)
+          g_amps[((size_t)t * B + b) * N_OPS + i] =
+              t + 1 < te ? s.tick[2][BWD_TICKS - 1][i] + carry : s.tick[2][BWD_TICKS - 1][i];
+        if (t0 > tb) carry = s.tick[3][0][i];
+        else seam[i] = s.tick[3][0][i];
+      } else {
+        if (t0 > tb) g_amps[((size_t)(t0 - 1) * B + b) * N_OPS + i] = carry + s.tick[3][0][i];
+        else seam[i] = s.tick[3][0][i];
+        if (t + 1 < te) carry = s.tick[2][BWD_TICKS - 1][i];
+        else if (t < te) g_amps[((size_t)t * B + b) * N_OPS + i] = s.tick[2][BWD_TICKS - 1][i];
+      }
     }
   }
 }
@@ -792,24 +1000,68 @@ __device__ __forceinline__ float block_sum(BwdShared& s, float v, int slot, int 
   return r;
 }
 
-// F2b (a): one block per item. Writes the off-loop operators' columns of
-// g_amps, g_starts and g_incs, g_mv, and for an item with feedback e[n]
-// and k[n]; for an item without feedback (every operator off the loop)
-// also its g_fb: the destination's modulation cotangent times the source's
-// half sum of its two previous outputs, the term that meets a zero gain.
-__global__ void __launch_bounds__(BWD_THREADS)
+// ldexpf of a 2x2 matrix's four entries
+__device__ __forceinline__ float4 scale4(float4 m, int e) {
+  return make_float4(ldexpf(m.x, e), ldexpf(m.y, e), ldexpf(m.z, e), ldexpf(m.w, e));
+}
+
+// an affine map of the recurrence's state over a span of ticks, x at the
+// span's end -> 2^ex p x + q at its start (p row-major)
+struct SpanMap {
+  float4 p;
+  float2 q;
+  int ex;
+};
+
+__device__ __forceinline__ SpanMap identity_map() {
+  return {make_float4(1.f, 0.f, 0.f, 1.f), make_float2(0.f, 0.f), 0};
+}
+
+// the span of u followed by the later span of v: 2^eu pu (2^ev pv x + qv)
+// + qu; the product's entries renormalised to [0.5, 1) by a power of two
+__device__ __forceinline__ SpanMap compose(const SpanMap& u, const SpanMap& v) {
+  SpanMap r;
+  r.q = make_float2(ldexpf(u.p.x * v.q.x + u.p.y * v.q.y, u.ex) + u.q.x,
+                    ldexpf(u.p.z * v.q.x + u.p.w * v.q.y, u.ex) + u.q.y);
+  r.p = make_float4(u.p.x * v.p.x + u.p.y * v.p.z, u.p.x * v.p.y + u.p.y * v.p.w,
+                    u.p.z * v.p.x + u.p.w * v.p.z, u.p.z * v.p.y + u.p.w * v.p.w);
+  r.ex = u.ex + v.ex;
+  const float big = fmaxf(fmaxf(fabsf(r.p.x), fabsf(r.p.y)), fmaxf(fabsf(r.p.z), fabsf(r.p.w)));
+  if (big > 0.f && isfinite(big)) {
+    int e2;
+    frexpf(big, &e2);
+    r.p = scale4(r.p, -e2);
+    r.ex += e2;
+  }
+  return r;
+}
+
+// F2b (a): block (item, split). Writes the off-loop operators' columns of
+// g_amps, g_starts and g_incs, the split's partial g_mv, and for an item
+// with feedback e[n], its tick maps and the split's map; for an item
+// without feedback (every operator off the loop) the split's partial g_fb:
+// the destination's modulation cotangent times the source's half sum of
+// its two previous outputs, the term that meets a zero gain. Four blocks
+// an SM (the register cap): the kernel is bound by its instruction
+// throughput.
+__global__ void __launch_bounds__(BWD_THREADS, 4)
 fm_exact_bwd_ff_kernel(const float* __restrict__ amps, const float* __restrict__ starts,
                        const float* __restrict__ incs, const int* __restrict__ alg,
                        const float* __restrict__ fb_amt, const float* __restrict__ n_carriers,
                        const float* __restrict__ master_volume, const float* __restrict__ scale,
                        const float* __restrict__ tape, const float* __restrict__ g_out, int B,
-                       int T, float* __restrict__ e, float* __restrict__ k_out,
+                       int T, int n_split, float* __restrict__ e_out,
+                       float4* __restrict__ tick_a, float2* __restrict__ tick_b,
+                       float4* __restrict__ split_a, float4* __restrict__ split_b,
                        float* __restrict__ g_amps, float* __restrict__ g_starts,
-                       float* __restrict__ g_incs, float* __restrict__ g_fb,
-                       float* __restrict__ g_mv) {
+                       float* __restrict__ g_incs, float* __restrict__ seam,
+                       float* __restrict__ part_mv, float* __restrict__ part_fb) {
   __shared__ BwdShared s;
   __shared__ float s_y[BWD_THREADS + 2];  // y_src of the step, after the last two of the previous
-  const int b = blockIdx.x, tid = threadIdx.x, k = tid / BLOCK, lane = tid % BLOCK;
+  const int b = blockIdx.x / n_split, sp = blockIdx.x % n_split;
+  const int tid = threadIdx.x, k = tid / BLOCK, lane = tid % BLOCK;
+  int tb, te;
+  split_ticks(sp, n_split, T, tb, te);
   const int a = alg[b];
   int mods[N_OPS];
 #pragma unroll
@@ -824,12 +1076,32 @@ fm_exact_bwd_ff_kernel(const float* __restrict__ amps, const float* __restrict__
   const float sv = (float)(lane + 1), w = sv / (float)BLOCK;
   const size_t row = (size_t)b * T * BLOCK;
   float carry = 0.f, acc_mv = 0.f, acc_fb = 0.f;
-  if (tid < 2) s_y[tid] = 0.f;
-  for (int t0 = 0; t0 < T; t0 += BWD_TICKS) {
+  // y_src of the two samples before the split: the tape's on an item with
+  // feedback, else the forward of the tick before, staged as a step
+  if (tb > 0 && !on) {
+    bwd_stage(s, amps, starts, incs, B, T, b, tb - BWD_TICKS, tid);
+    __syncthreads();
+    if (tid >= BWD_THREADS - 2) {
+      float y[N_OPS], sn, cs, am;
+#pragma unroll
+      for (int i = N_OPS - 1; i >= 0; --i) {
+        float mod = 0.f;
+#pragma unroll
+        for (int m = i + 1; m < N_OPS; ++m)
+          if ((mods[i] >> m) & 1) mod = mod + y[m];
+        y[i] = op_forward(s, BWD_TICKS - 1, i, sv, w, mod, sn, cs, am);
+      }
+      s_y[tid - (BWD_THREADS - 2)] = y[fb_src];
+    }
+  } else if (tid < 2) {
+    const int n = tb * BLOCK - 2 + tid;
+    s_y[tid] = tb > 0 ? tape[row + n] : 0.f;
+  }
+  for (int t0 = tb; t0 < te; t0 += BWD_TICKS) {
     __syncthreads();  // the previous step is done with s
     bwd_stage(s, amps, starts, incs, B, T, b, t0, tid);
     __syncthreads();
-    const bool valid = t0 + k < T;
+    const bool valid = t0 + k < te;
     const size_t n = (size_t)(t0 + k) * BLOCK + lane;
     // ---- forward, as fm_exact_ff
     float y[N_OPS], sn[N_OPS], cs[N_OPS], am[N_OPS], y_src = 0.f;
@@ -843,11 +1115,7 @@ fm_exact_bwd_ff_kernel(const float* __restrict__ amps, const float* __restrict__
 #pragma unroll
         for (int m = i + 1; m < N_OPS; ++m)
           if ((mods[i] >> m) & 1) mod = mod + y[m];
-        const float prev = s.amp[k][i];
-        am[i] = prev + (s.amp[k + 1][i] - prev) * w;
-        const float ph = s.st[k][i] + s.in[k][i] * sv;
-        sincosf(TWO_PI_F * (ph + mod * MOD_SCALE_F), &sn[i], &cs[i]);
-        y[i] = sn[i] * am[i];
+        y[i] = op_forward(s, k, i, sv, w, mod, sn[i], cs[i], am[i]);
       }
       if (i == fb_src) y_src = y[i];
     }
@@ -882,147 +1150,165 @@ fm_exact_bwd_ff_kernel(const float* __restrict__ amps, const float* __restrict__
       sample_parts(s, k, lane, i, g_u, g_amp, sv, w);
     }
     s_y[tid + 2] = y_src;
-    __syncthreads();  // the tick sums and s_y are written
+    __syncthreads();  // the parts and s_y are written
     const float half = 0.5f * (s_y[tid + 1] + s_y[tid]);
     __syncwarp();
     if (tid < 2) s_y[tid] = s_y[BWD_THREADS + tid];  // the next step's previous two
     if (!on) {
       acc_fb = acc_fb + g_dst * half;
-    } else if (valid) {
-      // k[n]: the loop from its input at n, as fm_fb_loop runs it
-      float ly = half * fba, d = 1.f;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        if (j < len) {
-          const int op = ops[j];
-          const float prev = s.amp[k][op];
-          const float amp = prev + (s.amp[k + 1][op] - prev) * w;
-          const float ph = s.st[k][op] + s.in[k][op] * sv;
-          float sj, cj;
-          sincosf(TWO_PI_F * (ph + ly * MOD_SCALE_F), &sj, &cj);
-          ly = sj * amp;
-          d = d * (amp * cj * TWO_PI_F * MOD_SCALE_F);
-        }
-      }
-      e[row + n] = e_n;
-      k_out[row + n] = d * fba * 0.5f;
+    } else {
+      float lsn[3], lcs[3], lam[3];
+      const float d = loop_forward(s, k, sv, w, ops, len, half, fba, lsn, lcs, lam);
+      s.kk[k][lane] = valid ? d * fba * 0.5f : 0.f;
+      s.ea[k][lane] = valid ? e_n : 0.f;
+      if (valid) e_out[row + n] = e_n;
     }
     tick_sums(s, ~loop & 63, tid);
-    __syncthreads();
-    write_ticks(s, ~loop & 63, B, T, b, t0, tid, carry, g_amps, g_starts, g_incs);
+    __syncthreads();  // the tick sums, e and k are in s
+    write_ticks<false>(s, ~loop & 63, B, tb, te, b, t0, tid, carry, g_amps, g_starts, g_incs,
+                       seam + ((size_t)sp * B + b) * N_OPS);
+    if (on && k == MAP_WARP && lane < BWD_TICKS && t0 + lane < te) {
+      // lane j < 8: tick t0 + j's map, its 32 samples walked from the end
+      float4 p = make_float4(1.f, 0.f, 0.f, 1.f);
+      float2 q2 = make_float2(0.f, 0.f);
+      for (int i = BLOCK - 1; i >= 0; --i) {
+        const float kv = s.kk[lane][i];
+        const float h0 = p.z + p.x, h1 = p.w + p.y;
+        p = make_float4(kv * h0, kv * h1, p.x, p.y);
+        const float r = (s.ea[lane][i] + q2.y) + q2.x;
+        q2 = make_float2(kv * r, q2.x);
+      }
+      const size_t at = (size_t)(t0 + lane) * B + b;
+      tick_a[at] = p;
+      tick_b[at] = q2;
+    }
   }
   __syncthreads();
   const float r_mv = block_sum(s, acc_mv, 0, tid);
   const float r_fb = block_sum(s, acc_fb, 1, tid);
+  const size_t at = (size_t)sp * B + b;
   if (tid == 0) {
-    g_mv[b] = r_mv;
-    if (!on) g_fb[b] = r_fb;
+    part_mv[at] = r_mv;
+    if (!on) part_fb[at] = r_fb;
+  }
+  if (!on) return;  // the whole block
+  // the split's map: thread i composes its run of the split's ticks in
+  // time order, then the runs compose in pairs (this block wrote the tick
+  // maps, and the barriers make them visible to every thread of it)
+  static_assert(sizeof(BwdShared) >= BWD_THREADS * sizeof(SpanMap), "the tree's slots");
+  SpanMap* tree = reinterpret_cast<SpanMap*>(&s);
+  const int per = (te - tb + BWD_THREADS - 1) / BWD_THREADS;
+  SpanMap m = identity_map();
+  for (int t = tb + tid * per; t < min(te, tb + (tid + 1) * per); ++t) {
+    const SpanMap tick = {tick_a[(size_t)t * B + b], tick_b[(size_t)t * B + b], 0};
+    m = compose(m, tick);
+  }
+  __syncthreads();  // every thread is done with s
+  tree[tid] = m;
+  for (int w = 1; w < BWD_THREADS; w *= 2) {
+    __syncthreads();
+    if (tid % (2 * w) == 0) tree[tid] = compose(tree[tid], tree[tid + w]);
+  }
+  if (tid == 0) {
+    split_a[at] = tree[0].p;
+    split_b[at] = make_float4(tree[0].q.x, tree[0].q.y, (float)tree[0].ex, 0.f);
   }
 }
 
-// 16 bytes from global to shared memory, asynchronously (cp.async)
-__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(smem)),
-               "l"(gmem));
-}
-
-// F2b (b): thread i takes item i if it has feedback and walks its N
-// samples backward, a overwriting e in place; k[n+1], k[n+2], a[n+1] and
-// a[n+2] in registers. The chain is two dependent operations a sample, so
-// the loads must run far ahead of it: each thread keeps REC_STAGES ticks
-// of its row's e and k in flight (cp.async into its own column of shared
-// memory, one commit group a tick) and waits only for the oldest.
-__global__ void __launch_bounds__(REC_THREADS)
-fm_exact_bwd_rec_kernel(const float* __restrict__ fb_amt, const float* __restrict__ k_in,
-                        float* ea, int B, int T) {
-  __shared__ float4 s_buf[REC_STAGES][2][BLOCK / 4][REC_THREADS];
-  const int lane = threadIdx.x, b = blockIdx.x * blockDim.x + lane;
-  if (b >= B || fb_amt[b] == 0.f) return;  // no barrier below: each thread reads its own column
-  float4* a4 = reinterpret_cast<float4*>(ea + (size_t)b * T * BLOCK);
-  const float4* k4 = reinterpret_cast<const float4*>(k_in + (size_t)b * T * BLOCK);
-  // tick t's stage is (T - 1 - t) % REC_STAGES; a group is committed for every
-  // step, empty past tick 0, so that waiting on all but the newest
-  // REC_STAGES - 1 groups always means the oldest tick has landed
-  auto fetch = [&](int t) {
-    if (t >= 0) {
-      const int st = (T - 1 - t) % REC_STAGES;
-#pragma unroll
-      for (int q = 0; q < BLOCK / 4; ++q) {
-        copy16_async(&s_buf[st][0][q][lane], a4 + (size_t)t * (BLOCK / 4) + q);
-        copy16_async(&s_buf[st][1][q][lane], k4 + (size_t)t * (BLOCK / 4) + q);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  for (int i = 0; i < REC_STAGES - 1; ++i) fetch(T - 1 - i);
-  float a1 = 0.f, a2 = 0.f, k1 = 0.f, k2 = 0.f;  // a[n+1], a[n+2], k[n+1], k[n+2]
-  for (int t = T - 1; t >= 0; --t) {
-    fetch(t - (REC_STAGES - 1));
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(REC_STAGES - 1));
-    const int st = (T - 1 - t) % REC_STAGES;
-#pragma unroll
-    for (int q = BLOCK / 4 - 1; q >= 0; --q) {
-      const float4 ev = s_buf[st][0][q][lane], kv = s_buf[st][1][q][lane];
-      float4 r;
-      r.w = (ev.w + k2 * a2) + k1 * a1;
-      a2 = a1; a1 = r.w; k2 = k1; k1 = kv.w;
-      r.z = (ev.z + k2 * a2) + k1 * a1;
-      a2 = a1; a1 = r.z; k2 = k1; k1 = kv.z;
-      r.y = (ev.y + k2 * a2) + k1 * a1;
-      a2 = a1; a1 = r.y; k2 = k1; k1 = kv.y;
-      r.x = (ev.x + k2 * a2) + k1 * a1;
-      a2 = a1; a1 = r.x; k2 = k1; k1 = kv.x;
-      a4[(size_t)t * (BLOCK / 4) + q] = r;
-    }
-  }
-}
-
-// F2b (c): one block per item with feedback (the others exit). From a[n],
-// the loop's operators at n, source back to destination: their columns of
-// g_amps, g_starts and g_incs, and the feedback gain's cotangent, the
-// destination's modulation cotangent times 0.5 (y_src[n-1] + y_src[n-2]).
+// F2b (b): block (item with feedback, split); the others exit. The split's
+// incoming state from the later splits' maps; then its steps from the last:
+// each tick's incoming state through the tick maps, a[n] by 8 lanes walking
+// the step's ticks, and from a[n] the loop's operators at n, source back to
+// destination: their columns of g_amps, g_starts and g_incs, and the split's
+// partial feedback-gain cotangent, the destination's modulation cotangent
+// times 0.5 (y_src[n-1] + y_src[n-2]).
 __global__ void __launch_bounds__(BWD_THREADS)
 fm_exact_bwd_loop_kernel(const float* __restrict__ amps, const float* __restrict__ starts,
                          const float* __restrict__ incs, const int* __restrict__ alg,
                          const float* __restrict__ fb_amt, const float* __restrict__ tape,
-                         const float* __restrict__ a_in, int B, int T,
+                         const float* __restrict__ e_in, const float4* __restrict__ tick_a,
+                         const float2* __restrict__ tick_b, const float4* __restrict__ split_a,
+                         const float4* __restrict__ split_b, int B, int T, int n_split,
                          float* __restrict__ g_amps, float* __restrict__ g_starts,
-                         float* __restrict__ g_incs, float* __restrict__ g_fb) {
+                         float* __restrict__ g_incs, float* __restrict__ seam,
+                         float* __restrict__ part_fb) {
   __shared__ BwdShared s;
-  const int b = blockIdx.x, tid = threadIdx.x, k = tid / BLOCK, lane = tid % BLOCK;
+  __shared__ float4 s_split[2][MAX_SPLITS];
+  __shared__ float2 s_state;
+  const int b = blockIdx.x / n_split, sp = blockIdx.x % n_split;
+  const int tid = threadIdx.x, k = tid / BLOCK, lane = tid % BLOCK;
   const float fba = fb_amt[b];
   if (fba == 0.f) return;  // the whole block
+  int tb, te;
+  split_ticks(sp, n_split, T, tb, te);
   const int a = alg[b];
   const int len = c_alg[a][ALG_LOOP_LEN], loop = c_alg[a][ALG_LOOP_MASK];
   const int ops[3] = {c_alg[a][ALG_LOOP_OPS], c_alg[a][ALG_LOOP_OPS + 1],
                       c_alg[a][ALG_LOOP_OPS + 2]};
   const float sv = (float)(lane + 1), w = sv / (float)BLOCK;
   const size_t row = (size_t)b * T * BLOCK;
+  // the state entering the split: zero past the end, through the later
+  // splits' maps from the last
+  for (int j = sp + 1 + tid; j < n_split; j += BWD_THREADS) {
+    s_split[0][j] = split_a[(size_t)j * B + b];
+    s_split[1][j] = split_b[(size_t)j * B + b];
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float2 x = make_float2(0.f, 0.f);
+    for (int j = n_split - 1; j > sp; --j) {
+      const float4 m = s_split[0][j], c = s_split[1][j];
+      const int e2 = (int)c.z;
+      x = make_float2(ldexpf(m.x * x.x + m.y * x.y, e2) + c.x,
+                      ldexpf(m.z * x.x + m.w * x.y, e2) + c.y);
+    }
+    s_state = x;
+  }
   float carry = 0.f, acc_fb = 0.f;
-  for (int t0 = 0; t0 < T; t0 += BWD_TICKS) {
+  for (int t0 = tb + (te - 1 - tb) / BWD_TICKS * BWD_TICKS; t0 >= tb; t0 -= BWD_TICKS) {
     __syncthreads();
     bwd_stage(s, amps, starts, incs, B, T, b, t0, tid);
+    if (tid < BWD_TICKS && t0 + tid < te) {
+      s.map_a[tid] = tick_a[(size_t)(t0 + tid) * B + b];
+      s.map_b[tid] = tick_b[(size_t)(t0 + tid) * B + b];
+    }
     __syncthreads();
-    const bool valid = t0 + k < T;
+    const bool valid = t0 + k < te;
     const size_t n = (size_t)(t0 + k) * BLOCK + lane;
     const float y1 = valid && n >= 1 ? tape[row + n - 1] : 0.f;
     const float y2 = valid && n >= 2 ? tape[row + n - 2] : 0.f;
     const float half = 0.5f * (y1 + y2);
-    float ly = half * fba, lsn[3], lcs[3], lam[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      lsn[j] = lcs[j] = lam[j] = 0.f;
-      if (j < len) {
-        const int op = ops[j];
-        const float prev = s.amp[k][op];
-        lam[j] = prev + (s.amp[k + 1][op] - prev) * w;
-        const float ph = s.st[k][op] + s.in[k][op] * sv;
-        sincosf(TWO_PI_F * (ph + ly * MOD_SCALE_F), &lsn[j], &lcs[j]);
-        ly = lsn[j] * lam[j];
+    float lsn[3], lcs[3], lam[3];
+    const float d = loop_forward(s, k, sv, w, ops, len, half, fba, lsn, lcs, lam);
+    s.kk[k][lane] = valid ? d * fba * 0.5f : 0.f;
+    s.ea[k][lane] = valid ? e_in[row + n] : 0.f;
+    __syncthreads();  // e and k are in s
+    if (k == MAP_WARP) {
+      if (lane == 0) {
+        // the state entering each tick of the step, from the step's end
+        float2 x = s_state;
+        for (int j = BWD_TICKS - 1; j >= 0; --j) {
+          if (t0 + j >= te) continue;
+          s.tin[j] = x;
+          const float4 m = s.map_a[j];
+          const float2 c = s.map_b[j];
+          x = make_float2((m.x * x.x + m.y * x.y) + c.x, (m.z * x.x + m.w * x.y) + c.y);
+        }
+        s_state = x;
+      }
+      __syncwarp();
+      if (lane < BWD_TICKS && t0 + lane < te) {
+        // a[n] over the tick, from its incoming state, over e in place
+        float2 x = s.tin[lane];
+        for (int i = BLOCK - 1; i >= 0; --i) {
+          const float r = (s.ea[lane][i] + x.y) + x.x;
+          s.ea[lane][i] = r;
+          x = make_float2(s.kk[lane][i] * r, x.x);
+        }
       }
     }
-    float g = valid ? a_in[row + n] : 0.f;
+    __syncthreads();  // a is in s
+    float g = valid ? s.ea[k][lane] : 0.f;
 #pragma unroll
     for (int j = 2; j >= 0; --j) {
       if (j < len) {  // block-uniform
@@ -1036,11 +1322,40 @@ fm_exact_bwd_loop_kernel(const float* __restrict__ amps, const float* __restrict
     __syncthreads();
     tick_sums(s, loop, tid);
     __syncthreads();
-    write_ticks(s, loop, B, T, b, t0, tid, carry, g_amps, g_starts, g_incs);
+    write_ticks<true>(s, loop, B, tb, te, b, t0, tid, carry, g_amps, g_starts, g_incs,
+                      seam + ((size_t)sp * B + b) * N_OPS);
   }
   __syncthreads();
   const float r_fb = block_sum(s, acc_fb, 1, tid);
-  if (tid == 0) g_fb[b] = r_fb;
+  if (tid == 0) part_fb[(size_t)sp * B + b] = r_fb;
+}
+
+// F2b (c): a warp per item: g_mv and g_fb, the sums of the splits'
+// partials; the seams, each split's first tick's share of the tick before
+// it, added into g_amps
+__global__ void __launch_bounds__(BLOCK)
+fm_exact_bwd_seams_kernel(int B, int T, int n_split, const float* __restrict__ seam,
+                          const float* __restrict__ part_mv, const float* __restrict__ part_fb,
+                          float* __restrict__ g_amps, float* __restrict__ g_fb,
+                          float* __restrict__ g_mv) {
+  const int b = blockIdx.x, lane = threadIdx.x;
+  float mv = 0.f, fb = 0.f;
+  for (int j = lane; j < n_split; j += BLOCK) {
+    mv = mv + part_mv[(size_t)j * B + b];
+    fb = fb + part_fb[(size_t)j * B + b];
+  }
+  mv = warp_sum(mv);
+  fb = warp_sum(fb);
+  if (lane == 0) {
+    g_mv[b] = mv;
+    g_fb[b] = fb;
+  }
+  for (int j = lane; j < (n_split - 1) * N_OPS; j += BLOCK) {
+    const int sp = 1 + j / N_OPS, i = j % N_OPS;
+    int tb, te;
+    split_ticks(sp, n_split, T, tb, te);
+    g_amps[((size_t)(tb - 1) * B + b) * N_OPS + i] += seam[((size_t)sp * B + b) * N_OPS + i];
+  }
 }
 
 static cudaError_t upload_algorithms(cudaStream_t stream) {
@@ -1060,26 +1375,51 @@ int fm_set_algorithms(const int* table) {
   return 0;
 }
 
+// tape: F1b's (T, B, 8) float2 state tape, or NULL (no gradient: nothing taped)
 int fm_control_launch(const float* ctl, int B, int T, int note_off, float fs, float tick_s,
                       float ln10_over_20, float* amps, float* pitch_fact, float* starts,
-                      float* incs, cudaStream_t stream) {
+                      float* incs, float* tape, cudaStream_t stream) {
   const long threads = (long)B * F1_LANES;
   const int grid = (int)((threads + F1_THREADS - 1) / F1_THREADS);
-  fm_control_kernel<<<grid, F1_THREADS, 0, stream>>>(ctl, B, T, note_off, fs, tick_s,
-                                                     ln10_over_20, amps, pitch_fact, starts,
-                                                     incs);
+  if (tape)
+    fm_control_kernel<true><<<grid, F1_THREADS, 0, stream>>>(
+        ctl, B, T, note_off, fs, tick_s, ln10_over_20, amps, pitch_fact, starts, incs,
+        reinterpret_cast<float2*>(tape));
+  else
+    fm_control_kernel<false><<<grid, F1_THREADS, 0, stream>>>(
+        ctl, B, T, note_off, fs, tick_s, ln10_over_20, amps, pitch_fact, starts, incs, nullptr);
   return (int)cudaGetLastError();
 }
 
-int fm_control_bwd_launch(const float* ctl, int B, int T, int note_off, float fs, float tick_s,
-                          float ln10_over_20, const float* g_amps, const float* g_pitch_fact,
-                          const float* g_starts, const float* g_incs, float* tape, float* gctl,
-                          cudaStream_t stream) {
+int fm_control_bwd_starts_launch(const float* g_starts, int B, int T, int n_chunk,
+                                 int chunk_ticks, float* sums, cudaStream_t stream) {
+  const long threads = (long)n_chunk * B * N_OPS;
+  const long grid = (threads + 255) / 256;
+  if (grid > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
+  fm_control_bwd_starts_kernel<<<(unsigned)grid, 256, 0, stream>>>(g_starts, B, T, n_chunk,
+                                                                     chunk_ticks, sums);
+  return (int)cudaGetLastError();
+}
+
+int fm_control_bwd_chunks_launch(const float* ctl, int B, int T, int note_off, float fs,
+                                 float tick_s, float ln10_over_20, const float* g_amps,
+                                 const float* g_pitch_fact, const float* g_starts,
+                                 const float* g_incs, const float* tape, const float* sums,
+                                 int n_chunk, int chunk_ticks, float* summ, cudaStream_t stream) {
+  const long threads = (long)n_chunk * B * F1_LANES;
+  const long grid = (threads + F1_THREADS - 1) / F1_THREADS;
+  if (grid > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
+  fm_control_bwd_chunks_kernel<<<(unsigned)grid, F1_THREADS, 0, stream>>>(
+      ctl, B, T, note_off, fs, tick_s, ln10_over_20, g_amps, g_pitch_fact, g_starts, g_incs,
+      reinterpret_cast<const float2*>(tape), sums, n_chunk, chunk_ticks, summ);
+  return (int)cudaGetLastError();
+}
+
+int fm_control_bwd_combine_launch(int B, int n_chunk, const float* summ, float* gctl,
+                                  cudaStream_t stream) {
   const long threads = (long)B * F1_LANES;
   const int grid = (int)((threads + F1_THREADS - 1) / F1_THREADS);
-  fm_control_bwd_kernel<<<grid, F1_THREADS, 0, stream>>>(
-      ctl, B, T, note_off, fs, tick_s, ln10_over_20, g_amps, g_pitch_fact, g_starts, g_incs,
-      reinterpret_cast<float2*>(tape), gctl);
+  fm_control_bwd_combine_kernel<<<grid, F1_THREADS, 0, stream>>>(B, n_chunk, summ, gctl);
   return (int)cudaGetLastError();
 }
 
@@ -1119,32 +1459,47 @@ int fm_exact_ff_launch(const float* amps, const float* starts, const float* incs
 int fm_exact_bwd_ff_launch(const float* amps, const float* starts, const float* incs,
                            const int* alg, const float* fb_amt, const float* n_carriers,
                            const float* master_volume, const float* scale, const float* tape,
-                           const float* g_out, int B, int T, float* e, float* k, float* g_amps,
-                           float* g_starts, float* g_incs, float* g_fb, float* g_mv,
-                           cudaStream_t stream) {
+                           const float* g_out, int B, int T, int n_split, float* e,
+                           float* tick_a, float* tick_b, float* split_a, float* split_b,
+                           float* g_amps, float* g_starts, float* g_incs, float* seam,
+                           float* part_mv, float* part_fb, cudaStream_t stream) {
   cudaError_t err = upload_algorithms(stream);
   if (err != cudaSuccess) return (int)err;
-  fm_exact_bwd_ff_kernel<<<B, BWD_THREADS, 0, stream>>>(
-      amps, starts, incs, alg, fb_amt, n_carriers, master_volume, scale, tape, g_out, B, T, e, k,
-      g_amps, g_starts, g_incs, g_fb, g_mv);
-  return (int)cudaGetLastError();
-}
-
-int fm_exact_bwd_rec_launch(const float* fb_amt, const float* k, float* ea, int B, int T,
-                            cudaStream_t stream) {
-  const int grid = (B + REC_THREADS - 1) / REC_THREADS;
-  fm_exact_bwd_rec_kernel<<<grid, REC_THREADS, 0, stream>>>(fb_amt, k, ea, B, T);
+  const long grid = (long)B * n_split;
+  if (n_split < 1 || n_split > MAX_SPLITS || grid > 0x7fffffffL)
+    return (int)cudaErrorInvalidConfiguration;
+  fm_exact_bwd_ff_kernel<<<(unsigned)grid, BWD_THREADS, 0, stream>>>(
+      amps, starts, incs, alg, fb_amt, n_carriers, master_volume, scale, tape, g_out, B, T,
+      n_split, e, reinterpret_cast<float4*>(tick_a), reinterpret_cast<float2*>(tick_b),
+      reinterpret_cast<float4*>(split_a), reinterpret_cast<float4*>(split_b), g_amps, g_starts,
+      g_incs, seam, part_mv, part_fb);
   return (int)cudaGetLastError();
 }
 
 int fm_exact_bwd_loop_launch(const float* amps, const float* starts, const float* incs,
                              const int* alg, const float* fb_amt, const float* tape,
-                             const float* a, int B, int T, float* g_amps, float* g_starts,
-                             float* g_incs, float* g_fb, cudaStream_t stream) {
+                             const float* e, const float* tick_a, const float* tick_b,
+                             const float* split_a, const float* split_b, int B, int T,
+                             int n_split, float* g_amps, float* g_starts, float* g_incs,
+                             float* seam, float* part_fb, cudaStream_t stream) {
   cudaError_t err = upload_algorithms(stream);
   if (err != cudaSuccess) return (int)err;
-  fm_exact_bwd_loop_kernel<<<B, BWD_THREADS, 0, stream>>>(
-      amps, starts, incs, alg, fb_amt, tape, a, B, T, g_amps, g_starts, g_incs, g_fb);
+  const long grid = (long)B * n_split;
+  if (n_split < 1 || n_split > MAX_SPLITS || grid > 0x7fffffffL)
+    return (int)cudaErrorInvalidConfiguration;
+  fm_exact_bwd_loop_kernel<<<(unsigned)grid, BWD_THREADS, 0, stream>>>(
+      amps, starts, incs, alg, fb_amt, tape, e, reinterpret_cast<const float4*>(tick_a),
+      reinterpret_cast<const float2*>(tick_b), reinterpret_cast<const float4*>(split_a),
+      reinterpret_cast<const float4*>(split_b), B, T, n_split, g_amps, g_starts, g_incs, seam,
+      part_fb);
+  return (int)cudaGetLastError();
+}
+
+int fm_exact_bwd_seams_launch(int B, int T, int n_split, const float* seam, const float* part_mv,
+                              const float* part_fb, float* g_amps, float* g_fb, float* g_mv,
+                              cudaStream_t stream) {
+  fm_exact_bwd_seams_kernel<<<B, BLOCK, 0, stream>>>(B, T, n_split, seam, part_mv, part_fb,
+                                                     g_amps, g_fb, g_mv);
   return (int)cudaGetLastError();
 }
 

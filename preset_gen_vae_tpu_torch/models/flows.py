@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.multihost import batch_moments, world_size
-from .layers import BatchNorm, dropout, widen
+from .layers import BatchNorm, dropout, update_running_stats, widen
 
 
 def checkerboard_mask(features: int, even_transformed: bool) -> np.ndarray:
@@ -125,6 +125,7 @@ class BatchNormFlow(nn.Module):
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.stats_frozen = False  # set by layers.running_stats_frozen
         self.log_gamma = nn.Parameter(torch.zeros(features))
         self.beta = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -136,9 +137,7 @@ class BatchNormFlow(nn.Module):
                 mean, var = batch_moments(x, [0])
             else:
                 var, mean = torch.var_mean(x, dim=0, unbiased=False)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+            update_running_stats(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         y = torch.exp(self.log_gamma) * (x - mean) * torch.rsqrt(var + self.eps) + self.beta

@@ -14,6 +14,7 @@ package's ``TorchConvTranspose2d`` (layers.py:36-90) rebuilds by hand:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -67,6 +68,34 @@ def f32_linear(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         return linear(widen(x))
 
 
+@contextlib.contextmanager
+def running_stats_frozen(model: nn.Module):
+    """Inside the block the train-mode ``BatchNorm`` and ``BatchNormFlow``
+    layers of ``model`` normalise with the batch statistics as before but
+    update no running statistic: a forward recomputed for its backward
+    (``TrainConfig.remat``) leaves them as the forward's first pass left
+    them."""
+    layers = [m for m in model.modules() if hasattr(m, "stats_frozen")]
+    for m in layers:
+        m.stats_frozen = True
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.stats_frozen = False
+
+
+def update_running_stats(module: nn.Module, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """``running = momentum * running + (1 - momentum) * batch`` for the
+    module's ``running_mean`` and ``running_var``, in place and outside
+    autograd; nothing while its statistics are frozen."""
+    if module.stats_frozen:
+        return
+    with torch.no_grad():
+        module.running_mean.mul_(module.momentum).add_(mean, alpha=1.0 - module.momentum)
+        module.running_var.mul_(module.momentum).add_(var, alpha=1.0 - module.momentum)
+
+
 class BatchNorm(nn.Module):
     """Batch normalisation over every axis but axis 1, with flax
     ``nn.BatchNorm`` semantics: the running variance is updated with the
@@ -81,6 +110,7 @@ class BatchNorm(nn.Module):
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.stats_frozen = False  # set by running_stats_frozen
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -91,18 +121,15 @@ class BatchNorm(nn.Module):
         if self.training and world_size() > 1:
             dims = [0] + list(range(2, x.dim()))
             mean, var = batch_moments(x, dims)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+            update_running_stats(self, mean, var)
             shape = (1, -1) + (1,) * (x.dim() - 2)
             scale = (self.weight * torch.rsqrt(var + self.eps)).reshape(shape)
             return (x - mean.reshape(shape)) * scale + self.bias.reshape(shape)
-        if self.training:
+        if self.training and not self.stats_frozen:
             with torch.no_grad():
                 dims = [0] + list(range(2, x.dim()))
                 var, mean = torch.var_mean(x, dim=dims, unbiased=False)
-                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+            update_running_stats(self, mean, var)
         return F.batch_norm(x, None if self.training else self.running_mean,
                             None if self.training else self.running_var,
                             self.weight, self.bias, training=self.training, eps=self.eps)

@@ -27,12 +27,14 @@ not the C++ engine's interpolated table.
   live in ``csrc/fm_render.cu``, are built with nvcc at first use and
   bound with ctypes. Both have a backward, so that either render is
   differentiable on the card: F1b (``fm_control_bwd``, through
-  ``FmControl``) and F2b (``fm_exact_bwd``, through ``FmExact``: the
-  operators off the feedback loop one thread a sample, the loop's
-  adjoint as a linear recurrence over F2's taped loop output, the loop's
-  operators one thread a sample again). Their plain versions are
-  ``control_pass_vjp`` and ``exact_pass_vjp``. A failed build or launch
-  raises; nothing falls back to the plain loops.
+  ``FmControl``: F1 under a gradient tapes its state, and the reverse
+  walk's ticks are cut into chunks walked in parallel and combined per
+  item) and F2b (``fm_exact_bwd``, through ``FmExact``: the operators
+  off the feedback loop one thread a sample, the loop's adjoint as a
+  linear recurrence over F2's taped loop output, scanned over ticks and
+  splits of ticks, the loop's operators one thread a sample again). Their
+  plain versions are ``control_pass_vjp`` and ``exact_pass_vjp``. A
+  failed build or launch raises; nothing falls back to the plain loops.
 
 The decode and the per-item constants of the control pass
 (``control_params``) are torch ops on either device; they pack into one
@@ -43,6 +45,7 @@ neighbouring threads of F1 and F2 touch neighbouring addresses.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -61,15 +64,28 @@ SH_SEED = 0x12345678  # the S&H LCG's state at note-on (fm_jax.py:336)
 
 # launches of each hand-written kernel, counted by its wrapper at the launch;
 # "fm_exact" counts calls of F2's wrapper, each of which launches
-# "fm_fb_loop" and "fm_exact_ff" once per segment of ``exact_segments``
-# "fm_exact_bwd" counts calls of F2b's wrapper, each of which launches
-# "fm_exact_bwd_ff", "fm_exact_bwd_rec" and "fm_exact_bwd_loop" once
+# "fm_fb_loop" and "fm_exact_ff" once per segment of ``exact_segments``;
+# "fm_control_bwd" counts calls of F1b's wrapper, each of which launches
+# "fm_control_bwd_starts", "fm_control_bwd_chunks" and
+# "fm_control_bwd_combine" once; "fm_exact_bwd" counts calls of F2b's
+# wrapper, each of which launches "fm_exact_bwd_ff", "fm_exact_bwd_loop"
+# and "fm_exact_bwd_seams" once
+F1B_KERNELS = ("fm_control_bwd_starts", "fm_control_bwd_chunks", "fm_control_bwd_combine")
+F2B_KERNELS = ("fm_exact_bwd_ff", "fm_exact_bwd_loop", "fm_exact_bwd_seams")
 LAUNCHES = {"fm_control": 0, "fm_exact": 0, "fm_fb_loop": 0, "fm_exact_ff": 0,
-            "fm_control_bwd": 0, "fm_exact_bwd": 0, "fm_exact_bwd_ff": 0,
-            "fm_exact_bwd_rec": 0, "fm_exact_bwd_loop": 0}
+            "fm_control_bwd": 0, **dict.fromkeys(F1B_KERNELS, 0),
+            "fm_exact_bwd": 0, **dict.fromkeys(F2B_KERNELS, 0)}
 F1_LANES = 8  # F1's and F1b's threads per item (csrc/fm_render.cu's F1_LANES)
-TAPE_LANE_BYTES = 8  # F1b's tape: one float2 per lane and tick
-EXACT_BWD_SCRATCH = 2  # F2b's (B, T*32) f32 scratch rows: e (then a) and k (BWD_SCRATCH)
+TAPE_LANE_BYTES = 8  # F1's tape under a gradient: one float2 per lane and tick
+F1B_SUM = 24  # floats of a lane's chunk summary in F1b (csrc/fm_render.cu's F1B_SUM)
+# F1b cuts an item's ticks into chunks of at least this many ticks, enough
+# of them that items x chunks reaches the target (the walks' parallelism)
+CONTROL_BWD_ITEM_CHUNKS = 16384
+CONTROL_BWD_MIN_TICKS = 16
+# F2b cuts an item's ticks into splits of whole 8-tick steps, enough that
+# items x splits reaches the target blocks, at most MAX_SPLITS (csrc)
+EXACT_BWD_BLOCKS = 4096
+EXACT_BWD_MAX_SPLITS = 256
 
 # ---------------------------------------------------------------------------
 # Algorithm table (public DX7 spec; fm_jax.py:56-127, dx7_engine.cc:155-188)
@@ -776,8 +792,8 @@ def fm_build_command():
 
 @functools.lru_cache(maxsize=None)
 def _fm_library() -> ctypes.CDLL:
-    """Builds (first use only) and loads F1, F1b, F2's two kernels and F2b's
-    three, and hands
+    """Builds (first use only) and loads F1, F1b's three kernels, F2's two
+    and F2b's three, and hands
     them the algorithm table, which F2's launches copy into constant
     memory. The table is built first, so that one whose feedback loops F2
     cannot split raises before anything is built. Never called at import."""
@@ -788,19 +804,23 @@ def _fm_library() -> ctypes.CDLL:
     lib.fm_set_algorithms.restype = i
     lib.fm_set_algorithms.argtypes = [p]
     lib.fm_control_launch.restype = i
-    lib.fm_control_launch.argtypes = [p, i, i, i, f, f, f, p, p, p, p, p]
-    lib.fm_control_bwd_launch.restype = i
-    lib.fm_control_bwd_launch.argtypes = [p, i, i, i, f, f, f, p, p, p, p, p, p, p]
+    lib.fm_control_launch.argtypes = [p, i, i, i, f, f, f, p, p, p, p, p, p]
+    lib.fm_control_bwd_starts_launch.restype = i
+    lib.fm_control_bwd_starts_launch.argtypes = [p, i, i, i, i, p, p]
+    lib.fm_control_bwd_chunks_launch.restype = i
+    lib.fm_control_bwd_chunks_launch.argtypes = [p, i, i, i, f, f, f] + [p] * 6 + [i, i, p, p]
+    lib.fm_control_bwd_combine_launch.restype = i
+    lib.fm_control_bwd_combine_launch.argtypes = [i, i, p, p, p]
     lib.fm_fb_loop_launch.restype = i
     lib.fm_fb_loop_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p, p]
     lib.fm_exact_ff_launch.restype = i
     lib.fm_exact_ff_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p, p, p]
     lib.fm_exact_bwd_ff_launch.restype = i
-    lib.fm_exact_bwd_ff_launch.argtypes = [p] * 10 + [i, i] + [p] * 8
-    lib.fm_exact_bwd_rec_launch.restype = i
-    lib.fm_exact_bwd_rec_launch.argtypes = [p, p, p, i, i, p]
+    lib.fm_exact_bwd_ff_launch.argtypes = [p] * 10 + [i, i, i] + [p] * 12
     lib.fm_exact_bwd_loop_launch.restype = i
-    lib.fm_exact_bwd_loop_launch.argtypes = [p] * 7 + [i, i] + [p] * 5
+    lib.fm_exact_bwd_loop_launch.argtypes = [p] * 11 + [i, i, i] + [p] * 6
+    lib.fm_exact_bwd_seams_launch.restype = i
+    lib.fm_exact_bwd_seams_launch.argtypes = [i, i, i] + [p] * 7
     for name, want in (("fm_ctl_width", CTL_WIDTH), ("fm_alg_width", rows.shape[1])):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
@@ -873,28 +893,41 @@ def _check(name, t, dtype, shape, dev):
 def fm_control(ctl, n_ticks: int, note_off_sample: int, sample_rate: int):
     """F1's wrapper: (B, CTL_WIDTH) float32 on the card -> amps (T, B, 6),
     pitch_fact (T, B), phase starts and increments (T, B, 6);
-    differentiable in ``ctl`` through ``FmControl``."""
-    return FmControl.apply(ctl, n_ticks, note_off_sample, sample_rate)
+    differentiable in ``ctl`` through ``FmControl`` (F1 taped, F1b
+    backward); a call that needs no gradient launches F1 alone and keeps no
+    tape."""
+    if torch.is_grad_enabled() and ctl.requires_grad:
+        return FmControl.apply(ctl, n_ticks, note_off_sample, sample_rate)
+    return _fm_control_launch(ctl, n_ticks, note_off_sample, sample_rate, taped=False)[:4]
 
 
 class FmControl(torch.autograd.Function):
-    """F1 forward, F1b backward. A call that needs no gradient launches F1
-    alone."""
+    """F1 forward with its state on a tape, F1b backward."""
 
     @staticmethod
     def forward(ctx, ctl, n_ticks, note_off_sample, sample_rate):
-        ctx.save_for_backward(ctl)
+        *outs, tape = _fm_control_launch(ctl, n_ticks, note_off_sample, sample_rate, taped=True)
+        ctx.save_for_backward(ctl, tape)
         ctx.args = (n_ticks, note_off_sample, sample_rate)
-        return _fm_control_launch(ctl, n_ticks, note_off_sample, sample_rate)
+        return tuple(outs)
 
     @staticmethod
     def backward(ctx, g_amps, g_pitch_fact, g_starts, g_incs):
-        (ctl,) = ctx.saved_tensors
-        return (fm_control_bwd(ctl, *ctx.args, g_amps, g_pitch_fact, g_starts, g_incs),
+        ctl, tape = ctx.saved_tensors
+        return (fm_control_bwd(ctl, tape, *ctx.args, g_amps, g_pitch_fact, g_starts, g_incs),
                 None, None, None)
 
 
-def _fm_control_launch(ctl, n_ticks: int, note_off_sample: int, sample_rate: int):
+def tape_bytes(n_items: int, n_ticks: int) -> int:
+    """Device bytes of F1's tape under a gradient, which F1b reads: 64 a
+    tick and item (0.18 GB at 1,024 items and 2,768 ticks)."""
+    return n_ticks * n_items * F1_LANES * TAPE_LANE_BYTES
+
+
+def _fm_control_launch(ctl, n_ticks: int, note_off_sample: int, sample_rate: int, taped: bool):
+    """F1: -> (amps, pitch_fact, starts, incs, tape); ``taped``: F1 also
+    writes its state, ``tape_bytes(B, n_ticks)`` of it, for F1b (raises
+    where that does not fit), else the tape is None."""
     dev = ctl.device
     if dev.type != "cuda":
         raise ValueError(f"F1 runs on the card; the plain version is control_pass ({dev})")
@@ -902,6 +935,13 @@ def _fm_control_launch(ctl, n_ticks: int, note_off_sample: int, sample_rate: int
     _check("ctl", ctl, torch.float32, (B, CTL_WIDTH), dev)
     if B == 0 or n_ticks <= 0:
         raise ValueError(f"empty control pass: {B} items, {n_ticks} ticks")
+    tape = None
+    if taped:
+        try:
+            tape = torch.empty((n_ticks, B, F1_LANES, 2), dtype=torch.float32, device=dev)
+        except torch.cuda.OutOfMemoryError as e:
+            raise RuntimeError(f"F1's tape needs {tape_bytes(B, n_ticks) / 2**30:.2f} GiB for "
+                               f"{B} items x {n_ticks} ticks, more than {dev} has free") from e
     amps = torch.empty((n_ticks, B, N_OPS), dtype=torch.float32, device=dev)
     pitch_fact = torch.empty((n_ticks, B), dtype=torch.float32, device=dev)
     starts, incs = torch.empty_like(amps), torch.empty_like(amps)
@@ -911,26 +951,36 @@ def _fm_control_launch(ctl, n_ticks: int, note_off_sample: int, sample_rate: int
         err = lib.fm_control_launch(
             ctl.data_ptr(), B, n_ticks, note_off_sample, fs, float(np.float32(BLOCK / fs)),
             LN10_OVER_20, amps.data_ptr(), pitch_fact.data_ptr(), starts.data_ptr(),
-            incs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            incs.data_ptr(), None if tape is None else tape.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fm_control kernel launch failed: cudaError_t {err}")
     LAUNCHES["fm_control"] += 1
-    return amps, pitch_fact, starts, incs
+    return amps, pitch_fact, starts, incs, tape
 
 
-def tape_bytes(n_items: int, n_ticks: int) -> int:
-    """Device bytes of F1b's tape: 64 a tick and item (0.18 GB at 1,024
-    items and 2,768 ticks)."""
-    return n_ticks * n_items * F1_LANES * TAPE_LANE_BYTES
+def control_bwd_chunks(n_items: int, n_ticks: int):
+    """(chunks, ticks a chunk) of F1b's walks: enough chunks that items x
+    chunks reaches ``CONTROL_BWD_ITEM_CHUNKS``, each at least
+    ``CONTROL_BWD_MIN_TICKS`` long (bar the last, which may be shorter),
+    none empty: (16, 173) at 1,024 items and 2,768 ticks, (65, 16) at one
+    item and 1,040."""
+    n = max(1, min(-(-CONTROL_BWD_ITEM_CHUNKS // n_items), n_ticks // CONTROL_BWD_MIN_TICKS))
+    ticks = -(-n_ticks // n)
+    return -(-n_ticks // ticks), ticks
 
 
-def fm_control_bwd(ctl, n_ticks: int, note_off_sample: int, sample_rate: int, g_amps,
+def fm_control_bwd(ctl, tape, n_ticks: int, note_off_sample: int, sample_rate: int, g_amps,
                    g_pitch_fact, g_starts, g_incs):
-    """F1b's wrapper: ``ctl`` (B, CTL_WIDTH) and the cotangents of F1's four
-    outputs on the card (None reads as zeros; any strides) -> the gradient
-    of ``ctl``, (B, CTL_WIDTH) float32. The kernel keeps a tape of
-    ``tape_bytes(B, n_ticks)`` on the card and raises where that does not
-    fit."""
+    """F1b's wrapper: ``ctl`` (B, CTL_WIDTH), the tape that F1 wrote for it
+    under a gradient (``_fm_control_launch(..., taped=True)``) and the
+    cotangents of F1's four outputs on the card (None reads as zeros; any
+    strides) -> the gradient of ``ctl``, (B, CTL_WIDTH) float32. Three
+    launches on the caller's stream: ``fm_control_bwd_starts`` (each
+    chunk's sum of the phase starts' cotangents), ``fm_control_bwd_chunks``
+    (each (item, chunk) walked in reverse from zero incoming adjoints) and
+    ``fm_control_bwd_combine`` (the chunks combined into each item's row),
+    over ``control_bwd_chunks(B, n_ticks)``."""
     dev = ctl.device
     if dev.type != "cuda":
         raise ValueError(f"F1b runs on the card; the plain version is control_pass_vjp ({dev})")
@@ -938,6 +988,7 @@ def fm_control_bwd(ctl, n_ticks: int, note_off_sample: int, sample_rate: int, g_
     _check("ctl", ctl, torch.float32, (B, CTL_WIDTH), dev)
     if B == 0 or n_ticks <= 0:
         raise ValueError(f"empty control pass: {B} items, {n_ticks} ticks")
+    _check("tape", tape, torch.float32, (n_ticks, B, F1_LANES, 2), dev)
     shapes = ((n_ticks, B, N_OPS), (n_ticks, B), (n_ticks, B, N_OPS), (n_ticks, B, N_OPS))
     cots = []
     for name, g, shape in zip(("g_amps", "g_pitch_fact", "g_starts", "g_incs"),
@@ -945,21 +996,18 @@ def fm_control_bwd(ctl, n_ticks: int, note_off_sample: int, sample_rate: int, g_
         g = torch.zeros(shape, dtype=torch.float32, device=dev) if g is None else g.contiguous()
         _check(name, g, torch.float32, shape, dev)
         cots.append(g)
-    try:
-        tape = torch.empty((n_ticks, B, F1_LANES, 2), dtype=torch.float32, device=dev)
-    except torch.cuda.OutOfMemoryError as e:
-        raise RuntimeError(f"F1b's tape needs {tape_bytes(B, n_ticks) / 2**30:.2f} GiB for {B} "
-                           f"items x {n_ticks} ticks, more than {dev} has free") from e
+    n_chunk, chunk_ticks = control_bwd_chunks(B, n_ticks)
+    sums = torch.empty((n_chunk, B, N_OPS), dtype=torch.float32, device=dev)
+    summ = torch.empty((n_chunk, B, F1_LANES, F1B_SUM), dtype=torch.float32, device=dev)
     gctl = torch.empty((B, CTL_WIDTH), dtype=torch.float32, device=dev)
-    lib = _fm_library()
     fs = float(sample_rate)
     with torch.cuda.device(dev):
-        err = lib.fm_control_bwd_launch(
-            ctl.data_ptr(), B, n_ticks, note_off_sample, fs, float(np.float32(BLOCK / fs)),
-            LN10_OVER_20, *(g.data_ptr() for g in cots), tape.data_ptr(), gctl.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fm_control_bwd kernel launch failed: cudaError_t {err}")
+        _launch("fm_control_bwd_starts", cots[2].data_ptr(), B, n_ticks, n_chunk, chunk_ticks,
+                sums.data_ptr())
+        _launch("fm_control_bwd_chunks", ctl.data_ptr(), B, n_ticks, note_off_sample, fs,
+                float(np.float32(BLOCK / fs)), LN10_OVER_20, *(g.data_ptr() for g in cots),
+                tape.data_ptr(), sums.data_ptr(), n_chunk, chunk_ticks, summ.data_ptr())
+        _launch("fm_control_bwd_combine", B, n_chunk, summ.data_ptr(), gctl.data_ptr())
     LAUNCHES["fm_control_bwd"] += 1
     return gctl
 
@@ -1067,11 +1115,26 @@ def _fm_exact_launch(amps, starts, incs, alg, fb_amt, n_carriers, master_volume,
     return out, tape
 
 
+def exact_bwd_splits(n_items: int, n_ticks: int) -> int:
+    """F2b's splits of an item's ticks: whole 8-tick steps each, enough that
+    items x splits reaches ``EXACT_BWD_BLOCKS`` blocks, at most
+    ``EXACT_BWD_MAX_SPLITS``, none empty: 4 at 1,024 items and 2,768
+    ticks, 130 (a step each) at one item and 1,040."""
+    steps = -(-n_ticks // 8)
+    n = max(1, min(-(-EXACT_BWD_BLOCKS // n_items), steps, EXACT_BWD_MAX_SPLITS))
+    per = -(-steps // n)
+    return -(-steps // per)
+
+
 def exact_bwd_scratch_bytes(n_items: int, n_samples: int) -> int:
-    """Device bytes of F2b's scratch, e (then a) and k, f32 a sample and
-    item each (0.73 GB at 1,024 items and 88,576 samples); the forward's
-    tape under a gradient is another 4 bytes a sample and item."""
-    return EXACT_BWD_SCRATCH * 4 * n_items * n_samples
+    """Device bytes of F2b's scratch: e (then a), f32 a sample and item; the
+    tick maps, 6 f32 a tick and item; and per split and item its map (8
+    f32), seam (6) and partial sums (2): 0.43 GB at 1,024 items and 88,576
+    samples. The forward's tape under a gradient is another 4 bytes a
+    sample and item."""
+    n_ticks = n_samples // BLOCK
+    splits = exact_bwd_splits(n_items, n_ticks)
+    return 4 * n_items * (n_samples + 6 * n_ticks + 16 * splits)
 
 
 def fm_exact_bwd(tape, amps, starts, incs, alg, fb_amt, n_carriers, master_volume,
@@ -1081,11 +1144,13 @@ def fm_exact_bwd(tape, amps, starts, incs, alg, fb_amt, n_carriers, master_volum
     reads as zeros; any strides) on the card -> the gradients of
     ``amps``, ``starts``, ``incs`` ((T, B, 6) float32), ``fb_amt`` and
     ``master_volume`` ((B,) float32), as ``exact_pass_vjp`` gives them.
-    Three launches on the caller's stream: ``fm_exact_bwd_ff`` (the
-    operators off the loop; e and k), ``fm_exact_bwd_rec`` (the loop's
-    linear recurrence) and ``fm_exact_bwd_loop`` (the loop's operators).
-    Keeps ``exact_bwd_scratch_bytes(B, T*32)`` on the card and raises
-    where that does not fit."""
+    Three launches on the caller's stream over ``exact_bwd_splits(B, T)``
+    splits of the ticks: ``fm_exact_bwd_ff`` (the operators off the loop;
+    e, the tick maps and the splits' maps), ``fm_exact_bwd_loop`` (the
+    loop's recurrence and operators) and ``fm_exact_bwd_seams`` (the
+    splits' partial sums and seams). Keeps
+    ``exact_bwd_scratch_bytes(B, T*32)`` on the card and raises where that
+    does not fit."""
     dev = amps.device
     if dev.type != "cuda":
         raise ValueError(f"F2b runs on the card; the plain version is exact_pass_vjp ({dev})")
@@ -1095,51 +1160,70 @@ def fm_exact_bwd(tape, amps, starts, incs, alg, fb_amt, n_carriers, master_volum
     g_out = torch.zeros((B, N), dtype=torch.float32, device=dev) if g_out is None \
         else g_out.contiguous()
     _check("g_out", g_out, torch.float32, (B, N), dev)
+    n_split = exact_bwd_splits(B, T)
     try:
-        ea = torch.empty((B, N), dtype=torch.float32, device=dev)
-        k = torch.empty((B, N), dtype=torch.float32, device=dev)
-    except torch.cuda.OutOfMemoryError as e:
+        e = torch.empty((B, N), dtype=torch.float32, device=dev)
+        tick_a = torch.empty((T, B, 4), dtype=torch.float32, device=dev)
+        tick_b = torch.empty((T, B, 2), dtype=torch.float32, device=dev)
+    except torch.cuda.OutOfMemoryError as err:
         raise RuntimeError(f"F2b's scratch needs {exact_bwd_scratch_bytes(B, N) / 2**30:.2f} GiB "
-                           f"for {B} items x {N} samples, more than {dev} has free") from e
+                           f"for {B} items x {N} samples, more than {dev} has free") from err
+    split_a, split_b = (torch.empty((n_split, B, 4), dtype=torch.float32, device=dev)
+                        for _ in range(2))
+    seam = torch.empty((n_split, B, N_OPS), dtype=torch.float32, device=dev)
+    part_mv, part_fb = (torch.empty((n_split, B), dtype=torch.float32, device=dev)
+                        for _ in range(2))
     g_amps, g_starts, g_incs = (torch.empty((T, B, N_OPS), dtype=torch.float32, device=dev)
                                 for _ in range(3))
     g_fb, g_mv = (torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(2))
     scale = _fade_table(N, int(sample_rate), dev)
     ptrs = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
     with torch.cuda.device(dev):
-        _launch_bwd("fm_exact_bwd_ff", *ptrs(amps, starts, incs, alg, fb_amt, n_carriers,
-                                             master_volume, scale, tape, g_out), B, T,
-                    *ptrs(ea, k, g_amps, g_starts, g_incs, g_fb, g_mv))
-        _launch_bwd("fm_exact_bwd_rec", *ptrs(fb_amt, k, ea), B, T)
-        _launch_bwd("fm_exact_bwd_loop", *ptrs(amps, starts, incs, alg, fb_amt, tape, ea), B, T,
-                    *ptrs(g_amps, g_starts, g_incs, g_fb))
+        _launch("fm_exact_bwd_ff", *ptrs(amps, starts, incs, alg, fb_amt, n_carriers,
+                                         master_volume, scale, tape, g_out), B, T, n_split,
+                *ptrs(e, tick_a, tick_b, split_a, split_b, g_amps, g_starts, g_incs, seam,
+                      part_mv, part_fb))
+        _launch("fm_exact_bwd_loop", *ptrs(amps, starts, incs, alg, fb_amt, tape, e, tick_a,
+                                           tick_b, split_a, split_b), B, T, n_split,
+                *ptrs(g_amps, g_starts, g_incs, seam, part_fb))
+        _launch("fm_exact_bwd_seams", B, T, n_split, *ptrs(seam, part_mv, part_fb, g_amps,
+                                                           g_fb, g_mv))
     LAUNCHES["fm_exact_bwd"] += 1
     return g_amps, g_starts, g_incs, g_fb, g_mv
 
 
-def _launch_bwd(name: str, *args):
-    """Launches F2b's kernel ``name`` on the current stream with ``args``
-    (pointers and ints); raises where the launch fails; counts it."""
+_event_sink: list | None = None  # set by ``kernel_events``
+
+
+@contextlib.contextmanager
+def kernel_events():
+    """Yields a list into which each F1b and F2b kernel launched inside
+    appends ``(name, start, stop)``: CUDA events recorded on the stream
+    just before and just after its launch (read them after a
+    synchronize)."""
+    global _event_sink
+    outer, _event_sink = _event_sink, []
+    try:
+        yield _event_sink
+    finally:
+        _event_sink = outer
+
+
+def _launch(name: str, *args):
+    """Launches F1b's or F2b's kernel ``name`` on the current stream with
+    ``args`` (pointers and ints); raises where the launch fails; counts
+    it; inside ``kernel_events``, records an event on each side of it."""
+    sink = _event_sink
+    if sink is not None:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
     err = getattr(_fm_library(), f"{name}_launch")(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1
-
-
-def fm_exact_bwd_rec(fb_amt, k, ea):
-    """F2b's recurrence alone, on the caller's stream: ``ea`` (B, T*32)
-    holds e and is overwritten with a on the items with feedback, ``k``
-    (B, T*32) as ``fm_exact_bwd`` makes them. Returns ``ea``."""
-    dev, B = ea.device, ea.shape[0]
-    if dev.type != "cuda":
-        raise ValueError(f"F2b runs on the card; the plain version is exact_pass_vjp ({dev})")
-    _check("fb_amt", fb_amt, torch.float32, (B,), dev)
-    _check("k", k, torch.float32, tuple(ea.shape), dev)
-    _check("ea", ea, torch.float32, (B, ea.shape[1] // BLOCK * BLOCK), dev)
-    with torch.cuda.device(dev):
-        _launch_bwd("fm_exact_bwd_rec", fb_amt.data_ptr(), k.data_ptr(), ea.data_ptr(), B,
-                    ea.shape[1] // BLOCK)
-    return ea
+    if sink is not None:
+        stop.record()
+        sink.append((name, start, stop))
 
 
 def fm_fb_loop(amps, starts, incs, alg, fb_amt):

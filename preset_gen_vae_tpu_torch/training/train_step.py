@@ -28,6 +28,17 @@ parameters (config.py:158, models/build.py:22-25 there); the losses are
 float32. ``torch.optim.Adam(weight_decay=wd)`` adds ``wd * w`` to the
 gradient before the moments: the coupled L2 of ``make_optimizer`` (optax
 ``add_decayed_weights`` then ``adam``).
+
+With ``TrainConfig.remat`` the train step's forward runs under
+``torch.utils.checkpoint`` (non-reentrant), as the JAX step wraps it in
+``jax.checkpoint`` (train_step.py:257-260 there): its activations are
+recomputed in the backward instead of kept. The recompute is the same
+math: it draws the same dropout masks and VAE noise (the step's generator
+is set back to its state before the forward, and afterwards to where it
+stood), and its BatchNorms leave the running statistics that the forward
+updated alone, so that remat changes neither the loss, the gradients, the
+running statistics nor the generator's state after the step. The
+FlowParamsLoss pullback stays outside the checkpoint.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import contextlib
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..config import ModelConfig, TrainConfig
 from ..data.preset import PresetIndexesHelper
@@ -50,7 +62,7 @@ from ..losses.vae_losses import (
     latent_dkl_loss,
     reconstruction_loss,
 )
-from ..models.layers import widen
+from ..models.layers import running_stats_frozen, widen
 from ..ops.probability import gaussian_log_probability
 from ..parallel.multihost import average_gradients
 
@@ -204,6 +216,41 @@ def autocast(device: torch.device, train_config: TrainConfig):
     return contextlib.nullcontext()
 
 
+def _recompute_contexts(model, generator: Optional[torch.Generator]):
+    """``context_fn`` of the remat checkpoint, called as the forward
+    starts: (the forward's context, the recompute's). The recompute runs
+    with ``generator`` at its state from before the forward, and restores
+    the state it found, and with ``model``'s running statistics frozen."""
+    before = None if generator is None else generator.get_state()
+
+    @contextlib.contextmanager
+    def recompute():
+        found = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(before)
+        try:
+            with running_stats_frozen(model):
+                yield
+        finally:
+            if generator is not None:
+                generator.set_state(found)
+
+    return contextlib.nullcontext(), recompute()
+
+
+def forward_for_step(model, train_config: TrainConfig, x_in, sample_info, noise=None,
+                     generator: Optional[torch.Generator] = None):
+    """``model.forward_full`` for a train step: under a non-reentrant
+    checkpoint when ``train_config.remat`` is set (the forward recomputed
+    in the backward, the same draws, the running statistics updated
+    once)."""
+    if not train_config.remat:
+        return model.forward_full(x_in, sample_info, noise=noise, generator=generator)
+    return torch.utils.checkpoint.checkpoint(
+        model.forward_full, x_in, sample_info, noise=noise, generator=generator,
+        use_reentrant=False, context_fn=lambda: _recompute_contexts(model, generator))
+
+
 def train_step(model, optimizer, criteria: Criteria, train_config: TrainConfig,
                x_in, v_in, sample_info, beta: float,
                generator: Optional[torch.Generator] = None,
@@ -217,7 +264,7 @@ def train_step(model, optimizer, criteria: Criteria, train_config: TrainConfig,
     model.train()
     stats_before = criteria.stats_before_step(model)
     with autocast(x_in.device, train_config):
-        outs = model.forward_full(x_in, sample_info, noise=noise, generator=generator)
+        outs = forward_for_step(model, train_config, x_in, sample_info, noise, generator)
     cont, pulled_back = criteria.controls_loss(model, outs, v_in, generator, stats_before)
     terms = criteria.losses(outs, x_in, cont, train=True)
     total = terms["recons"] + terms["lat"] * beta + terms["flow_in_reg"] + terms["cont"]

@@ -44,7 +44,8 @@ def one_step(model_c, train_c, helper, x, v, info, dtype=torch.float64) -> dict:
     """One train step on the CPU, in ``dtype``, of the flagship built from
     seed 0, with dropout and the reparameterisation noise drawn from a
     generator seeded 11; -> the total loss (averaged over the processes of
-    a group), every gradient and every running statistic."""
+    a group), every gradient, every running statistic and the generator's
+    state after the step."""
     model = build_extended_ae_model(model_c, train_c, helper, seed=0).to(dtype)
     generator = torch.Generator().manual_seed(11)
     x, v = torch.from_numpy(x).to(dtype), torch.from_numpy(v).to(dtype)
@@ -55,13 +56,15 @@ def one_step(model_c, train_c, helper, x, v, info, dtype=torch.float64) -> dict:
     return {"loss": loss,
             "grads": {k: p.grad for k, p in model.named_parameters()},
             "stats": {k: b for k, b in model.named_buffers()
-                      if k.endswith(("running_mean", "running_var"))}}
+                      if k.endswith(("running_mean", "running_var"))},
+            "generator": generator.get_state()}
 
 
-def rank_step(rank: int, world: int, store: str, out: str, batch: int):
+def rank_step(rank: int, world: int, store: str, out: str, batch: int, remat=(False,)):
     """Process ``rank`` of ``world`` under gloo: ``one_step`` on its
     ``batch // world`` rows of ``flagship_batch(batch)``, saved to
-    ``<out>/rank<rank>.pt``."""
+    ``<out>/rank<rank>.pt``; for each True in ``remat`` also the step with
+    ``TrainConfig.remat``, saved to ``<out>/rank<rank>_remat.pt``."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
@@ -69,8 +72,9 @@ def rank_step(rank: int, world: int, store: str, out: str, batch: int):
         model_c, train_c, helper, x, v, info = flagship_batch(batch)
         b = batch // world
         rows = slice(rank * b, (rank + 1) * b)
-        train_c = dataclasses.replace(train_c, minibatch_size=b)
-        torch.save(one_step(model_c, train_c, helper, x[rows], v[rows], info[rows]),
-                   f"{out}/rank{rank}.pt")
+        for on in remat:
+            train_c = dataclasses.replace(train_c, minibatch_size=b, remat=on)
+            torch.save(one_step(model_c, train_c, helper, x[rows], v[rows], info[rows]),
+                       f"{out}/rank{rank}{'_remat' if on else ''}.pt")
     finally:
         dist.destroy_process_group()

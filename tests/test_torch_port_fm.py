@@ -307,12 +307,12 @@ def test_loader_refuses_a_table_whose_loop_f2_cannot_split(monkeypatch, broken):
 def test_kernel_source_reads_the_python_layout():
     """F1 and F1b read the packed control row at the offsets of
     ``CTL_FIELDS``, F2 the algorithm rows at the columns of
-    ``ALG_COLUMNS``; F1b's tape is a float2 for each of F1's lanes, as
-    ``tape_bytes`` counts it, and its launcher takes it as such; F2b keeps
-    the scratch rows ``exact_bwd_scratch_bytes`` counts, and F2's
-    feed-forward launcher reads the loop's output from a tape only when
-    it is given one; the constants of csrc/fm_render.cu are the plain
-    version's floats."""
+    ``ALG_COLUMNS``; F1's tape for F1b is a float2 for each of F1's lanes,
+    as ``tape_bytes`` counts it, F1's launcher writes it only when it is
+    given one and F1b's walk reads it as such; F1b's chunk summaries and
+    F2b's split limit are the Python side's; F2's feed-forward launcher
+    reads the loop's output from a tape only when it is given one; the
+    constants of csrc/fm_render.cu are the plain version's floats."""
     src = ft.FM_SOURCE.read_text()
     defines = dict(re.findall(r"#define (CTL_\w+) (\d+)", src))
     want = {f"CTL_{name.upper()}": str(off) for name, off in ft.CTL_OFFSETS.items()}
@@ -326,18 +326,58 @@ def test_kernel_source_reads_the_python_layout():
     assert f"#define SH_SEED {hex(ft.SH_SEED)}u" in src
     assert re.search(r"#define F1_LANES (\d+)", src).group(1) == str(ft.F1_LANES)
     assert ft.TAPE_LANE_BYTES == 8 and "float2* __restrict__ tape" in src
-    assert "reinterpret_cast<float2*>(tape)" in src.split("int fm_control_bwd_launch(")[1]
-    assert re.search(r"#define BWD_SCRATCH (\d+)", src).group(1) == str(ft.EXACT_BWD_SCRATCH)
-    assert ft.exact_bwd_scratch_bytes(1024, 88576) == 2 * 4 * 1024 * 88576
+    f1 = src.split("int fm_control_launch(")[1].split("\n}")[0]
+    assert "if (tape)" in f1 and "<true>" in f1 and "<false>" in f1 and "nullptr);" in f1
+    assert "reinterpret_cast<float2*>(tape)" in f1
+    chunks = src.split("int fm_control_bwd_chunks_launch(")[1].split("\n}")[0]
+    assert "reinterpret_cast<const float2*>(tape)" in chunks
+    assert re.search(r"#define F1B_SUM (\d+)", src).group(1) == str(ft.F1B_SUM)
+    assert re.search(r"#define MAX_SPLITS (\d+)", src).group(1) == str(ft.EXACT_BWD_MAX_SPLITS)
     ff = src.split("int fm_exact_ff_launch(")[1].split("\n}")[0]
     assert "if (tape)" in ff and "<true>" in ff and "<false>" in ff and "nullptr, out" in ff
+
+
+def test_kernel_events_record_each_launch_inside_only(monkeypatch):
+    """``kernel_events`` yields a (name, start, stop) pair of events for each
+    F1b or F2b kernel launched inside it, recorded just before and just
+    after the launch; a nested block gets its own list and the outer one
+    comes back after it; a launch outside records nothing; every launch
+    counts once either way."""
+    lib, _ = _fake_library(monkeypatch)
+    monkeypatch.setattr(ft, "_fm_library", lambda: lib)
+    recorded = []
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            recorded.append(self)
+
+    monkeypatch.setattr(ft.torch.cuda, "Event", Event)
+    monkeypatch.setattr(ft.torch.cuda, "current_stream",
+                        lambda: type("Stream", (), {"cuda_stream": 0})())
+    before = dict(ft.LAUNCHES)
+    ft._launch("fm_exact_bwd_seams", 1, 1, 1)
+    with ft.kernel_events() as outer:
+        ft._launch("fm_control_bwd_starts", 0)
+        with ft.kernel_events() as inner:
+            ft._launch("fm_exact_bwd_ff", 0)
+        ft._launch("fm_control_bwd_combine", 0)
+    assert ft._event_sink is None
+    assert [m[0] for m in outer] == ["fm_control_bwd_starts", "fm_control_bwd_combine"]
+    assert [m[0] for m in inner] == ["fm_exact_bwd_ff"]
+    assert recorded == [e for m in (outer[0], inner[0], outer[1]) for e in m[1:]]
+    assert {k: ft.LAUNCHES[k] - before[k] for k in before if ft.LAUNCHES[k] != before[k]} == {
+        "fm_exact_bwd_seams": 1, "fm_control_bwd_starts": 1, "fm_exact_bwd_ff": 1,
+        "fm_control_bwd_combine": 1}
 
 
 def test_kernel_build_command(monkeypatch):
     """nvcc for sm_90a without fast math and without multiply-add
     contraction; every C entry point of the source is bound with as many
     argtypes as it has parameters, and the kernels' launchers are F1's,
-    F1b's, F2's two phases' and F2b's three."""
+    F1b's three, F2's two phases' and F2b's three."""
     cmd = ft.fm_build_command()
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd and "-fmad=false" in cmd
     assert "--use_fast_math" not in cmd and "-use_fast_math" not in cmd
@@ -345,8 +385,9 @@ def test_kernel_build_command(monkeypatch):
     params = {name: len([a for a in args.split(",") if a.strip()]) for name, args in
               re.findall(r"^int (fm_\w+)\(([^)]*)\)", src, flags=re.M)}
     assert sorted(n for n in params if n.endswith("_launch")) == [
-        "fm_control_bwd_launch", "fm_control_launch", "fm_exact_bwd_ff_launch",
-        "fm_exact_bwd_loop_launch", "fm_exact_bwd_rec_launch", "fm_exact_ff_launch",
+        "fm_control_bwd_chunks_launch", "fm_control_bwd_combine_launch",
+        "fm_control_bwd_starts_launch", "fm_control_launch", "fm_exact_bwd_ff_launch",
+        "fm_exact_bwd_loop_launch", "fm_exact_bwd_seams_launch", "fm_exact_ff_launch",
         "fm_fb_loop_launch"]
     lib, built = _fake_library(monkeypatch)
     assert ft._fm_library.__wrapped__() is lib and len(built) == 1
@@ -483,9 +524,10 @@ def test_kernels_match_plain_on_card(feedback):
         grads.append(x.grad)
         launches.append({k: ft.LAUNCHES[k] - n0[k] for k in n0})
     seg = len(ft.exact_segments(1024 // ft.BLOCK))
-    f2 = dict(fm_exact=1, fm_fb_loop=seg, fm_exact_ff=seg, fm_exact_bwd=1, fm_exact_bwd_ff=1,
-              fm_exact_bwd_rec=1, fm_exact_bwd_loop=1) if exact else {}
-    assert launches == [dict(none, fm_control=1, fm_control_bwd=1, **f2), none]
+    f2 = dict(fm_exact=1, fm_fb_loop=seg, fm_exact_ff=seg, fm_exact_bwd=1,
+              **dict.fromkeys(ft.F2B_KERNELS, 1)) if exact else {}
+    assert launches == [dict(none, fm_control=1, fm_control_bwd=1,
+                             **dict.fromkeys(ft.F1B_KERNELS, 1), **f2), none]
     # 'exact': a loud feedback-7 loop is chaotic, and F1's last bits part
     # the two renders' trajectories there; each item's row is its own
     rows = torch.round(p[:, 5] * 7) < 7 if exact else torch.ones_like(p[:, 5], dtype=torch.bool)

@@ -124,10 +124,12 @@ def test_control_pass_vjp_takes_none_for_a_zero_cotangent():
 
 
 # ---------------------------------------------------------------------------
-# F1b's algorithm (csrc/fm_render.cu:fm_control_bwd_kernel) written out in
-# torch, vectorized over items and operators where the kernel has lanes:
-# the forward state walk onto a tape, then the reverse walk re-deriving each
-# tick from the tape, the lanes' sums taken where the kernel shuffles
+# F1b's algorithm (csrc/fm_render.cu: fm_control_bwd_starts,
+# fm_control_bwd_chunks, fm_control_bwd_combine) written out in torch,
+# vectorized over chunks, items and operators where the kernels have lanes:
+# F1's tape, the chunks' sums of the phase starts' cotangents, each chunk's
+# reverse walk from zero incoming adjoints re-deriving each tick from the
+# tape (the lanes' sums taken where the kernel shuffles), and the combine
 # ---------------------------------------------------------------------------
 
 
@@ -135,25 +137,21 @@ def _pick(v, stage):
     return torch.gather(v, -1, stage[..., None])[..., 0]
 
 
-def _eg_tick_bwd(cur, stage, targets, slews, off, g, g_targets, g_slews):
-    """eg_tick_bwd: -> the pre-tick level's adjoint; accumulates into the
-    stage's target and slew adjoints."""
-    stage = torch.full_like(stage, 3) if off else stage
+def _eg_tick_bwd(cur, stage, targets, slews, off, g, g_targets, g_slews, act):
+    """eg_tick_bwd where ``act``: -> the pre-tick level's adjoint;
+    accumulates into the stage's target and slew adjoints."""
+    stage = torch.where(off, 3, stage)
     dlt = _pick(targets, stage) - cur
     pos = dlt > 0
     reached = dlt.abs() <= torch.where(pos, 4.0 * _pick(slews, stage) + 0.05 * dlt,
                                        _pick(slews, stage))
     g_step = g * torch.sign(dlt)
     g_dlt = torch.where(pos, g_step * 0.05, 0.0)
-    one_hot = torch.nn.functional.one_hot(stage, 4).float()
+    one_hot = torch.nn.functional.one_hot(stage, 4).float() * act[..., None]
     g_targets += one_hot * torch.where(reached, g, g_dlt)[..., None]
     g_slews += one_hot * torch.where(reached, 0.0, torch.where(pos, g_step * 4.0, g_step))[
         ..., None]
-    return torch.where(reached, 0.0, g - g_dlt)
-
-
-def _eg_tick(cur, stage, targets, slews, off):
-    return ft._eg_tick(cur, stage, targets, slews, torch.tensor(off))
+    return torch.where(act, torch.where(reached, 0.0, g - g_dlt), g)
 
 
 def _lfo_wave_bwd(wave, phase, g):
@@ -177,88 +175,154 @@ def _ramp_bwd(t_s, delay, g):
     return torch.where(delay > 0, g_d, 0.0)
 
 
-def f1b_in_torch(ctl, T, note_off, sr, g_amps, g_pitch_fact, g_starts, g_incs):
-    """The gradient row, by F1b's operations in F1b's order."""
-    B, fs = ctl.shape[0], float(sr)
-    tick_s, c20 = float(np.float32(ft.BLOCK / fs)), ft.LN10_OVER_20
-    c = {name: ft._ctl(ctl, name) for name, _ in ft.CTL_FIELDS}
+def f1_tape(c, B, T, note_off, tick_s):
+    """F1's state walk under a gradient: each tick's pre-tick EG levels and
+    stages (T, B, 6), pitch-EG level and stage (T, B, 1), and LFO phase and
+    S&H value after its step (T, B)."""
     targets, slews = c["targets"].reshape(B, 6, 4), c["slews"].reshape(B, 6, 4)
     peg_targets, peg_slews = c["peg_targets"][:, None], c["peg_slews"][:, None]
-    hz, delay, pmd, amd, pms = (c[k][:, 0] for k in ("lfo_hz", "lfo_delay_s", "pmd", "amd",
-                                                     "pms"))
-    wave, on = c["lfo_wave"][:, 0].long(), c["on"] > 0
+    hz = c["lfo_hz"][:, 0]
     eg, stage = c["eg0"].clone(), torch.zeros((B, 6), dtype=torch.long)
     peg, peg_stage = c["peg0"].clone(), torch.zeros((B, 1), dtype=torch.long)
     phase, sh = c["lfo_phase0"][:, 0].clone(), torch.zeros(B)
     rng = torch.full((B,), ft.SH_SEED, dtype=torch.int64)
     tape = []
     for t in range(T):
-        off = t * ft.BLOCK >= note_off
+        off = torch.tensor(t * ft.BLOCK >= note_off)
         phase = phase + hz * tick_s
         wrapped = phase >= 1.0
         phase = torch.where(wrapped, phase - torch.floor(phase), phase)
         rng = torch.where(wrapped, (rng * 1664525 + 1013904223) & 0xFFFFFFFF, rng)
         sh = torch.where(wrapped, (rng >> 8).float() / 8388608.0 - 1.0, sh)
         tape.append((eg, stage, peg, peg_stage, phase, sh))
-        peg, peg_stage = _eg_tick(peg, peg_stage, peg_targets, peg_slews, off)
-        eg, stage = _eg_tick(eg, stage, targets, slews, off)
-    a_eg, a_peg, a_lfo, a_start = torch.zeros(B, 6), torch.zeros(B, 1), torch.zeros(B), \
-        torch.zeros(B, 6)
-    g_tg, g_sl, g_ptg, g_psl = (torch.zeros(B, k, 4) for k in (6, 6, 1, 1))
-    g_gain, g_ams, g_freq, g_amd = (torch.zeros(B, 6) for _ in range(4))
-    g_hz, g_delay, g_pmd, g_pms = (torch.zeros(B) for _ in range(4))
-    for t in range(T - 1, -1, -1):
-        eg_pre, st, peg_pre, peg_st, phase, sh = tape[t]
-        off = t * ft.BLOCK >= note_off
-        t_s = torch.tensor(np.float32(t * ft.BLOCK) / np.float32(fs))
+        peg, peg_stage = ft._eg_tick(peg, peg_stage, peg_targets, peg_slews, off)
+        eg, stage = ft._eg_tick(eg, stage, targets, slews, off)
+    return [torch.stack(x) for x in zip(*tape)]
+
+
+def f1b_in_torch(ctl, T, note_off, sr, g_amps, g_pitch_fact, g_starts, g_incs, chunks=1):
+    """The gradient row, by F1b's operations in F1b's order, its ticks cut
+    into ``chunks`` chunks as ``control_bwd_chunks`` cuts them (one chunk:
+    the serial walk)."""
+    B, fs = ctl.shape[0], float(sr)
+    tick_s, c20 = float(np.float32(ft.BLOCK / fs)), ft.LN10_OVER_20
+    c = {name: ft._ctl(ctl, name) for name, _ in ft.CTL_FIELDS}
+    L = -(-T // chunks)
+    C = -(-T // L)
+    tb = torch.arange(C) * L
+    te = torch.clamp(tb + L, max=T)
+    x = lambda v: v.expand(C, *v.shape)  # noqa: E731  the chunks' copies
+    targets, slews = x(c["targets"].reshape(B, 6, 4)), x(c["slews"].reshape(B, 6, 4))
+    peg_targets, peg_slews = x(c["peg_targets"][:, None]), x(c["peg_slews"][:, None])
+    delay, pmd, amd, pms = (c[k][:, 0] for k in ("lfo_delay_s", "pmd", "amd", "pms"))
+    wave, on = c["lfo_wave"][:, 0].long(), c["on"] > 0
+    eg_t, st_t, peg_t, pst_t, ph_t, sh_t = f1_tape(c, B, T, note_off, tick_s)
+    # (1) each chunk's sum of g_starts, its last tick first; a_start entering
+    # a chunk: the later chunks' sums, the last first
+    sums = torch.zeros(C, B, 6)
+    for j in range(L):
+        t = te - 1 - j
+        sums = torch.where((t >= tb)[:, None, None], sums + g_starts[t.clamp(min=0)], sums)
+    a_start = torch.zeros(C, B, 6)
+    for cc in range(C - 1, 0, -1):
+        a_start[:cc] = a_start[:cc] + sums[cc]
+    # (2) each chunk walked in reverse from zero incoming a_eg, a_peg, a_lfo:
+    # its sums, the products of its multipliers (pm, pmp) and the sums'
+    # sensitivities to the incoming adjoints (s_*, s_hz)
+    a_eg, pm = torch.zeros(C, B, 6), torch.ones(C, B, 6)
+    a_peg, pmp = torch.zeros(C, B, 1), torch.ones(C, B, 1)
+    a_lfo, s_hz = torch.zeros(C, B), torch.zeros(C, B)
+    g_tg, g_sl, s_tg, s_sl = (torch.zeros(C, B, 6, 4) for _ in range(4))
+    g_ptg, g_psl, s_ptg, s_psl = (torch.zeros(C, B, 1, 4) for _ in range(4))
+    g_gain, g_ams, g_freq, g_amd = (torch.zeros(C, B, 6) for _ in range(4))
+    g_hz, g_delay, g_pmd, g_pms = (torch.zeros(C, B) for _ in range(4))
+    for j in range(L):
+        t = te - 1 - j
+        act = (t >= tb)[:, None]  # (C, 1)
+        tt = t.clamp(min=0)
+        eg_pre, st, peg_pre, peg_st, phase, sh = (v[tt] for v in (eg_t, st_t, peg_t, pst_t,
+                                                                  ph_t, sh_t))
+        off = (tt * ft.BLOCK >= note_off)[:, None]
+        t_s = torch.from_numpy(np.float32(tt.numpy() * ft.BLOCK) / np.float32(fs))[:, None]
         ramp = _ramp(t_s, delay)
         lfo_raw = ft._lfo_wave_value(wave, phase, sh)
         lfo = lfo_raw * ramp
-        peg_new, _ = _eg_tick(peg_pre, peg_st, peg_targets, peg_slews, off)
-        pf = torch.exp2((peg_new[:, 0] * 0.08 + lfo * pmd * pms) / 12.0)
-        eg_new, _ = _eg_tick(eg_pre, st, targets, slews, off)
-        am_lfo = (-0.5 * (1.0 + lfo) * amd)[:, None]
+        peg_new, _ = ft._eg_tick(peg_pre, peg_st, peg_targets, peg_slews, off[..., None])
+        pf = torch.exp2((peg_new[..., 0] * 0.08 + lfo * pmd * pms) / 12.0)
+        eg_new, _ = ft._eg_tick(eg_pre, st, targets, slews, off[..., None])
+        am_lfo = (-0.5 * (1.0 + lfo) * amd)[..., None]
         tot = eg_new + c["op_gain_db"] + am_lfo * c["ams_db"]
         amp = torch.where(on, torch.exp(torch.clamp(tot, max=0.0) * c20), 0.0)
         amp = torch.where(amp < 1e-6, 0.0, amp)
-        g0 = torch.where(amp > 0, g_amps[t] * amp * c20, 0.0)
+        g0 = torch.where(amp > 0, g_amps[tt] * amp * c20, 0.0)
         g_tot = torch.where(tot < 0, g0, torch.where(tot == 0, 0.5 * g0, 0.0))
-        a_eg, g_gain, g_ams = a_eg + g_tot, g_gain + g_tot, g_ams + g_tot * am_lfo
+        upd = lambda new, old: torch.where(act[..., None], new, old)  # noqa: E731
+        a_eg = upd(a_eg + g_tot, a_eg)
+        g_gain, g_ams = upd(g_gain + g_tot, g_gain), upd(g_ams + g_tot * am_lfo, g_ams)
         g_am_lfo = g_tot * c["ams_db"]
-        g_amd = g_amd + g_am_lfo * (-0.5 * (1.0 + lfo))[:, None]
-        c_lfo = (g_am_lfo * amd[:, None] * -0.5).sum(1)
-        g_fp = (g_incs[t] + a_start * 32.0) / fs
-        a_start = a_start + g_starts[t]
-        g_freq = g_freq + g_fp * pf[:, None]
-        c_pf = (g_fp * c["freqs"]).sum(1) + g_pitch_fact[t]
-        a_eg = _eg_tick_bwd(eg_pre, st, targets, slews, off, a_eg, g_tg, g_sl)
+        g_amd = upd(g_amd + g_am_lfo * (-0.5 * (1.0 + lfo))[..., None], g_amd)
+        c_lfo = torch.where(act, (g_am_lfo * amd[:, None] * -0.5).sum(-1), 0.0)
+        g_fp = (g_incs[tt] + a_start * 32.0) / fs
+        a_start = upd(a_start + g_starts[tt], a_start)
+        g_freq = upd(g_freq + g_fp * pf[..., None], g_freq)
+        c_pf = torch.where(act, (g_fp * c["freqs"]).sum(-1) + g_pitch_fact[tt], 0.0)
+        a_eg = _eg_tick_bwd(eg_pre, st, targets, slews, off[..., None], a_eg, g_tg, g_sl,
+                            act[..., None].expand_as(a_eg))
+        pm = _eg_tick_bwd(eg_pre, st, targets, slews, off[..., None], pm, s_tg, s_sl,
+                          act[..., None].expand_as(pm))
         g_semis = c_pf * pf * 0.6931472 / 12.0
-        a_peg = a_peg + (g_semis * 0.08)[:, None]
-        g_pms = g_pms + g_semis * (lfo * pmd)
+        a_peg = upd(a_peg + (g_semis * 0.08)[..., None], a_peg)
+        g_pms = torch.where(act, g_pms + g_semis * (lfo * pmd), g_pms)
         g_lfo_pmd = g_semis * pms
-        g_pmd = g_pmd + g_lfo_pmd * lfo
+        g_pmd = torch.where(act, g_pmd + g_lfo_pmd * lfo, g_pmd)
         g_lfo = c_lfo + g_lfo_pmd * pmd
-        g_delay = g_delay + _ramp_bwd(t_s, delay, g_lfo * lfo_raw)
-        a_lfo = a_lfo + _lfo_wave_bwd(wave, phase, g_lfo * ramp)
-        g_hz = g_hz + a_lfo * tick_s
-        a_peg = _eg_tick_bwd(peg_pre, peg_st, peg_targets, peg_slews, off, a_peg, g_ptg, g_psl)
-    cols = {"op_gain_db": g_gain, "targets": g_tg.reshape(B, 24), "slews": g_sl.reshape(B, 24),
-            "eg0": a_eg, "peg_targets": g_ptg[:, 0], "peg_slews": g_psl[:, 0], "peg0": a_peg,
-            "lfo_hz": g_hz[:, None], "lfo_phase0": a_lfo[:, None], "lfo_delay_s": g_delay[:, None],
-            "pmd": g_pmd[:, None], "amd": g_amd.sum(1, keepdim=True), "pms": g_pms[:, None],
-            "ams_db": g_ams, "on": torch.zeros(B, 6), "lfo_wave": torch.zeros(B, 1),
-            "freqs": g_freq}
+        g_delay = torch.where(act, g_delay + _ramp_bwd(t_s, delay, g_lfo * lfo_raw), g_delay)
+        a_lfo = torch.where(act, a_lfo + _lfo_wave_bwd(wave, phase, g_lfo * ramp), a_lfo)
+        g_hz = torch.where(act, g_hz + a_lfo * tick_s, g_hz)
+        s_hz = torch.where(act, s_hz + tick_s, s_hz)
+        a_peg = _eg_tick_bwd(peg_pre, peg_st, peg_targets, peg_slews, off[..., None], a_peg,
+                             g_ptg, g_psl, act[..., None].expand_as(a_peg))
+        pmp = _eg_tick_bwd(peg_pre, peg_st, peg_targets, peg_slews, off[..., None], pmp, s_ptg,
+                           s_psl, act[..., None].expand_as(pmp))
+    # (3) the combine over the chunks from the last, the incoming adjoints
+    # from 0
+    tot = {k: torch.zeros(B, *v.shape[2:]) for k, v in (
+        ("tg", g_tg), ("sl", g_sl), ("ptg", g_ptg), ("psl", g_psl), ("gain", g_gain),
+        ("ams", g_ams), ("freq", g_freq), ("amd", g_amd), ("hz", g_hz), ("delay", g_delay),
+        ("pmd", g_pmd), ("pms", g_pms))}
+    a_e, a_p, a_l = torch.zeros(B, 6), torch.zeros(B, 1), torch.zeros(B)
+    for cc in range(C - 1, -1, -1):
+        tot["tg"] = tot["tg"] + (g_tg[cc] + s_tg[cc] * a_e[..., None])
+        tot["sl"] = tot["sl"] + (g_sl[cc] + s_sl[cc] * a_e[..., None])
+        tot["ptg"] = tot["ptg"] + (g_ptg[cc] + s_ptg[cc] * a_p[..., None])
+        tot["psl"] = tot["psl"] + (g_psl[cc] + s_psl[cc] * a_p[..., None])
+        for k, v in (("gain", g_gain), ("ams", g_ams), ("freq", g_freq), ("amd", g_amd),
+                     ("delay", g_delay), ("pmd", g_pmd), ("pms", g_pms)):
+            tot[k] = tot[k] + v[cc]
+        tot["hz"] = tot["hz"] + (g_hz[cc] + s_hz[cc] * a_l)
+        a_l = a_l + a_lfo[cc]
+        a_e = pm[cc] * a_e + a_eg[cc]
+        a_p = pmp[cc] * a_p + a_peg[cc]
+    cols = {"op_gain_db": tot["gain"], "targets": tot["tg"].reshape(B, 24),
+            "slews": tot["sl"].reshape(B, 24), "eg0": a_e, "peg_targets": tot["ptg"][:, 0],
+            "peg_slews": tot["psl"][:, 0], "peg0": a_p, "lfo_hz": tot["hz"][:, None],
+            "lfo_phase0": a_l[:, None], "lfo_delay_s": tot["delay"][:, None],
+            "pmd": tot["pmd"][:, None], "amd": tot["amd"].sum(1, keepdim=True),
+            "pms": tot["pms"][:, None], "ams_db": tot["ams"], "on": torch.zeros(B, 6),
+            "lfo_wave": torch.zeros(B, 1), "freqs": tot["freq"]}
     return torch.cat([cols[name] for name, _ in ft.CTL_FIELDS], 1)
 
 
+@pytest.mark.parametrize("chunks", [1, 7, 64])
 @pytest.mark.parametrize("shape", ["short", "demo"])
-def test_f1b_algorithm_in_torch_matches_control_pass_vjp(shape):
-    """F1b's arithmetic, run in torch on the CPU, against autograd through
-    the control pass on the same seeded cotangents: within 1e-5 of each
-    field's largest entry (measured: 1.3e-7 on 38 mixed presets at 128
-    ticks, 2.6e-7 on the demo generator's 2 presets at 1,040 ticks), the
-    switches exactly 0. The kernel runs these operations; the card holds
-    it against ``control_pass_vjp`` at 1e-4 (``chip_smoke.py``)."""
+def test_f1b_algorithm_in_torch_matches_control_pass_vjp(shape, chunks):
+    """F1b's arithmetic, its ticks in 1 (the serial walk), 7 or 64 chunks,
+    run in torch on the CPU, against autograd through the control pass on
+    the same seeded cotangents: within 1e-5 of each field's largest entry
+    (measured: 1.3e-7 on 38 mixed presets at 128 ticks, 2.6e-7 on the demo
+    generator's 2 presets at 1,040 ticks, in one chunk), the switches
+    exactly 0. The kernels run these operations; the card holds them
+    against ``control_pass_vjp`` at 1e-4 (``chip_smoke.py``)."""
     if shape == "short":
         p, T, note_off = np.concatenate([mixed_presets(32), loop_length_presets()]), 128, \
             int(0.1 * SR)
@@ -272,7 +336,7 @@ def test_f1b_algorithm_in_torch_matches_control_pass_vjp(shape):
     gs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
           for s in ((T, B, 6), (T, B), (T, B, 6), (T, B, 6))]
     want = ft.control_pass_vjp(ctl, T, note_off, SR, *gs)
-    got = f1b_in_torch(ctl, T, note_off, SR, *gs)
+    got = f1b_in_torch(ctl, T, note_off, SR, *gs, chunks=chunks)
     for name, _ in ft.CTL_FIELDS:
         g, w = ft._ctl(got, name), ft._ctl(want, name)
         scale = float(w.abs().max())
@@ -280,6 +344,16 @@ def test_f1b_algorithm_in_torch_matches_control_pass_vjp(shape):
             assert scale == 0 and bool((g == 0).all())
         else:
             assert scale > 0 and float((g - w).abs().max()) <= 1e-5 * scale, name
+
+
+@pytest.mark.parametrize("items, ticks, chunks, per", [
+    (1024, 2768, 16, 173), (1, 1040, 65, 16), (20480, 2768, 1, 2768), (3, 5, 1, 5),
+    (38, 128, 8, 16)])
+def test_control_bwd_chunks(items, ticks, chunks, per):
+    """F1b's chunks: enough that items x chunks reaches 16,384, at least
+    16 ticks each but the last, none empty."""
+    assert ft.control_bwd_chunks(items, ticks) == (chunks, per)
+    assert (chunks - 1) * per < ticks <= chunks * per
 
 
 def test_spec_loss_and_its_gradient_by_the_waveform_match_the_jax_demo():
@@ -417,21 +491,23 @@ def test_render_gradient_on_the_cpu_is_the_plain_path(monkeypatch):
     assert ft.LAUNCHES == before
     ctl = torch.zeros((2, ft.CTL_WIDTH))
     with pytest.raises(ValueError, match="card"):
-        ft.fm_control_bwd(ctl, 4, 0, SR, None, None, None, None)
+        ft.fm_control_bwd(ctl, torch.zeros((4, 2, 8, 2)), 4, 0, SR, None, None, None, None)
 
 
 def test_tape_size():
-    """F1b's tape: a float2 per lane, 8 lanes an item, per tick: 181 MB at
-    the corpus pass's 1,024 items and 2,768 ticks."""
+    """F1's tape under a gradient, which F1b reads: a float2 per lane, 8
+    lanes an item, per tick: 181 MB at the corpus pass's 1,024 items and
+    2,768 ticks."""
     assert ft.tape_bytes(1024, 2768) == 2768 * 1024 * 8 * 8 == 181_403_648
     assert ft.tape_bytes(1, 1040) == 66_560
 
 
 @pytest.mark.cuda
 def test_f1b_matches_control_pass_vjp_on_card():
-    """On the card, 22 mixed presets at 128 ticks on seeded cotangents: F1b
-    within 1e-4 of each gradient field's largest entry in
-    ``control_pass_vjp`` (the switches exactly 0), one launch; through
+    """On the card, 22 mixed presets at 128 ticks on seeded cotangents: F1
+    with its tape gives F1's outputs bit for bit; F1b on that tape within
+    1e-4 of each gradient field's largest entry in ``control_pass_vjp``
+    (the switches exactly 0), one launch of each of its kernels; through
     ``fm_control``'s autograd, the same row."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -443,9 +519,12 @@ def test_f1b_matches_control_pass_vjp_on_card():
     rng = np.random.default_rng(8)
     gs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
           for s in ((T, B, 6), (T, B), (T, B, 6), (T, B, 6))]
-    n0 = ft.LAUNCHES["fm_control_bwd"]
-    got = ft.fm_control_bwd(ctl, T, off, SR, *gs)
-    assert ft.LAUNCHES["fm_control_bwd"] == n0 + 1
+    *outs, tape = ft._fm_control_launch(ctl, T, off, SR, taped=True)
+    assert all(torch.equal(a, b) for a, b in zip(outs, ft.fm_control(ctl, T, off, SR)))
+    n0 = dict(ft.LAUNCHES)
+    got = ft.fm_control_bwd(ctl, tape, T, off, SR, *gs)
+    assert {k: ft.LAUNCHES[k] - n0[k] for k in ("fm_control_bwd", *ft.F1B_KERNELS)} == dict.fromkeys(
+        ("fm_control_bwd", *ft.F1B_KERNELS), 1)
     want = ft.control_pass_vjp(ctl, T, off, SR, *gs)
     for name, _ in ft.CTL_FIELDS:
         g, w = ft._ctl(got, name), ft._ctl(want, name)
@@ -483,8 +562,8 @@ def test_exact_render_gradient_on_card():
     none = dict.fromkeys(ft.LAUNCHES, 0)
     seg = len(ft.exact_segments(1024 // ft.BLOCK))
     assert launches == [dict(none, fm_control=1, fm_exact=1, fm_fb_loop=seg, fm_exact_ff=seg,
-                             fm_control_bwd=1, fm_exact_bwd=1, fm_exact_bwd_ff=1,
-                             fm_exact_bwd_rec=1, fm_exact_bwd_loop=1), none]
+                             fm_control_bwd=1, **dict.fromkeys(ft.F1B_KERNELS, 1),
+                             fm_exact_bwd=1, **dict.fromkeys(ft.F2B_KERNELS, 1)), none]
     scale = float(grads[1].abs().max())
     assert scale > 0 and torch.isfinite(grads[0]).all()
     assert float((grads[0] - grads[1]).abs().max()) <= 1e-3 * scale
