@@ -69,7 +69,14 @@ largest entry, in float64; float32's differences printed: the step is
 ill-conditioned there); ``remat`` takes the flagship's step at batch 160
 with ``TrainConfig.remat`` and without, holds them to each other in
 float64 at the same bar (the generator's state equal), and prints each
-one's steady step and peak device memory in bf16. Each path prints
+one's steady step and peak device memory in bf16. Last, the ``cli`` paths
+drive the port's command-line entry points as a user runs them:
+``python -m preset_gen_vae_tpu_torch.scripts.evaluate`` in a subprocess
+over the train path's run (its summary held to the in-process eval's
+within 1e-5, 164 items), ``scripts.train_queue``'s ``main`` on a one-entry
+queue and the loop CLI's ``main`` (``training/loop.py``), each 1 epoch on
+512 presets with ``--no-tensorboard``, and ``scripts.clean_logs`` in a
+subprocess on the queue's run (only that run erased). Each path prints
 its wall time, launches of every kernel and peak memory, the training
 paths also their model build time, steady step, corpus and render
 seconds. Runs and caches live in a
@@ -2226,6 +2233,130 @@ def phase_disk_jax(root: str):
     return counts
 
 
+# the metrics of an evaluation summary that the eval CLI must reproduce
+EVAL_METRICS = ("num_eval_loss", "num_mae", "num_mae_dyn", "acc", "acc_dyn", "spec_mae", "spec_sc",
+                "mfcc13_mae", "mfcc40_mae", "latent_entanglement_z0", "latent_entanglement_zK")
+CLI_CORPUS = {"n_synthetic_presets": 512}  # the queue's and the loop CLI's cut corpus
+
+
+def run_module(module: str, *argv: str, timeout: int = 300) -> str:
+    """``python -m module argv`` from the repository root in a subprocess;
+    fails the smoke on a non-zero exit. -> its standard output."""
+    proc = subprocess.run([sys.executable, "-m", module, *argv], capture_output=True, text=True,
+                          timeout=timeout, cwd=pathlib.Path(__file__).resolve().parent)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {module} {' '.join(argv)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def check_cli_run(name: str, summary: dict, run_dir: pathlib.Path):
+    check_train_summary(name, summary, 1)
+    if summary["run_dir"] != str(run_dir) or not (run_dir / "checkpoints" / "0").is_dir() or \
+            (run_dir / "tensorboard").exists():
+        raise AssertionError(f"{name}: run dir {summary['run_dir']}, want {run_dir} with "
+                             "checkpoint 0 and no TensorBoard events")
+
+
+def phase_cli(root: str, train_summary: dict):
+    """The port's command-line entry points on the card, each as a user
+    runs it: ``scripts.evaluate`` in a subprocess over the train path's run
+    (its own cold corpus pass of the same 1,024 presets), held to the
+    in-process eval path's summary within 1e-5; ``scripts.train_queue``'s
+    ``main`` on a one-entry queue and the loop CLI's ``main``, each 1 epoch
+    on 512 presets ('cpp') with ``--no-tensorboard``; ``scripts.clean_logs``
+    in a subprocess on the queue's run, which must leave every other run
+    as it was. The subprocesses' launches are read from the eval CLI's own
+    last line."""
+    from preset_gen_vae_tpu_torch import config as cfg
+    from preset_gen_vae_tpu_torch.logs.logger import list_checkpoint_epochs
+    from preset_gen_vae_tpu_torch.ops import spectrogram as sp
+    from preset_gen_vae_tpu_torch.scripts import train_queue
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+    from preset_gen_vae_tpu_torch.training import loop
+
+    counts = {}
+    run_dir = pathlib.Path(train_summary["run_dir"])  # trained, resumed and evaluated
+    model_name, run_name = run_dir.parent.name, run_dir.name
+    # ---- the eval CLI: the in-process eval's artifacts are kept aside,
+    # else evaluate_all_models skips a run evaluated already
+    in_process = {}
+    for f in ("eval_validation_summary.json", "eval_validation.items.npz"):
+        in_process[f] = run_dir / f"{f}.in_process"
+        (run_dir / f).rename(in_process[f])
+    with open(in_process["eval_validation_summary.json"]) as f:
+        want = json.load(f)
+    data_root = fresh_corpus(CORPUS, root, "cli_eval")["data_root"]
+    out, _, wall, _ = drive("cli_eval", lambda: run_module(
+        "preset_gen_vae_tpu_torch.scripts.evaluate", f"{model_name}/{run_name}",
+        "--logs-root", root, "--n-presets", str(CORPUS["n_synthetic_presets"]),
+        "--data-root", data_root), k1=0)
+    launched = json.loads(out.strip().splitlines()[-1])["launches"]
+    counts["cli_eval"] = {k: launched.get(k, 0) for k in {**sp.LAUNCHES, **ft.LAUNCHES}}
+    c = counts["cli_eval"]
+    if c["logmel"] < 1 or c["fm_control"] != 1 or c["fm_exact"] != 1:
+        raise AssertionError(f"cli_eval: the subprocess launched {launched}, want K1 at least "
+                             "once, F1 and F2 once (164 items, one batch)")
+    SUMMARY[-1]["launches"] = launched  # the subprocess's, not this process's zeros
+    summary_path = run_dir / "eval_validation_summary.json"
+    if not summary_path.exists():
+        raise AssertionError(f"cli_eval: no {summary_path}")
+    with open(summary_path) as f:
+        got = json.load(f)
+    diffs = {k: abs(got[k] - want[k]) for k in EVAL_METRICS}
+    if got["n_items"] != 164 or got.get("n_nan_spec_sc", 0) != want.get("n_nan_spec_sc", 0) or \
+            not all(np.isclose(got[k], want[k], rtol=0, atol=1e-5) for k in EVAL_METRICS):
+        raise AssertionError(f"cli_eval: {got['n_items']} items (want 164), differences from "
+                             f"the in-process eval {diffs} (bar 1e-5)")
+    print(f"[cli_eval path] {card_line()}: python -m preset_gen_vae_tpu_torch.scripts.evaluate "
+          f"{model_name}/{run_name}: wall {wall:.2f} s, the subprocess's launches {launched}, "
+          f"164 items, largest difference from the in-process eval "
+          f"{max(diffs.values()):.3g} (bar 1e-5); its summary printed:\n"
+          + "\n".join(out.strip().splitlines()[:-1]), flush=True)
+
+    # ---- the queue and the loop CLI: 1 epoch each, TensorBoard off
+    data_root = fresh_corpus(CLI_CORPUS, root, "cli_queue")["data_root"]
+    queue = [({"run_name": "cli_queue", "dataset_corpus_render_backend": "cpp"},
+              {"n_epochs": 1, "verbosity": 1})]
+    summaries, counts["cli_queue"], wall, _ = drive("cli_queue", lambda: train_queue.main(
+        ["--no-tensorboard", "--logs-root", root, "--data-root", data_root], run_mods=queue,
+        dataset_kwargs=CLI_CORPUS))
+    if len(summaries) != 1:
+        raise AssertionError(f"cli_queue: {len(summaries)} summaries for a queue of 1")
+    queue_dir = pathlib.Path(root) / "FlVAE2" / "cli_queue"
+    check_cli_run("cli_queue", summaries[0], queue_dir)
+    print(f"[cli_queue path] wall {wall:.2f} s, K1 launches {counts['cli_queue']['logmel']}, "
+          f"steady step {summaries[0]['step_ms']:.2f} ms, epoch {summaries[0]['epoch_s']:.2f} s",
+          flush=True)
+    model_c = cfg.ModelConfig(run_name="cli_loop", logs_root_dir=root)
+    summary, counts["cli_loop"], wall, _ = drive("cli_loop", lambda: loop.main(
+        ["--no-tensorboard"], model_c=model_c, train_c=cfg.TrainConfig(n_epochs=1, verbosity=1),
+        dataset_kwargs=fresh_corpus(CLI_CORPUS, root, "cli_loop")))
+    loop_dir = pathlib.Path(root) / "FlVAE2" / "cli_loop"
+    check_cli_run("cli_loop", summary, loop_dir)
+    print(f"[cli_loop path] wall {wall:.2f} s, K1 launches {counts['cli_loop']['logmel']}, "
+          f"steady step {summary['step_ms']:.2f} ms, epoch {summary['epoch_s']:.2f} s", flush=True)
+
+    # ---- clean_logs on the queue's run: the others stay as they were
+    def listing(d: pathlib.Path):
+        return sorted(str(p.relative_to(d)) for p in d.rglob("*"))
+
+    before = {d: listing(d) for d in (run_dir, loop_dir)}
+    out, counts["cli_clean"], wall, _ = drive("cli_clean", lambda: run_module(
+        "preset_gen_vae_tpu_torch.scripts.clean_logs", "FlVAE2", "cli_queue", "--logs-root",
+        root), k1=0)
+    if out != f"Erasing {queue_dir}\n" or queue_dir.exists():
+        raise AssertionError(f"cli_clean: printed {out!r}; {queue_dir} exists: "
+                             f"{queue_dir.exists()}")
+    if any(listing(d) != files for d, files in before.items()) or \
+            list_checkpoint_epochs(cfg.ModelConfig(logs_root_dir=root)) != [1, 2]:
+        raise AssertionError("cli_clean: a run beside the erased one changed")
+    print(f"[cli_clean path] wall {wall:.2f} s: erased {queue_dir}; the train path's run "
+          f"({len(before[run_dir])} files, checkpoints [1, 2]) and the loop CLI's untouched",
+          flush=True)
+    return counts
+
+
 class Tee:
     """Standard output, also written line for line into a file."""
 
@@ -2292,6 +2423,7 @@ def main(argv=None) -> int:
         counts.update(phase_multiproc1(root, train_summary))
         counts.update(phase_multiproc2(root))
         counts.update(phase_remat())
+        counts.update(phase_cli(root, train_summary))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = [k1, *fm, f1b, f2b]

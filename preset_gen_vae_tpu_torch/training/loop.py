@@ -45,6 +45,7 @@ over the processes and synchronised batch statistics; rank 0 alone writes.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -239,8 +240,9 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
     train_keys = criteria.scalars + ("TotalLoss",)
     nan_cols = [train_keys.index(k) for k in NAN_CHECKED]
     first_step_s, steady_s, steady_steps, start_lr = None, 0.0, 0, None
-    early_stop = False
+    early_stop, epoch_walls = False, []
     for epoch in range(train_c.start_epoch, train_c.n_epochs):
+        t_epoch = time.perf_counter()
         for s in scalars.values():
             s.on_new_epoch()
         lr, beta = schedule.epoch_start(epoch)
@@ -354,6 +356,7 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
                 or early_stop):
             logger.save_checkpoint(epoch, model, optimizer, step, generator, schedule.plateau)
         logger.on_epoch_finished(epoch)
+        epoch_walls.append(time.perf_counter() - t_epoch)
         if early_stop:
             logger.log("Training stopped early (loss plateau)", level=1)
             break
@@ -379,6 +382,10 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         "model_build_seconds": build_s,
         "first_step_ms": first_step_s * 1e3,
         "step_ms": step_s * 1e3,
+        # an epoch's wall: train steps, validation, scheduler, checkpoint;
+        # the first (cuDNN's algorithm search) apart
+        "first_epoch_s": epoch_walls[0] if epoch_walls else None,
+        "epoch_s": float(np.mean(epoch_walls[1:] or epoch_walls)) if epoch_walls else None,
         "spectrograms_per_s": train_c.minibatch_size / step_s,
     }
     for k, s in scalars.items():  # the scalars that have data (loop.py:892-896 there)
@@ -410,10 +417,28 @@ def add_figures(writer, epoch: int, latent_valid: LatentMetric, helper, first_ba
     plt.close("all")
 
 
-if __name__ == "__main__":
-    # `python -m preset_gen_vae_tpu_torch.training.loop` trains the default
-    # configs on the card, as the root train.py does for the JAX package;
-    # under torchrun, one process a card
+def main(argv=None, model_c: Optional[cfg.ModelConfig] = None,
+         train_c: Optional[cfg.TrainConfig] = None, dataset_kwargs: Optional[Dict] = None) -> Dict:
+    """``python -m preset_gen_vae_tpu_torch.training.loop [--no-tensorboard]
+    [--device cuda]`` trains the default configs (or the ones given), as
+    the root train.py does for the JAX package; under torchrun, one process
+    a card. Without ``--no-tensorboard`` the run writes TensorBoard events
+    and raises ``ImportError`` where tensorboard is not installed."""
+    ap = argparse.ArgumentParser(description="Train one run from the default configs")
+    ap.add_argument("--no-tensorboard", dest="tensorboard", action="store_false",
+                    help="write no TensorBoard events (where tensorboard is not installed)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
     multihost.initialize_distributed("env://", int(os.environ.get("WORLD_SIZE", 1)),
-                                     int(os.environ.get("RANK", 0)))
-    print(train_config(cfg.ModelConfig(), cfg.TrainConfig()))
+                                     int(os.environ.get("RANK", 0)),
+                                     backend="nccl" if dev.type == "cuda" else "gloo")
+    summary = train_config(model_c or cfg.ModelConfig(), train_c or cfg.TrainConfig(),
+                           device=args.device, dataset_kwargs=dataset_kwargs,
+                           use_tensorboard=args.tensorboard)
+    print(summary)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

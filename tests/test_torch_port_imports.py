@@ -79,7 +79,9 @@ def test_every_module_imports_without_the_blocked_packages():
     assert {f"preset_gen_vae_tpu_torch.{m}" for m in (
         "synth.sysex", "utils.audio_io", "evaluation.interpolate", "scripts.train_from_syx",
         "scripts.preset_morph_demo", "scripts.sound_match_demo", "utils.profile",
-        "utils.figures", "utils.label", "parallel.multihost", "scripts.dump_figures")
+        "utils.figures", "utils.label", "parallel.multihost", "scripts.dump_figures",
+        "scripts.clean_logs", "scripts.train_queue", "scripts.evaluate", "scripts.run_stack3_v2",
+        "training.loop")
     } <= set(modules)
     code = _GUARD.format(blocked=BLOCKED, modules=modules)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -94,9 +96,10 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from preset_gen_vae_tpu_torch.evaluation import evaluate as ev
     from preset_gen_vae_tpu_torch.evaluation.interpolate import interpolate_presets
     from preset_gen_vae_tpu_torch.evaluation.similarity import SimilarityEvaluator
-    from preset_gen_vae_tpu_torch.scripts import dump_figures, preset_morph_demo, \
-        sound_match_demo, train_from_syx
+    from preset_gen_vae_tpu_torch.scripts import dump_figures, evaluate, preset_morph_demo, \
+        run_stack3_v2, sound_match_demo, train_from_syx, train_queue
     from preset_gen_vae_tpu_torch.synth import database, sysex
+    from preset_gen_vae_tpu_torch.training import loop
     from preset_gen_vae_tpu_torch.training.loop import train_config
     from preset_gen_vae_tpu_torch.training.queue import run_queue
 
@@ -118,10 +121,29 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         lambda: dump_figures.main([str(tmp_path)]),
         lambda: resolve_device(),
     ]
+    # the command-line entry points: on the card by default, on the CPU
+    # only with --device cpu (their heavy calls recorded, not run)
+    clis = [(loop, "train_config", []), (train_queue, "run_queue", []),
+            (evaluate, "evaluate_all_models", []),
+            (run_stack3_v2, "prepare_dataset", ["8", "1", "--logs-root", str(tmp_path)])]
+    calls += [lambda m=m, argv=argv: m.main(argv) for m, _, argv in clis]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+    class Reached(Exception):
+        pass
+
+    def reached(*args, **kwargs):
+        raise Reached(args, kwargs)
+
+    for module, heavy, argv in clis:
+        monkeypatch.setattr(module, heavy, reached)
+        with pytest.raises(Reached) as got:
+            module.main(argv + ["--device", "cpu"])
+        args, kwargs = got.value.args
+        assert torch.device("cpu") in (*args, torch.device(kwargs.get("device", "cuda")))
 
 
 def test_dataset_and_frontend_do_not_move_to_cpu_quietly():
