@@ -37,8 +37,12 @@ both on their saved on-device corpus render (F1, F2 and K1, ``'jax'`` /
 ``'device'``) and the ``structured2`` corpus they trained on,
 FlowParamsLoss (``r2flowloss_train``), the MLP head (``r2mlp400``, train,
 eval, and eval again with the C++ re-render) and BasicVAE with a MAF head,
-the last three on the C++ corpus render. Each of these paths caches its
-corpus under a data root of its own, so that its corpus pass is cold. Then
+the last three on the C++ corpus render, each training path 2 epochs, so
+that its second epoch replays the CUDA graph of its K-step group
+(``TrainConfig.steps_per_dispatch``, ``training/dispatch.py``; every
+training path is held to the graph captures and replays it must show).
+Each of these paths caches its corpus under a data root of its own, so
+that its corpus pass is cold. Then
 the real-data path at the flagship's width: 33 DX7 cartridges imported into
 one SQLite database (1,056 voices), trained 2 epochs (the cold corpus pass
 writes the disk cache), resumed for a third on the same cache (a warm
@@ -69,7 +73,14 @@ largest entry, in float64; float32's differences printed: the step is
 ill-conditioned there); ``remat`` takes the flagship's step at batch 160
 with ``TrainConfig.remat`` and without, holds them to each other in
 float64 at the same bar (the generator's state equal), and prints each
-one's steady step and peak device memory in bf16. Last, the ``cli`` paths
+one's steady step and peak device memory in bf16, then with remat a K=2
+group's graph against eager steps; ``dispatch`` trains the flagship on
+the 1,024-preset corpus at ``steps_per_dispatch`` 1, 16 and -1 in float32
+(every validation scalar within rtol 1e-5, atol 1e-7 of K=1's, on cuDNN's
+deterministic algorithms) and bf16, resumes a K=16 run (bit-equal to an
+uninterrupted one), and times the bf16 step eagerly against a replay of
+16 steps (median of 3 trials, the capture's seconds, the device-busy
+share of a traced replay). Last, the ``cli`` paths
 drive the port's command-line entry points as a user runs them:
 ``python -m preset_gen_vae_tpu_torch.scripts.evaluate`` in a subprocess
 over the train path's run (its summary held to the in-process eval's
@@ -101,6 +112,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -505,13 +517,14 @@ def fm_inputs(p: torch.Tensor, pitch, vel, sr: int, n_ticks: int, note_off: int)
     return got, (amps, starts, incs, alg, fb_amt, nc, d["master_volume"], sr), ctl
 
 
-def f2_phase_errors(args, ref_sample=None):
+def f2_phase_errors(args, ref_sample=None, loop_ref=None):
     """F2 and its two phases against their plain versions on the same F1
     outputs: -> (max |err| by item of fm_exact against exact_pass, of the
     loop phase against feedback_loop_pass on the items with feedback, and
     of the feed-forward phase, run on the plain loop's output, against
     feedforward_pass; each finished by fade_and_volume where it is a
-    waveform). ``ref_sample`` is exact_pass's carrier sum if already made."""
+    waveform). ``ref_sample`` is exact_pass's carrier sum and ``loop_ref``
+    feedback_loop_pass's output, where already made."""
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
 
     amps, starts, incs, alg, fb_amt, nc, mv, sr = args
@@ -522,7 +535,8 @@ def f2_phase_errors(args, ref_sample=None):
     e_f2 = (out - ft.fade_and_volume(ref_sample, nc, mv, sr)).abs().amax(1)
     del out
     on = fb_amt != 0
-    loop_ref = ft.feedback_loop_pass(phases, amps_s, alg, fb_amt)
+    if loop_ref is None:
+        loop_ref = ft.feedback_loop_pass(phases, amps_s, alg, fb_amt)
     loop = ft.fm_fb_loop(*args[:5])
     e_loop = torch.where(on[:, None], loop - loop_ref, 0.0).abs().amax(1)
     del loop
@@ -655,9 +669,10 @@ def phase_fm_kernels():
             ft.feedforward_pass(phases, amps_s, alg, fb_amt, loop_ref)
             torch.cuda.synchronize()
             row["F2 feed-forward phase plain"] = (time.perf_counter() - t0) * 1e3
-            del phases, amps_s, loop_ref
+            del phases, amps_s
             errs = f1_errors((amps, pitch_fact, starts, incs), want)
-            e_f2, e_loop, e_ff = (float(e.max()) for e in f2_phase_errors(args, ref))
+            e_f2, e_loop, e_ff = (float(e.max()) for e in f2_phase_errors(args, ref, loop_ref))
+            del loop_ref
             # the starts part by the increments' summed last-bit differences
             # over 2,768 ticks: reported; start_step holds F1's recurrence
             gated = {k: v for k, v in F1_BARS.items() if k != "starts"}
@@ -1402,15 +1417,31 @@ def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0, bwd2: int 
     if isinstance(result, dict):
         line.update({k: result[k] for k in ("step_ms", "corpus_seconds", "reduction")
                      if isinstance(result.get(k), (int, float))})
+        line.update({k: result[k] for k in GRAPH_KEYS if k in result})
     SUMMARY.append(line)
     return result, launches, wall, peak
 
 
+# the loop summary's K and CUDA graph counts (training/dispatch.py)
+GRAPH_KEYS = ("steps_per_dispatch", "train_graph_captures", "train_graph_replays",
+              "eval_graph_captures", "eval_graph_replays")
+
+
 def check_train_summary(name: str, summary: dict, epochs_trained: int,
-                        input_size=(160, 1, 257, 347), dim_z: int = 610):
+                        input_size=(160, 1, 257, 347), dim_z: int = 610, *, graphs):
+    """Finite metrics, the configuration's shapes, the epochs, and
+    ``graphs`` = (train, eval): whether the K-step group's CUDA graph and
+    the validation step's were captured, once each, and replayed (a
+    one-process path with more than one group of steps, resp. validation
+    batches, on epochs that are not profiled); neither otherwise."""
     bad = {k: v for k, v in summary.items() if isinstance(v, float) and not np.isfinite(v)}
     if bad:
         raise AssertionError(f"{name}: non-finite metrics: {bad}")
+    for kind, want in zip(("train", "eval"), graphs):
+        got = (summary[f"{kind}_graph_captures"], summary[f"{kind}_graph_replays"])
+        if got[0] != int(want) or (got[1] > 0) != bool(want):
+            raise AssertionError(f"{name}: {kind} graph captures and replays {got}, want "
+                                 f"{'1 and some' if want else 'none'}")
     if summary["dim_z"] != dim_z or summary["input_size"] != list(input_size):
         raise AssertionError(f"{name}: not the configuration's shapes: {summary}")
     if summary["epochs_trained"] != epochs_trained:
@@ -1437,7 +1468,7 @@ def phase_main_path(root: str):
     summary, counts["train"], wall, mem = drive("train", lambda: train_config(
         model_c, train_c, dataset_kwargs=fresh_corpus(CORPUS, root, "train"), device="cuda",
         use_tensorboard=False))
-    check_train_summary("train", summary, 2)
+    check_train_summary("train", summary, 2, graphs=(True, True))
     train_summary = summary
     if list_checkpoint_epochs(model_c) != [1]:
         raise AssertionError(f"train: checkpoints {list_checkpoint_epochs(model_c)}, want [1]")
@@ -1457,13 +1488,14 @@ def phase_main_path(root: str):
     summary, counts["resume"], wall, mem = drive("resume", lambda: train_config(
         model_c, resume_c, dataset_kwargs=fresh_corpus(CORPUS, root, "resume"), device="cuda",
         use_tensorboard=False))
-    check_train_summary("resume", summary, 3)
+    check_train_summary("resume", summary, 3, graphs=(False, True))
     restored = load_checkpoint(model_c, 1)
     steps_per_epoch = summary["train_steps"]
     if not summary["start_step"] == restored["state"]["step"] == 2 * steps_per_epoch:
         raise AssertionError(f"resume: step {summary['start_step']}, checkpoint "
                              f"{restored['state']['step']}, {steps_per_epoch} steps an epoch")
-    if any(lr != restored["scheduler"]["lr"] for lr in summary["start_lr"]):
+    # capturable Adam holds its LR as a float32 device tensor
+    if any(lr != float(np.float32(restored["scheduler"]["lr"])) for lr in summary["start_lr"]):
         raise AssertionError(f"resume: LRs {summary['start_lr']} vs {restored['scheduler']}")
     if list_checkpoint_epochs(model_c) != [1, 2]:
         raise AssertionError(f"resume: checkpoints {list_checkpoint_epochs(model_c)}")
@@ -1549,7 +1581,7 @@ def phase_profile_path(root: str):
     summary, counts, wall, mem = drive("profile", lambda: train_config(
         model_c, train_c, dataset_kwargs=fresh_corpus(PROFILE_CORPUS, root, "profile"),
         device="cuda", use_tensorboard=False))
-    check_train_summary("profile", summary, 1)
+    check_train_summary("profile", summary, 1, graphs=(False, True))
     rep = trace_report(pathlib.Path(summary["run_dir"]) / "profile" / "trace.json")
     top = "; ".join(f"{name} {ms:.3f} ms" for name, ms in rep["top"])
     print(f"[profile path] {card_line()}: wall {wall:.2f} s, K1 launches {counts['logmel']}, "
@@ -1584,7 +1616,7 @@ def phase_multiproc1(root: str, train_summary: dict):
             device="cuda", use_tensorboard=False))
     finally:
         dist.destroy_process_group()
-    check_train_summary("multiproc1", summary, 2)
+    check_train_summary("multiproc1", summary, 2, graphs=(False, False))
     rel = {k: abs(summary[k] - train_summary[k]) / abs(train_summary[k]) for k in VALID_LOSSES}
     if summary["world_size"] != 1 or max(rel.values()) > 2e-3:
         raise AssertionError(f"multiproc1: world {summary['world_size']}, validation losses "
@@ -1777,13 +1809,90 @@ def remat_step_timing(model_c, train_c, helper, x, v, info, remat: bool, steps: 
     return ms, peak / 2**30, (peak - before) / 2**30
 
 
+def flagship_stepper(model_c, train_c, helper, loader):
+    """The flagship built from seed 0 on the card, its capturable Adam,
+    criteria and a generator seeded 11; -> (model, generator, step), where
+    ``step(sel, latents=True)`` is one train step (beta 0.2, a device
+    scalar) on the rows of ``loader`` that index row ``sel`` selects, as
+    the loop takes it."""
+    from preset_gen_vae_tpu_torch.models.build import build_extended_ae_model
+    from preset_gen_vae_tpu_torch.training.train_step import Criteria, make_optimizer, \
+        train_step
+
+    model = build_extended_ae_model(model_c, train_c, helper, seed=0).to("cuda")
+    opt, crit = make_optimizer(model, train_c), Criteria(model_c, train_c, helper)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    beta = torch.full((), 0.2, device="cuda")
+
+    def step(sel, latents=True):
+        x, v, info = loader.gather(sel)
+        return train_step(model, opt, crit, train_c, x, v, info, beta, gen, latents=latents)
+
+    return model, gen, step
+
+
+def scalar_row(metrics: dict, keys) -> torch.Tensor:
+    return torch.stack([metrics[key] for key in keys])
+
+
+def train_keys(model_c, train_c, helper):
+    from preset_gen_vae_tpu_torch.training.train_step import Criteria
+
+    return Criteria(model_c, train_c, helper).scalars + ("TotalLoss",)
+
+
+def graph_against_eager(model_c, train_c, helper, x, v, info, k: int = 2) -> dict:
+    """2k train steps of the flagship on shuffles of the rows (x, v, info),
+    eagerly and as a K-step group (``training/dispatch.py``): its first k
+    steps the group's warm-up, the next k one capture and replay; with
+    cuDNN's deterministic algorithms (float32's default ones are not), so
+    that the two can agree to the bit. -> whether the scalar rows are
+    within ``DISPATCH_BAR``, their largest difference, the largest
+    parameter and buffer difference, whether the generators' states are
+    equal, the group's captures and replays."""
+    from preset_gen_vae_tpu_torch.data.pipeline import SplitLoader
+    from preset_gen_vae_tpu_torch.training.dispatch import TrainGroups
+
+    B = train_c.minibatch_size
+    loader = SplitLoader({"x": x, "v": v, "info": info}, np.arange(len(x)), B, shuffle=True,
+                         drop_last=True)
+    idx = torch.from_numpy(np.stack([next(loader.epoch_index_batches(e))
+                                     for e in range(2 * k)])).cuda()
+    keys = train_keys(model_c, train_c, helper)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model_a, gen_a, step_a = flagship_stepper(model_c, train_c, helper, loader)
+        rows_a = torch.stack([scalar_row(step_a(idx[j]), keys) for j in range(2 * k)])
+        model_b, gen_b, step_b = flagship_stepper(model_c, train_c, helper, loader)
+        groups = TrainGroups(k, B, step_b, keys, torch.device("cuda"), f"{k} flagship steps",
+                             gen_b)
+        with groups.call.warm_up():
+            warm = [scalar_row(step_b(idx[j]), keys) for j in range(k)]
+        rows_b = torch.cat([torch.stack(warm), groups.run(idx[k:])[0]])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bar = DISPATCH_BAR["atol"] + DISPATCH_BAR["rtol"] * rows_a.abs()
+    params = max(float((a.double() - b.double()).abs().max())
+                 for a, b in zip(model_a.state_dict().values(), model_b.state_dict().values()))
+    return {"rows_within_bar": bool(((rows_a - rows_b).abs() <= bar).all()),
+            "rows_max_abs": float((rows_a - rows_b).abs().max()), "params": params,
+            "generator_equal": torch.equal(gen_a.get_state(), gen_b.get_state()),
+            "captures": groups.call.captures, "replays": groups.call.replays}
+
+
 def phase_remat():
     """``TrainConfig.remat`` on the card: one flagship step at batch 160 (the
     multiproc2 rows) with remat and without, in float64 (TF32 off): the
     loss, every gradient and every running statistic within 1e-4 of each
     tensor's scale (multiproc2's rule, ``module_scales``) and the
     generator's state equal; then in bf16 autocast the steady step time
-    and the peak device memory of each."""
+    and the peak device memory of each; last, in float32 with remat on, 4
+    eager steps against a K=2 group (2 warm-up steps, then one CUDA graph
+    capture and replay of 2): scalar rows within the dispatch bar
+    (``DISPATCH_BAR``), the generator's state equal, the parameter
+    difference printed."""
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
 
     def run():
@@ -1793,9 +1902,11 @@ def phase_remat():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
         timing = {on: remat_step_timing(model_c, train_c, helper, x, v, info, on)
                   for on in (False, True)}
-        return steps, timing
+        graphed = graph_against_eager(model_c, dataclasses.replace(train_c, remat=True), helper,
+                                      x, v, info)
+        return steps, timing, graphed
 
-    (steps, timing), counts, wall, _ = drive("remat", run, k1=0)
+    (steps, timing, graphed), counts, wall, _ = drive("remat", run, k1=0)
     scales = module_scales(steps[False])
     errs = sorted(step_errors(steps[True], steps[False], scales).items(), key=lambda kv: -kv[1])
     same_gen = torch.equal(steps[True]["generator"], steps[False]["generator"])
@@ -1811,9 +1922,230 @@ def phase_remat():
                                      for k, v in timing.items()},
                        step_peak_gib_bf16={("on" if k else "off"): round(v[1], 3)
                                            for k, v in timing.items()})
+    print(f"[remat] remat on, float32, K=2 group (2 warm-up steps, then a CUDA graph of 2 "
+          f"replayed) against 4 eager steps: {json.dumps(graphed)}", flush=True)
     if errs[0][1] > 1e-4 or not same_gen:
         raise AssertionError(f"remat: float64 {errs[:5]} (bar 1e-4), generator equal {same_gen}")
+    if not graphed["rows_within_bar"] or not graphed["generator_equal"] or \
+            (graphed["captures"], graphed["replays"]) != (1, 1):
+        raise AssertionError(f"remat: K-step graph against eager steps {graphed}")
     return {"remat": counts}
+
+
+# K-step dispatch against one step at a time: the bar of the JAX package's
+# tests/test_loop.py::test_steps_per_dispatch_matches
+DISPATCH_BAR = {"rtol": 1e-5, "atol": 1e-7}
+DISPATCH_KS = (1, 16, -1)
+DISPATCH_TRIALS = 3
+DISPATCH_K = 16  # the timed group: the saved runs' K
+
+
+def valid_scalars(summary: dict) -> dict:
+    return {k: v for k, v in summary.items() if k.endswith("/Valid")}
+
+
+@functools.lru_cache(maxsize=4)
+def checkpoint_state(run_dir: str, epoch: int) -> dict:
+    """A run's checkpoint ``epoch`` (model, Adam, step, generator), read once."""
+    return torch.load(pathlib.Path(run_dir) / "checkpoints" / str(epoch) / "state.pt",
+                      map_location="cpu", weights_only=True)
+
+
+def run_difference(a, b, epoch: int) -> dict:
+    """Two runs ((model_c, summary) each): the largest /Valid difference,
+    whether every /Valid scalar is within ``DISPATCH_BAR``, and the largest
+    difference of checkpoint ``epoch``'s parameters and buffers, of Adam's
+    state and whether the generators' states are equal."""
+    (_, a_s), (_, b_s) = a, b
+    va, vb = valid_scalars(a_s), valid_scalars(b_s)
+    ca, cb = (checkpoint_state(x["run_dir"], epoch) for x in (a_s, b_s))
+
+    def worst(ta, tb):
+        return max(float((ta[k].double() - tb[k].double()).abs().max()) for k in tb)
+
+    return {"valid_max_abs": max(abs(va[k] - vb[k]) for k in vb),
+            "valid_within_bar": va.keys() == vb.keys() and all(
+                abs(va[k] - vb[k]) <= DISPATCH_BAR["atol"] + DISPATCH_BAR["rtol"] * abs(vb[k])
+                for k in vb),
+            "params_max_abs": worst(ca["model"], cb["model"]),
+            "adam_max_abs": max(worst(sa, ca["optimizer"]["state"][i])
+                                for i, sa in cb["optimizer"]["state"].items()),
+            "generator_equal": torch.equal(ca["generator"], cb["generator"]),
+            "steps": (ca["step"], cb["step"])}
+
+
+def trace_busy(trace_path: pathlib.Path) -> dict:
+    """A Chrome trace of one replay: the window from the graph's launch on
+    the host to the last device activity's end, the union of the device's
+    kernel, copy and fill intervals within it, and their count."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                    and e.get("ph") == "X")
+    launch = [e["ts"] for e in events if e.get("cat") == "cuda_runtime"
+              and "GraphLaunch" in str(e.get("name"))]
+    if not device or not launch:
+        return {"busy_share": None, "device_events": len(device), "graph_launches": len(launch)}
+    start, end = min(launch), max(b for _, b in device)
+    busy, cursor = 0.0, start
+    for a, b in device:
+        a, b = max(a, cursor), min(b, end)
+        if b > a:
+            busy, cursor = busy + b - a, b
+    return {"busy_share": busy / (end - start), "window_ms": (end - start) / 1e3,
+            "device_ms": busy / 1e3, "device_events": len(device), "graph_launches": len(launch)}
+
+
+def dispatch_step_timing(model_c, train_c, dataset, out_dir: pathlib.Path) -> dict:
+    """The flagship's steady train step in bf16 at K=1 (an eager step) and
+    K=16 (a replay of the graph of 16 steps) in this process, over 16 train
+    batches of the corpus: the group's warm-up (16 eager steps, the first
+    with cuDNN's search), its capture (seconds), then ``DISPATCH_TRIALS``
+    trials in turns, 16 eager steps and one replay each, synchronised
+    (ms a step); last a profiler trace of one replay (device-busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from preset_gen_vae_tpu_torch.data.pipeline import get_split_loaders
+    from preset_gen_vae_tpu_torch.training.dispatch import TrainGroups
+
+    helper = dataset.preset_indexes_helper
+    loader = get_split_loaders(dataset, train_c)["train"]
+    rows = [b for e in range(DISPATCH_K) for b in loader.epoch_index_batches(e)][:DISPATCH_K]
+    idx = torch.from_numpy(np.stack(rows)).cuda()
+    _, gen, step = flagship_stepper(model_c, train_c, helper, loader)
+    groups = TrainGroups(DISPATCH_K, loader.batch_size, step, train_keys(model_c, train_c, helper),
+                         torch.device("cuda"), f"{DISPATCH_K} flagship steps", gen)
+    with groups.call.warm_up():
+        for j in range(DISPATCH_K):
+            step(idx[j], False)
+    torch.cuda.synchronize()
+    groups.run(idx)  # the capture, then its first replay
+    torch.cuda.synchronize()
+    eager, graph = [], []
+    for _ in range(DISPATCH_TRIALS):
+        t0 = time.perf_counter()
+        for j in range(DISPATCH_K):
+            step(idx[j], False)
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t0) * 1e3 / DISPATCH_K)
+        t0 = time.perf_counter()
+        groups.run(idx)
+        torch.cuda.synchronize()
+        graph.append((time.perf_counter() - t0) * 1e3 / DISPATCH_K)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        groups.run(idx)
+        torch.cuda.synchronize()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "replay_trace.json"))
+    return {"k1_ms": sorted(eager), "k16_ms": sorted(graph),
+            "k1_median_ms": float(np.median(eager)), "k16_median_ms": float(np.median(graph)),
+            "capture_s": groups.call.capture_s, "replays": groups.call.replays,
+            "trace": trace_busy(out_dir / "replay_trace.json")}
+
+
+def phase_dispatch(root: str):
+    """``TrainConfig.steps_per_dispatch`` on the card: the flagship at full
+    width on the smoke's 1,024-preset corpus (4 train steps an epoch, 2
+    validation batches), trained 2 epochs from one seed at K=1 (eager
+    steps), K=16 and K=-1 (both capped at the epoch's 4 steps: the first
+    epoch's group is the graph's warm-up, the second epoch replays it),
+    through ``train_config`` on one corpus pass per dtype:
+
+    - float32 with TF32 off and cuDNN's deterministic algorithms (the
+      float32 step's cuDNN algorithms are not deterministic by default:
+      the noise floor, a second K=1 run without them, is printed): every
+      /Valid scalar of K=16 and K=-1 within ``DISPATCH_BAR`` of K=1's, the
+      largest parameter difference printed;
+    - bf16 (the default algorithms): the same runs, their differences
+      printed;
+    - resume at K=16 (bf16): 2 epochs resumed for a third against 3
+      uninterrupted epochs, /Valid scalars, parameters, Adam's state and
+      the generator's state bit-equal (the resumed epoch is its group's
+      warm-up, the uninterrupted one a replay);
+    - the steady step in bf16 at K=1 and K=16 (``dispatch_step_timing``),
+      the capture's seconds and the device-busy share of a traced replay.
+    """
+    from preset_gen_vae_tpu_torch import config as cfg
+    from preset_gen_vae_tpu_torch.training.loop import prepare_dataset, train_config
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.allow_tf32, cudnn.deterministic)
+    runs, timing, diffs = {}, {}, {}
+
+    def run(name, dataset, dtype, k, **kw):
+        model_c = cfg.ModelConfig(logs_root_dir=root, run_name=f"dispatch_{name}")
+        train_c = cfg.TrainConfig(**{"n_epochs": 2, "minibatch_size": 160, "lr_warmup_epochs": 0,
+                                     "save_period": 1, "verbosity": 0, "compute_dtype": dtype,
+                                     "steps_per_dispatch": k, **kw})
+        summary = train_config(model_c, train_c, dataset=dataset, device="cuda",
+                               use_tensorboard=False)
+        epochs = kw.get("n_epochs", 2)
+        check_train_summary(f"dispatch {name}", summary, epochs,
+                            graphs=(k != 1 and epochs - kw.get("start_epoch", 0) > 1, True))
+        return model_c, summary
+
+    def body():
+        for dtype in ("float32", "bfloat16"):
+            corpus = fresh_corpus(CORPUS, root, f"dispatch_{dtype}")
+            model_c, train_c, dataset = prepare_dataset(
+                cfg.ModelConfig(logs_root_dir=root), cfg.TrainConfig(compute_dtype=dtype),
+                torch.device("cuda"), dataset_kwargs=corpus)
+            if dtype == "float32":
+                runs["float32 K=1 nondeterministic"] = run("float32_nondet", dataset, dtype, 1)
+            cudnn.deterministic = dtype == "float32"
+            for k in DISPATCH_KS:
+                runs[f"{dtype} K={k}"] = run(f"{dtype}_k{k}", dataset, dtype, k)
+            cudnn.deterministic = flags[1]
+            for k in DISPATCH_KS[1:]:
+                diffs[f"{dtype} K={k}"] = run_difference(runs[f"{dtype} K={k}"],
+                                                         runs[f"{dtype} K=1"], 1)
+            if dtype == "float32":
+                diffs["float32 K=1 nondeterministic"] = run_difference(
+                    runs["float32 K=1 nondeterministic"], runs["float32 K=1"], 1)
+        runs["bfloat16 K=16 3 epochs"] = run("bfloat16_full", dataset, "bfloat16", 16,
+                                             n_epochs=3, save_period=3)
+        runs["bfloat16 K=16 resumed"] = run("bfloat16_k16", dataset, "bfloat16", 16,
+                                            start_epoch=2, n_epochs=3)
+        diffs["resume"] = run_difference(runs["bfloat16 K=16 resumed"],
+                                         runs["bfloat16 K=16 3 epochs"], 2)
+        timing.update(dispatch_step_timing(model_c, train_c, dataset,
+                                           pathlib.Path(root) / "dispatch_trace"))
+
+    try:
+        _, counts, wall, mem = drive("dispatch", body, k1=32)
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = flags
+        checkpoint_state.cache_clear()
+    for name, d in diffs.items():
+        against = ("2 + 1 epochs at K=16 (bf16) against 3" if name == "resume" else
+                   "against K=1" + (" (cuDNN's deterministic algorithms)"
+                                    if name.startswith("float32") else ""))
+        print(f"[dispatch] {name} {against}: {json.dumps(d)}", flush=True)
+    for name, (_, s) in runs.items():
+        print(f"[dispatch] run {name}: K {s['steps_per_dispatch']}, loop step "
+              f"{s['step_ms']:.2f} ms (first {s['first_step_ms']:.1f} ms), graphs "
+              f"{json.dumps({k: s[k] for k in GRAPH_KEYS[1:]})}, capture "
+              f"{s['graph_capture_s']:.3f} s, epoch {s['epoch_s']:.3f} s", flush=True)
+    t = timing
+    spread = {k: (min(t[k]), max(t[k])) for k in ("k1_ms", "k16_ms")}
+    print(f"[dispatch] {card_line()}: flagship bf16 steady step, {DISPATCH_TRIALS} trials in "
+          f"turns: K=1 median {t['k1_median_ms']:.3f} ms (spread {spread['k1_ms'][0]:.3f}-"
+          f"{spread['k1_ms'][1]:.3f}), K=16 median {t['k16_median_ms']:.3f} ms (spread "
+          f"{spread['k16_ms'][0]:.3f}-{spread['k16_ms'][1]:.3f}), "
+          f"{t['k1_median_ms'] / t['k16_median_ms']:.2f}x; capture of 16 steps "
+          f"{t['capture_s']:.3f} s; traced replay {json.dumps(t['trace'])}; wall {wall:.2f} s, "
+          f"peak device memory {mem:.2f} GiB", flush=True)
+    SUMMARY[-1].update(k1_step_ms=round(t["k1_median_ms"], 3),
+                       k16_step_ms=round(t["k16_median_ms"], 3),
+                       capture_s=round(t["capture_s"], 3), busy_share=t["trace"]["busy_share"])
+    bad = [name for name in ("float32 K=16", "float32 K=-1")
+           if not diffs[name]["valid_within_bar"]]
+    resume = diffs["resume"]
+    exact = (resume["valid_max_abs"] == 0 and resume["params_max_abs"] == 0
+             and resume["adam_max_abs"] == 0 and resume["generator_equal"])
+    if bad or not exact:
+        raise AssertionError(f"dispatch: float32 runs off the bar {bad}, resume exact {exact}")
+    return {"dispatch": counts}
 
 
 SAVED_RUNS = pathlib.Path(__file__).resolve().parent / "saved" / "FlVAE2"
@@ -1861,7 +2193,7 @@ def variant_train(counts, name, model_c, train_c, corpus, epochs, dim_z):
     n_notes = len(model_c.midi_notes)
     channels = n_notes if model_c.stack_spectrograms else 1
     check_train_summary(name, summary, epochs, (train_c.minibatch_size, channels, 257, 347),
-                        dim_z)
+                        dim_z, graphs=(True, True))
     k1 = n_notes * -(-corpus["n_synthetic_presets"] // CORPUS_CHUNK)
     if counts[name]["logmel"] != k1:
         raise AssertionError(f"{name}: {counts[name]['logmel']} K1 launches, want {k1}")
@@ -1933,11 +2265,13 @@ def phase_variant_paths(root: str):
     summary = variant_train(counts, "stack3 train", model_c, train_c, CORPUS_V2, 2, 610)
     variant_eval(counts, "stack3 eval", model_c, summary["run_dir"], CORPUS_V2)
 
-    # ---- 6 un-stacked notes, MIDI in z0, 1800-channel mixers, 1 epoch
-    model_c, train_c = saved_run_configs("r5multi6_v2_12288", root, n_epochs=1)
-    summary = variant_train(counts, "multi6 train", model_c, train_c, CORPUS_V2, 1, 610)
+    # ---- 6 un-stacked notes, MIDI in z0, 1800-channel mixers, 2 epochs
+    # (24 steps each: a group of 16, the graph's warm-up, then replayed);
+    # the un-stacked notes divide the epochs, 1 + n_epochs // 5 (config.py)
+    model_c, train_c = saved_run_configs("r5multi6_v2_12288", root, n_epochs=5)
+    summary = variant_train(counts, "multi6 train", model_c, train_c, CORPUS_V2, 2, 610)
     n_train = len(split_preset_indexes(CORPUS_V2["n_synthetic_presets"])["train"]) * 6
-    if summary["train_steps"] != n_train // train_c.minibatch_size:
+    if summary["train_steps"] != 2 * (n_train // train_c.minibatch_size):
         raise AssertionError(f"multi6: {summary['train_steps']} steps for {n_train} items")
     latents = {}
     items = variant_eval(counts, "multi6 eval", model_c, summary["run_dir"], CORPUS_V2, latents)
@@ -1949,18 +2283,18 @@ def phase_variant_paths(root: str):
           f"velocity) / 127 of their own note (max |err| {err:.1e})", flush=True)
 
     # ---- FlowParamsLoss, the train-mode pullback (cut corpus)
-    model_c, train_c = saved_run_configs("r2flowloss_train", root, n_epochs=1)
-    summary = variant_train(counts, "flowloss train", model_c, train_c, VARIANT_CORPUS, 1, 610)
-    share = summary["Controls/FlooredShare/Train"]
-    n_train = summary["train_steps"] * train_c.minibatch_size
+    model_c, train_c = saved_run_configs("r2flowloss_train", root, n_epochs=2)
+    summary = variant_train(counts, "flowloss train", model_c, train_c, VARIANT_CORPUS, 2, 610)
+    share = summary["Controls/FlooredShare/Train"]  # of the last epoch
+    n_train = summary["train_steps"] // 2 * train_c.minibatch_size
     print(f"[flowloss train path] Controls/BackpropLoss {summary['Controls/BackpropLoss/Train']}"
           f" (train), {summary['Controls/BackpropLoss/Valid']} (valid); items at the -1e8 floor:"
           f" {share * n_train:.0f} of {n_train} trained ({share:.1%}), "
           f"{summary['Controls/FlooredShare/Valid']:.1%} of validation", flush=True)
 
     # ---- the MLP head, dim_z 256 (cut corpus)
-    model_c, train_c = saved_run_configs("r2mlp400", root, n_epochs=1)
-    summary = variant_train(counts, "mlp train", model_c, train_c, VARIANT_CORPUS, 1, 256)
+    model_c, train_c = saved_run_configs("r2mlp400", root, n_epochs=2)
+    summary = variant_train(counts, "mlp train", model_c, train_c, VARIANT_CORPUS, 2, 256)
     variant_eval(counts, "mlp eval", model_c, summary["run_dir"], VARIANT_CORPUS)
     variant_eval(counts, "mlp eval cpp", model_c, summary["run_dir"], VARIANT_CORPUS,
                  backend="cpp")
@@ -1969,8 +2303,8 @@ def phase_variant_paths(root: str):
     model_c, train_c = saved_run_configs(
         "r2flowloss_train", root, dict(run_name="smoke_basic_maf", latent_flow_arch=None,
                                        params_regression_architecture="flow_maf_6l300",
-                                       forward_controls_loss=True), n_epochs=1)
-    summary = variant_train(counts, "basic_maf train", model_c, train_c, VARIANT_CORPUS, 1, 610)
+                                       forward_controls_loss=True), n_epochs=2)
+    summary = variant_train(counts, "basic_maf train", model_c, train_c, VARIANT_CORPUS, 2, 610)
     print(f"[basic_maf train path] LatLoss (Dkl) {summary['LatLoss/Train']} (train), "
           f"{summary['LatLoss/Valid']} (valid)", flush=True)
     return counts
@@ -2095,7 +2429,7 @@ def phase_syx_path(root: str):
     with served_corpus(served, "syx train"):
         summary, counts["syx train"], wall, mem = drive("syx train", lambda: train_config(
             model_c, train_c, dataset_kwargs=kw, device="cuda", use_tensorboard=False), k1=k1)
-    check_train_summary("syx train", summary, 2)
+    check_train_summary("syx train", summary, 2, graphs=(True, True))
     (cache,) = (base / "data_cache" / "dexed").iterdir()
     files = {f.name for f in cache.iterdir()}
     want = {"spec_stats.json", "specs_raw.npy", "specs_norm_f16.npy", "render_constraints.json"}
@@ -2116,7 +2450,7 @@ def phase_syx_path(root: str):
     with served_corpus(served, "syx resume"):
         summary, counts["syx resume"], wall, mem = drive("syx resume", lambda: train_config(
             model_c, resume_c, dataset_kwargs=kw, device="cuda", use_tensorboard=False), k1=0)
-    check_train_summary("syx resume", summary, 3)
+    check_train_summary("syx resume", summary, 3, graphs=(False, True))
     if summary["corpus_render_seconds"] != 0.0 or not torch.equal(served["syx train"],
                                                                   served["syx resume"]):
         raise AssertionError("syx resume: the warm corpus is not the train path's")
@@ -2251,7 +2585,7 @@ def run_module(module: str, *argv: str, timeout: int = 300) -> str:
 
 
 def check_cli_run(name: str, summary: dict, run_dir: pathlib.Path):
-    check_train_summary(name, summary, 1)
+    check_train_summary(name, summary, 1, graphs=(False, False))
     if summary["run_dir"] != str(run_dir) or not (run_dir / "checkpoints" / "0").is_dir() or \
             (run_dir / "tensorboard").exists():
         raise AssertionError(f"{name}: run dir {summary['run_dir']}, want {run_dir} with "
@@ -2423,6 +2757,7 @@ def main(argv=None) -> int:
         counts.update(phase_multiproc1(root, train_summary))
         counts.update(phase_multiproc2(root))
         counts.update(phase_remat())
+        counts.update(phase_dispatch(root))
         counts.update(phase_cli(root, train_summary))
     finally:
         shutil.rmtree(root, ignore_errors=True)

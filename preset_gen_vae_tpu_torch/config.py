@@ -2,8 +2,8 @@
 unchanged apart from this paragraph, one default of ``EvalConfig``
 (``device``; see there) and the comments of
 ``dataset_corpus_render_backend``, ``dataset_corpus_cache_policy``,
-``steps_per_dispatch``, ``audio_render_backend``, ``audio_batch_size``,
-``cache_gt_audio``,
+``steps_per_dispatch``, ``scan_unroll``, ``audio_render_backend``,
+``audio_batch_size``, ``cache_gt_audio``,
 ``main_cuda_device_idx``, the profiler fields, the parallel fields
 (``data_parallel_devices`` to ``force_multihost_data``), ``compute_dtype``
 and ``dataset_cache_device``, which say what the fields mean in this
@@ -185,12 +185,18 @@ class TrainConfig:
     # amortizes host dispatch — the bottleneck on weak-host machines.
     # -1: whole-epoch dispatch — K is set to the train loader's batch
     # count, so every epoch is ONE train dispatch + ONE validation scan.
-    # A JAX-only knob, kept for config parity: this package's loop
-    # dispatches one step at a time and ignores it.
+    # In this package (training/dispatch.py): in one process, K whole
+    # train steps are one CUDA graph, captured once per run after the first
+    # group (run eagerly as its warm-up) and replayed once per group; the
+    # remainder steps one at a time, and so do K=1, several processes and
+    # the profiled epoch. The validation step of an epoch that draws no
+    # figure is a graph replayed per batch, whatever K is.
     steps_per_dispatch: int = 16
     # lax.scan unroll factor for the K-step/whole-epoch scans (>1 inlines
     # that many step bodies per scan iteration, letting XLA overlap work
-    # across steps at the cost of compile time)
+    # across steps at the cost of compile time). No counterpart here: a
+    # graph of K steps holds every step's kernels already, and the factor
+    # changes no arithmetic in JAX either; it is read and ignored.
     scan_unroll: int = 1
     remat: bool = False  # rematerialize the forward in backward (big batches)
     seed: int = 0

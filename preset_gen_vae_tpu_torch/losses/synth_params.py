@@ -7,7 +7,9 @@ with its per-item form and its limited parameter subset for the eval pass.
 ``FlowParamsLoss`` needs the model's flows and lives in the train step
 (``training/train_step.py``), as in the JAX package. The index tables
 of ``PresetIndexesHelper`` are numpy; each criterion moves them to the
-device of its inputs once and keeps them there.
+device of its inputs once and keeps them there: the first step makes
+that copy, before any CUDA graph is captured, and a step after it copies
+nothing from the host.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ class _Tables:
 
 
 def _masked_argmax(g: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
-    return torch.where(pad[None], g, torch.tensor(float("-inf"), device=g.device)).argmax(-1)
+    return torch.where(pad[None], g, float("-inf")).argmax(-1)
 
 
 def useless_masks(helper: PresetIndexesHelper, v_in: torch.Tensor, t: Dict,
@@ -99,9 +101,8 @@ class SynthParamsLoss:
             n_useful = torch.clamp(global_count(useful.sum(0)), min=1.0 / world_size())
             if not self.cat_bce:
                 if self.cat_softmax:
-                    q = torch.softmax(torch.where(
-                        pad[None], q / self.cat_softmax_t,
-                        torch.tensor(float("-inf"), device=q.device)), dim=-1)
+                    q = torch.softmax(torch.where(pad[None], q / self.cat_softmax_t,
+                                                  float("-inf")), dim=-1)
                 q_sel = torch.sum(q * tgt * pad[None].float(), dim=-1)
                 per_group = -torch.sum(torch.log(torch.clamp(q_sel, min=1e-38)) * useful,
                                        dim=0) / n_useful

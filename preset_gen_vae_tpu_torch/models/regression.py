@@ -18,36 +18,49 @@ from .flows import RegressionFlow
 from .layers import BatchNorm, dropout, widen
 
 
-def segment_softmax_scatter(x: torch.Tensor, idx_matrix: np.ndarray, mask: np.ndarray,
+class ActivationTables(nn.Module):
+    """The index tables of ``preset_activation`` as non-persistent buffers:
+    they move with the head, so no call copies them from the host; the
+    categorical slots are taken by their flat positions, not by a boolean
+    mask (whose gather waits for the host)."""
+
+    def __init__(self, idx_helper: PresetIndexesHelper):
+        super().__init__()
+        idx_matrix, mask = idx_helper.cat_group_idx_matrix, idx_helper.cat_group_mask
+        tables = {
+            "num_idx": idx_helper.num_learn_idx,
+            "cat_idx": np.maximum(idx_matrix, 0),  # (G, C) learnable indexes, pads at 0
+            "cat_mask": mask,  # (G, C) True where valid
+            "cat_flat_idx": idx_matrix[mask],  # learnable index of each valid slot
+            "cat_flat_pos": np.flatnonzero(mask),  # its position in the flattened (G, C)
+        }
+        for name, a in tables.items():
+            self.register_buffer(name, torch.from_numpy(np.ascontiguousarray(a)), persistent=False)
+
+
+def segment_softmax_scatter(x: torch.Tensor, tables: ActivationTables,
                             temperature: float = 1.0) -> torch.Tensor:
     """In-group softmax over every padded categorical group of a (B, L)
     learnable tensor, written back in place of the logits
-    (regression.py:21-40). ``idx_matrix`` (G, C) holds learnable indexes,
-    -1 pad; ``mask`` (G, C) is True where valid."""
-    if idx_matrix.size == 0:
+    (regression.py:21-40)."""
+    if tables.cat_idx.numel() == 0:
         return x
-    dev = x.device
-    gathered = x[:, torch.from_numpy(np.maximum(idx_matrix, 0)).to(dev)]  # (B, G, C)
-    mask_t = torch.from_numpy(mask).to(dev)
-    gathered = torch.where(mask_t[None], gathered / temperature,
-                           torch.tensor(float("-inf"), device=dev))
+    gathered = x[:, tables.cat_idx]  # (B, G, C)
+    gathered = torch.where(tables.cat_mask[None], gathered / temperature, float("-inf"))
     probs = torch.softmax(gathered, dim=-1)
-    flat_idx = torch.from_numpy(idx_matrix[mask]).to(dev)
-    return x.index_copy(1, flat_idx, probs[:, mask_t])
+    return x.index_copy(1, tables.cat_flat_idx, probs.flatten(1)[:, tables.cat_flat_pos])
 
 
-def preset_activation(x: torch.Tensor, idx_helper: PresetIndexesHelper, cat_softmax: bool,
+def preset_activation(x: torch.Tensor, tables: ActivationTables, cat_softmax: bool,
                       numerical_max: float = 1.0) -> torch.Tensor:
     """Hardtanh[0, 1] on numerical slots; a softmax per categorical group when
     ``cat_softmax``, else Hardtanh on those too (regression.py:43-59)."""
     if not cat_softmax:
         return torch.clamp(x, 0.0, numerical_max)
-    num_idx = idx_helper.num_learn_idx
-    if len(num_idx):
-        idx = torch.from_numpy(num_idx).to(x.device)
+    if tables.num_idx.numel():
+        idx = tables.num_idx
         x = x.index_copy(1, idx, torch.clamp(x[:, idx], 0.0, numerical_max))
-    return segment_softmax_scatter(x, idx_helper.cat_group_idx_matrix,
-                                   idx_helper.cat_group_mask)
+    return segment_softmax_scatter(x, tables)
 
 
 class MLPRegression(nn.Module):
@@ -65,6 +78,7 @@ class MLPRegression(nn.Module):
         self.n_layers, n_neurons = (int(v) for v in arch[0].split("l"))
         self.idx_helper, self.dropout_p = idx_helper, dropout_p
         self.cat_softmax_activation = cat_softmax_activation
+        self.activation_tables = ActivationTables(idx_helper)
         n_in = dim_z
         for l in range(1, self.n_layers + 1):
             setattr(self, f"fc{l}", nn.Linear(n_in, n_neurons))
@@ -81,7 +95,7 @@ class MLPRegression(nn.Module):
                 h = dropout(getattr(self, f"bn{l}")(h), self.dropout_p, self.training, generator)
             h = torch.relu(h)
         h = getattr(self, f"fc{self.n_layers + 1}")(h)
-        return preset_activation(widen(h), self.idx_helper, self.cat_softmax_activation)
+        return preset_activation(widen(h), self.activation_tables, self.cat_softmax_activation)
 
 
 class FlowRegression(nn.Module):
@@ -98,12 +112,13 @@ class FlowRegression(nn.Module):
         self.idx_helper = idx_helper
         self.fast_forward_flow = fast_forward_flow
         self.cat_softmax_activation = cat_softmax_activation
+        self.activation_tables = ActivationTables(idx_helper)
         self.flow = RegressionFlow(architecture, dim_z, dropout_p)
 
     def forward(self, z_K, generator: Optional[torch.Generator] = None):
         step = self.flow.forward if self.fast_forward_flow else self.flow.inverse
         v_out, _ = step(z_K, generator)
-        return preset_activation(v_out, self.idx_helper, self.cat_softmax_activation)
+        return preset_activation(v_out, self.activation_tables, self.cat_softmax_activation)
 
     def flow_inverse(self, v, generator=None):
         """v -> z_K direction (regression.py:126-130)."""

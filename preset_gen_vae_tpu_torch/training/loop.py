@@ -36,8 +36,23 @@ before the call; loop.py:87-100, 204-239 there): each process trains on
 ``cuda:LOCAL_RANK``, from rank 0's parameters, on its carve of every split
 (``parallel/multihost.py``), with the gradients and the scalars averaged
 over the processes and synchronised batch statistics; rank 0 alone writes.
-``force_multihost_data`` takes that path in one process. The K-step scans
-(``steps_per_dispatch``) and the 2-D tensor-parallel mesh are JAX-only.
+``force_multihost_data`` takes that path in one process. The 2-D
+tensor-parallel mesh is JAX-only.
+
+K-step dispatch (``steps_per_dispatch``, loop.py:225-233, 392-424,
+588-622, 739-758 there; ``training/dispatch.py``): in one process, K
+train steps (K = -1: the epoch's batch count; K capped at it) run as one
+replay of a CUDA graph that holds the K whole steps, the counterpart of
+the JAX loop's K-step ``lax.scan``; the steps left over (the remainder)
+run one at a time. The run's first group runs eagerly as the graph's
+warm-up, the second captures it, the later ones replay it; a failed
+capture raises. An epoch that draws no figure replays the validation
+step's graph (captured after one eager batch) over its batches, the
+counterpart of the whole-validation scan. K = 1 steps one at a time, as
+do several processes and the profiled epoch. The epoch's one fetch of the
+train scalars, the NaN check and the validation weighting are the same on
+every path; on the CPU the groups run their steps eagerly through the
+same static buffers.
 
     from preset_gen_vae_tpu_torch.training.loop import train_config
     summary = train_config(ModelConfig(), TrainConfig(n_epochs=1))  # on the card
@@ -46,6 +61,7 @@ over the processes and synchronised batch statistics; rank 0 alone writes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -66,8 +82,16 @@ from ..parallel import multihost
 from ..utils.exception import check_nan_values
 from ..utils.hparams import LinearDynamicParam
 from ..utils.profile import get_optional_profiler
+from .dispatch import EvalReplays, TrainGroups, dispatch_k, dispatch_sizes
 from .schedulers import ReduceLROnPlateau
-from .train_step import Criteria, eval_step, make_optimizer, train_step
+from .train_step import (
+    Criteria,
+    eval_step,
+    load_optimizer_state,
+    make_optimizer,
+    set_learning_rate,
+    train_step,
+)
 
 # the losses whose NaN/inf stops a run (loop.py:524-528 there)
 NAN_CHECKED = ("ReconsLoss/Backprop", "LatLoss", "FlowInputReg", "Controls/BackpropLoss")
@@ -110,11 +134,6 @@ class EpochSchedule:
         if epoch > tc.lr_warmup_epochs:
             self.plateau.step(sum(valid[n] for n in tc.scheduler_loss))
         return self.plateau.lr, self.plateau.lr < tc.early_stop_lr_threshold
-
-
-def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    for group in optimizer.param_groups:
-        group["lr"] = lr
 
 
 def prepare_dataset(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dev: torch.device,
@@ -214,7 +233,7 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
     if start_checkpoint is not None:  # (loop.py:136-147)
         state = start_checkpoint["state"]
         model.load_state_dict(state["model"])
-        optimizer.load_state_dict(state["optimizer"])
+        load_optimizer_state(optimizer, state["optimizer"])
         step = int(state["step"])
         generator.set_state(state["generator"])
         schedule.plateau.load_state_dict(start_checkpoint["scheduler"])
@@ -239,6 +258,31 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
     train_loader, valid_loader = loaders["train"], loaders["validation"]
     train_keys = criteria.scalars + ("TotalLoss",)
     nan_cols = [train_keys.index(k) for k in NAN_CHECKED]
+    beta_t = torch.zeros((), device=dev)  # the epoch's beta, read by every step on the device
+
+    def one_step(sel, latents: bool):
+        x, v, info = train_loader.gather(sel)
+        return train_step(model, optimizer, criteria, train_c, x, v, info, beta_t, generator,
+                          latents=latents)
+
+    def eval_rows(sel):
+        """-> the scalars and the (2, B, dim_z) latents of one validation batch."""
+        x, v, info = valid_loader.gather(sel)
+        m = eval_step(model, criteria, train_c, x, v, info)
+        return torch.stack([m[k] for k in criteria.scalars]), torch.stack([m["z0_mu"], m["z0"]])
+
+    # in one process, the JAX loop's K-step scans as CUDA graphs
+    # (training/dispatch.py): groups of K train steps, and the validation
+    # step of the epochs that draw no figure
+    groups = evals = None
+    if not multiproc:
+        name = f"{model_c.name}/{model_c.run_name}"
+        k = dispatch_k(train_c.steps_per_dispatch, len(train_loader))
+        if k > 1:
+            groups = TrainGroups(k, train_loader.batch_size, lambda sel: one_step(sel, True),
+                                 train_keys, dev, f"{k} train steps of {name}", generator)
+        evals = EvalReplays(valid_loader.batch_size, eval_rows, dev,
+                            f"the validation step of {name}")
     first_step_s, steady_s, steady_steps, start_lr = None, 0.0, 0, None
     early_stop, epoch_walls = False, []
     for epoch in range(train_c.start_epoch, train_c.n_epochs):
@@ -247,79 +291,109 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
             s.on_new_epoch()
         lr, beta = schedule.epoch_start(epoch)
         set_learning_rate(optimizer, lr)
+        beta_t.fill_(beta)
         if start_lr is None:
-            start_lr = [g["lr"] for g in optimizer.param_groups]
+            start_lr = [float(g["lr"]) for g in optimizer.param_groups]
         # the plot epochs: the train latents' LatCorr/Train, the figures
         # (loop.py:504-515, 719-723 there)
         should_plot = (epoch % train_c.plot_period == 0 and logger.tensorboard is not None
                        and world == 1)
 
-        # ---- train: the epoch's index batches go to the device in one copy
+        # ---- train: the epoch's index batches go to the device in one copy;
+        # groups of K steps (the profiled epoch steps one at a time), then
+        # the remainder one step each (loop.py:588-622 there)
         batches = list(train_loader.epoch_index_batches(epoch))
         if not batches:
             raise ValueError("train split smaller than one (drop_last) minibatch")
         trace_active = profiling and epoch == train_c.start_epoch
         if trace_active:
             profiler.start()
+        sizes = (dispatch_sizes(len(batches), groups.k) if groups is not None and not trace_active
+                 else [1] * len(batches))
+        captured_s = groups.call.capture_s if groups is not None else 0.0
         t0 = time.perf_counter()
         idx = torch.from_numpy(np.stack(batches)).to(dev)
-        rows, train_latents = [], []
-        for i in range(len(batches)):
-            x, v, info = train_loader.gather(idx[i])
-            with profiler.record_function("train_step"):
-                m = train_step(model, optimizer, criteria, train_c, x, v, info, beta, generator,
-                               latents=should_plot)
-            rows.append(m)
-            if should_plot:
-                train_latents.append((m["z0_mu"], m["z0"]))
-            step += 1
-            if first_step_s is None:  # includes cuDNN's algorithm search
-                _sync(dev)
-                first_step_s, t0 = time.perf_counter() - t0, time.perf_counter()
-            logger.on_minibatch_finished(i)
-            if trace_active and i + 1 >= PROFILE_STEPS:
+        rows, train_latents, i = [], [], 0
+        for size in sizes:
+            if size > 1 and groups.call.warm:
+                r, lat = groups.run(idx[i:i + size])
+                rows.append(r.clone())
+                if should_plot:
+                    train_latents.append(lat.clone())
+            else:  # single steps; the run's first group runs them as its graph's warm-up
+                with groups.call.warm_up() if size > 1 else contextlib.nullcontext():
+                    for j in range(i, i + size):
+                        with profiler.record_function("train_step"):
+                            m = one_step(idx[j], should_plot)
+                        rows.append(torch.stack([m[k] for k in train_keys])[None])
+                        if should_plot:
+                            train_latents.append(torch.stack([m["z0_mu"], m["z0"]])[:, None])
+                        if first_step_s is None:  # includes cuDNN's algorithm search
+                            _sync(dev)
+                            first_step_s, t0 = time.perf_counter() - t0, time.perf_counter()
+            i += size
+            step += size
+            logger.on_minibatch_finished(i - 1)
+            if trace_active and i >= PROFILE_STEPS:
                 profiler.stop()
                 trace_active = False
                 logger.save_profiler_results(profiler)
-            if profiling and train_c.profiler_full_trace and i == 2:
+            if profiling and train_c.profiler_full_trace and i == 3:
                 break
         if trace_active:  # an epoch shorter than PROFILE_STEPS
             profiler.stop()
             logger.save_profiler_results(profiler)
         # the epoch's one host fetch of the train scalars (loop.py:572-582),
         # averaged over the processes first, so that all stop on a NaN
-        train_rows = torch.stack([torch.stack([m[k] for k in train_keys]) for m in rows])
+        train_rows = torch.cat(rows)
         multihost.all_reduce_mean_([train_rows])
         train_rows = train_rows.cpu().numpy()
-        steady_s += time.perf_counter() - t0
-        steady_steps += len(rows) - 1 if epoch == train_c.start_epoch else len(rows)
+        # the steady time leaves out the first step and the graph's capture
+        if groups is not None:
+            captured_s = groups.call.capture_s - captured_s
+        steady_s += time.perf_counter() - t0 - captured_s
+        steady_steps += len(train_rows) - 1 if epoch == train_c.start_epoch else len(train_rows)
         check_nan_values(epoch, *train_rows[:, nan_cols].ravel())
         for j, k in enumerate(train_keys):
             for value in train_rows[:, j]:
                 scalars[f"{k}/Train"].append(value)
-        if train_latents:
-            scalars["LatCorr/Train"].append(*(torch.cat(z).float().cpu().numpy()
-                                              for z in zip(*train_latents)))
+        if train_latents:  # (2, steps, B, dim_z)
+            lat = torch.cat(train_latents, dim=1).flatten(1, 2).float().cpu().numpy()
+            scalars["LatCorr/Train"].append(lat[0], lat[1])
         if profiling and train_c.profiler_full_trace and epoch == train_c.start_epoch:
             break  # before validation (loop.py:708-709 there)
 
         # ---- validation: padded batches weighted by their real rows; each
         # process's batch means averaged over the processes; the latents of
-        # one process only (loop.py:768-770 there)
-        val_rows, latents, v_errors, first_batch = [], [], [], None
-        for i, sel in enumerate(valid_loader.epoch_index_batches(epoch)):
-            x, v, info = valid_loader.gather(sel)
-            m = eval_step(model, criteria, train_c, x, v, info)
-            val_rows.append(torch.stack([m[k] for k in criteria.scalars]))
-            n_real = min(valid_loader.batch_size, valid_loader.n_items - i * valid_loader.batch_size)
-            if world == 1:
-                latents.append(torch.stack([m["z0_mu"][:n_real], m["z0"][:n_real]]))
-            if should_plot:
-                v_errors.append((m["v_out"].float() - v)[:n_real])
-                if i == 0:
-                    first_batch = (x, m["x_out"], info)
-        if not val_rows:
+        # one process only (loop.py:768-770 there). In one process, an epoch
+        # that draws no figure replays the validation step's graph over its
+        # batches (the whole-validation scan, loop.py:739-758 there).
+        vbatches = list(valid_loader.epoch_index_batches(epoch))
+        if not vbatches:
             raise ValueError("empty validation split")
+        val_rows, latents, v_errors, first_batch = [], [], [], None
+        if evals is not None and not should_plot:
+            vidx = torch.from_numpy(np.stack(vbatches)).to(dev)
+            for i in range(len(vbatches)):
+                if evals.call.warm:
+                    row, lat = (t.clone() for t in evals.run(vidx[i]))
+                else:
+                    with evals.call.warm_up():
+                        row, lat = eval_rows(vidx[i])
+                val_rows.append(row)
+                latents.append(lat[:, :valid_real_rows(valid_loader, i)])
+        else:
+            for i, sel in enumerate(vbatches):
+                x, v, info = valid_loader.gather(sel)
+                m = eval_step(model, criteria, train_c, x, v, info)
+                val_rows.append(torch.stack([m[k] for k in criteria.scalars]))
+                n_real = valid_real_rows(valid_loader, i)
+                if world == 1:
+                    latents.append(torch.stack([m["z0_mu"][:n_real], m["z0"][:n_real]]))
+                if should_plot:
+                    v_errors.append((m["v_out"].float() - v)[:n_real])
+                    if i == 0:
+                        first_batch = (x, m["x_out"], info)
         val_rows = torch.stack(val_rows)
         multihost.all_reduce_mean_([val_rows])
         val_rows = val_rows.cpu().numpy()
@@ -387,11 +461,24 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         "first_epoch_s": epoch_walls[0] if epoch_walls else None,
         "epoch_s": float(np.mean(epoch_walls[1:] or epoch_walls)) if epoch_walls else None,
         "spectrograms_per_s": train_c.minibatch_size / step_s,
+        # K-step dispatch (training/dispatch.py): K, and the CUDA graphs'
+        # captures and replays (none on the CPU or across processes)
+        "steps_per_dispatch": groups.k if groups is not None else 1,
+        "train_graph_captures": groups.call.captures if groups is not None else 0,
+        "train_graph_replays": groups.call.replays if groups is not None else 0,
+        "eval_graph_captures": evals.call.captures if evals is not None else 0,
+        "eval_graph_replays": evals.call.replays if evals is not None else 0,
+        "graph_capture_s": sum(g.call.capture_s for g in (groups, evals) if g is not None),
     }
     for k, s in scalars.items():  # the scalars that have data (loop.py:892-896 there)
         if k != "Sched/LR" and getattr(s, "has_data", True):
             summary[k] = s.get()
     return summary
+
+
+def valid_real_rows(loader, i: int) -> int:
+    """The real (not padding) rows of validation batch ``i``."""
+    return min(loader.batch_size, loader.n_items - i * loader.batch_size)
 
 
 def add_figures(writer, epoch: int, latent_valid: LatentMetric, helper, first_batch,

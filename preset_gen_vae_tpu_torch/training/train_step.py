@@ -33,12 +33,19 @@ With ``TrainConfig.remat`` the train step's forward runs under
 ``torch.utils.checkpoint`` (non-reentrant), as the JAX step wraps it in
 ``jax.checkpoint`` (train_step.py:257-260 there): its activations are
 recomputed in the backward instead of kept. The recompute is the same
-math: it draws the same dropout masks and VAE noise (the step's generator
-is set back to its state before the forward, and afterwards to where it
-stood), and its BatchNorms leave the running statistics that the forward
-updated alone, so that remat changes neither the loss, the gradients, the
-running statistics nor the generator's state after the step. The
-FlowParamsLoss pullback stays outside the checkpoint.
+math: the forward keeps the output of each random draw (the dropout
+masks' uniforms, the VAE noise) and the recompute reuses it instead of
+drawing again (a selective checkpoint), and its BatchNorms leave the
+running statistics that the forward updated alone, so that remat changes
+neither the loss, the gradients, the running statistics nor the
+generator's state after the step. Nothing in it reads or sets the
+generator's state, so a CUDA graph can hold it. The FlowParamsLoss
+pullback stays outside the checkpoint.
+
+On the card Adam is ``capturable`` (its step counts and its learning rate
+are device tensors) and autocast keeps no cache of cast weights, so that
+one step and a CUDA graph of K steps (``training/dispatch.py``) run the
+same arithmetic. ``beta`` may be a device scalar, which the graph reads.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from ..config import ModelConfig, TrainConfig
 from ..data.preset import PresetIndexesHelper
@@ -80,11 +88,53 @@ FLOW_LOSS_FLOOR = -1e8
 
 
 def make_optimizer(model: torch.nn.Module, train_config: TrainConfig) -> torch.optim.Adam:
+    """Adam with the coupled L2 of ``train_config``; ``capturable`` on the
+    card, its learning rate a device tensor that ``set_learning_rate``
+    fills in place (a CUDA graph of steps reads it there)."""
     if train_config.optimizer != "Adam":
         raise NotImplementedError(f"Optimizer '{train_config.optimizer}'")
-    return torch.optim.Adam(model.parameters(), lr=train_config.initial_learning_rate,
+    params = list(model.parameters())
+    dev = params[0].device
+    capturable = dev.type == "cuda"
+    lr = train_config.initial_learning_rate
+    return torch.optim.Adam(params, lr=torch.tensor(lr, device=dev) if capturable else lr,
                             betas=tuple(train_config.adam_betas),
-                            weight_decay=train_config.weight_decay)
+                            weight_decay=train_config.weight_decay, capturable=capturable)
+
+
+# the keys of an Adam group that say how it runs, not what it computes
+_ADAM_RUNTIME_KEYS = ("capturable", "foreach", "fused", "differentiable")
+
+
+def load_optimizer_state(optimizer: torch.optim.Adam, state: Dict) -> None:
+    """``optimizer.load_state_dict(state)`` that keeps the optimizer's own
+    form, whichever form ``state`` was saved in: a capturable Adam's step
+    counts and learning rate stay device tensors (the learning rate the
+    same tensor, filled in place), a plain Adam's learning rate a float."""
+    kept = [({k: g[k] for k in _ADAM_RUNTIME_KEYS if k in g}, g["lr"])
+            for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, (runtime, lr) in zip(optimizer.param_groups, kept):
+        saved_lr = float(group["lr"])
+        group.update(runtime)
+        if torch.is_tensor(lr):
+            lr.fill_(saved_lr)
+            group["lr"] = lr
+        else:
+            group["lr"] = saved_lr
+        for p in group["params"]:  # a plain Adam's step counts are on the host
+            st = optimizer.state.get(p)
+            if st and group["capturable"]:
+                st["step"] = st["step"].to(dtype=torch.float32, device=p.device)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate; a device tensor is filled in place."""
+    for group in optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def pulled_back_log_density(z0_t, logdet, z0_mu_logvar) -> torch.Tensor:
@@ -209,33 +259,32 @@ class Criteria:
 
 
 def autocast(device: torch.device, train_config: TrainConfig):
-    """bf16 autocast on the card when ``compute_dtype='bfloat16'``; the CPU
-    runs in float32."""
+    """bf16 autocast on the card when ``compute_dtype='bfloat16'``, with no
+    cache of cast weights (a CUDA graph cannot hold one, and the eager step
+    runs the same casts); the CPU runs in float32."""
     if device.type == "cuda" and train_config.compute_dtype == "bfloat16":
-        return torch.autocast("cuda", dtype=torch.bfloat16)
+        return torch.autocast("cuda", dtype=torch.bfloat16, cache_enabled=False)
     return contextlib.nullcontext()
 
 
-def _recompute_contexts(model, generator: Optional[torch.Generator]):
-    """``context_fn`` of the remat checkpoint, called as the forward
-    starts: (the forward's context, the recompute's). The recompute runs
-    with ``generator`` at its state from before the forward, and restores
-    the state it found, and with ``model``'s running statistics frozen."""
-    before = None if generator is None else generator.get_state()
+def _keep_draws(ctx, op, *args, **kwargs):
+    """The remat checkpoint's policy: keep every random draw's output."""
+    return (CheckpointPolicy.MUST_SAVE if torch.Tag.nondeterministic_seeded in op.tags
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _recompute_contexts(model):
+    """``context_fn`` of the remat checkpoint: (the forward's context, the
+    recompute's). The forward keeps its draws and the recompute reuses
+    them; the recompute runs with ``model``'s running statistics frozen."""
+    forward, reuse = create_selective_checkpoint_contexts(_keep_draws)
 
     @contextlib.contextmanager
     def recompute():
-        found = None if generator is None else generator.get_state()
-        if generator is not None:
-            generator.set_state(before)
-        try:
-            with running_stats_frozen(model):
-                yield
-        finally:
-            if generator is not None:
-                generator.set_state(found)
+        with reuse, running_stats_frozen(model):
+            yield
 
-    return contextlib.nullcontext(), recompute()
+    return forward, recompute()
 
 
 def forward_for_step(model, train_config: TrainConfig, x_in, sample_info, noise=None,
@@ -248,19 +297,21 @@ def forward_for_step(model, train_config: TrainConfig, x_in, sample_info, noise=
         return model.forward_full(x_in, sample_info, noise=noise, generator=generator)
     return torch.utils.checkpoint.checkpoint(
         model.forward_full, x_in, sample_info, noise=noise, generator=generator,
-        use_reentrant=False, context_fn=lambda: _recompute_contexts(model, generator))
+        use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: _recompute_contexts(model))
 
 
 def train_step(model, optimizer, criteria: Criteria, train_config: TrainConfig,
-               x_in, v_in, sample_info, beta: float,
+               x_in, v_in, sample_info, beta,
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None,
                latents: bool = False) -> Dict[str, torch.Tensor]:
     """One optimisation step (train_step.py:222-343); returns the metrics as
     0-d tensors on the device (plus ``TotalLoss``), without a host sync, and
     with ``latents`` the rows' ``z0_mu`` and ``z0`` (B, dim_z), detached in
-    the forward's dtype. Under a process group the gradients are averaged
-    over the processes before the update (``parallel/multihost.py``)."""
+    the forward's dtype. ``beta`` is a float or a 0-d tensor. Under a
+    process group the gradients are averaged over the processes before the
+    update (``parallel/multihost.py``)."""
     model.train()
     stats_before = criteria.stats_before_step(model)
     with autocast(x_in.device, train_config):

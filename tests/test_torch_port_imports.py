@@ -81,7 +81,7 @@ def test_every_module_imports_without_the_blocked_packages():
         "scripts.preset_morph_demo", "scripts.sound_match_demo", "utils.profile",
         "utils.figures", "utils.label", "parallel.multihost", "scripts.dump_figures",
         "scripts.clean_logs", "scripts.train_queue", "scripts.evaluate", "scripts.run_stack3_v2",
-        "training.loop")
+        "training.loop", "training.dispatch")
     } <= set(modules)
     code = _GUARD.format(blocked=BLOCKED, modules=modules)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

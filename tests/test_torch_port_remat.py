@@ -5,8 +5,9 @@ backward, as the JAX step wraps its forward in ``jax.checkpoint``
 ``tests/test_train_step.py:144-156``, holds the loss with and without).
 
 The recompute must be the same math. The dropout masks and the VAE noise
-come from the step's explicit generator, so the recompute starts from the
-generator's state before the forward and leaves it where it stood; the
+come from the step's explicit generator, and the recompute reuses the
+forward's draws (a selective checkpoint), leaving the generator where the
+forward left it; the
 train-mode BatchNorms (``layers.BatchNorm``, ``flows.BatchNormFlow``)
 update their running statistics in the forward only, not again in the
 recompute; the FlowParamsLoss pullback, whose train-mode BatchNorms chain
