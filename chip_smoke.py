@@ -87,7 +87,27 @@ over the train path's run (its summary held to the in-process eval's
 within 1e-5, 164 items), ``scripts.train_queue``'s ``main`` on a one-entry
 queue and the loop CLI's ``main`` (``training/loop.py``), each 1 epoch on
 512 presets with ``--no-tensorboard``, and ``scripts.clean_logs`` in a
-subprocess on the queue's run (only that run erased). Each path prints
+subprocess on the queue's run (only that run erased). Last, the
+parallel layer's tensor parallelism and host-fed pipeline: ``tp_step``
+takes the flagship's step on multiproc2's 160 rows under a (data=1,
+model=2) grid of two gloo processes (its 2 kernels of 44,974,080
+elements sharded) and holds the loss, every gathered gradient, every
+running statistic and the generator's state to one process's in float64
+(1e-8 of each tensor's scale; float32 printed), with each process's peak
+memory; ``tp_rows`` does the same for ``r2mlp400`` on 32 rows under a
+(1, 4) grid, its head's ``fc4`` sharded by rows; ``tp_train`` trains the
+train path's configs through ``train_config`` under the (1, 2) grid
+(its processes' launches counted) against its column twin, one process
+computing the two sharded Linears in halves as the grid does (every
+/Valid scalar within 2e-3, checkpoints compared; those against the
+one-process train path printed), and resumes its last checkpoint in this
+process beside the twin's (``tp_resume``: every /Valid scalar within
+2e-3); ``hostfed`` makes a cold corpus pass host-fed and one resident
+(the same tiers and statistics, the host-fed peak lower), then trains
+the train path with ``dataset_cache_device=False`` against the resident
+corpus, both eager: bit-equal in float32 (cuDNN's deterministic
+algorithms), a lower peak, and the bf16 host-fed step against the
+resident K=16 step. Each path prints
 its wall time, launches of every kernel and peak memory, the training
 paths also their model build time, steady step, corpus and render
 seconds. Runs and caches live in a
@@ -1505,6 +1525,7 @@ def phase_main_path(root: str):
           f"{summary['model_build_seconds']:.2f} s, steady step "
           f"{summary['step_ms']:.2f} ms, peak device memory {mem:.2f} GiB; checkpoints "
           f"{list_checkpoint_epochs(model_c)}", flush=True)
+    train_summary = dict(train_summary, resume_summary=summary)  # tp_train's yardstick
 
     # ---- eval: the validation split of checkpoint 2, re-rendered and scored
     phases = {}
@@ -1631,23 +1652,28 @@ def phase_multiproc1(root: str, train_summary: dict):
 MULTIPROC2_BATCH = 160
 
 
-def multiproc2_inputs():
-    """The flagship's configs and 160 seeded rows (x, v, info) made on the
-    card; rows 0-2 have three silent operators (the categorical loss's
-    useful items then differ between the two halves)."""
+def multiproc2_inputs(run: str = None, B: int = MULTIPROC2_BATCH):
+    """The flagship's configs (or, with ``run``, a saved run's, float32)
+    and ``B`` seeded rows (x, v, info) made on the card; rows 0-2 have
+    three silent operators (the categorical loss's useful items then
+    differ between the two halves)."""
     from preset_gen_vae_tpu_torch import config as cfg
     from preset_gen_vae_tpu_torch.data.dexed_spec import build_dexed_preset_spec
     from preset_gen_vae_tpu_torch.data.preset import PresetIndexesHelper
     from preset_gen_vae_tpu_torch.synth import dexed_params as dx
 
-    B = MULTIPROC2_BATCH
     helper = PresetIndexesHelper(build_dexed_preset_spec())
     L = helper.learnable_preset_size
-    model_c, train_c = cfg.resolve(cfg.ModelConfig(),
-                                   cfg.TrainConfig(minibatch_size=B, compute_dtype="float32"))
-    model_c = dataclasses.replace(model_c, synth_params_count=L,
-                                  learnable_params_tensor_length=L, dim_z=L,
-                                  input_tensor_size=(B, 1, 257, 347))
+    if run is None:
+        model_c, train_c = cfg.resolve(cfg.ModelConfig(),
+                                       cfg.TrainConfig(minibatch_size=B, compute_dtype="float32"))
+        model_c = dataclasses.replace(model_c, synth_params_count=L,
+                                      learnable_params_tensor_length=L, dim_z=L,
+                                      input_tensor_size=(B, 1, 257, 347))
+    else:
+        model_c, train_c = saved_run_configs(run, "unused", minibatch_size=B,
+                                             compute_dtype="float32")
+        model_c = dataclasses.replace(model_c, input_tensor_size=(B, 1, 257, 347))
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn((B, 1, 257, 347), device="cuda", generator=g) * 0.3
     full = torch.rand((B, helper.full_preset_size), device="cuda", generator=g)
@@ -1657,26 +1683,35 @@ def multiproc2_inputs():
     return model_c, train_c, helper, x, v, info
 
 
-def flagship_step(model_c, train_c, helper, x, v, info, dtype) -> dict:
-    """One train step of the flagship built from seed 0 in ``dtype`` (TF32
-    off), dropout and noise from a generator seeded 11: the total loss
-    (averaged over a group's processes), every gradient, every running
-    statistic and the generator's state after the step, on the host."""
+def flagship_step(model_c, train_c, helper, x, v, info, dtype, grid=None) -> dict:
+    """One train step of the flagship (or of ``model_c``) built from seed 0
+    in ``dtype`` (TF32 off), under a tensor-parallel ``grid`` sharded at
+    ``train_c.tp_min_elements``, dropout and noise from a generator seeded
+    11: the total loss (averaged over the data group), every gradient (a
+    shard's gathered), every running statistic and the generator's state
+    after the step, on the host; and the step's peak device memory above
+    what was allocated before its model was built (GiB; the gathered
+    gradients come after it), where the caller reset the peak statistics
+    just before the call."""
     from preset_gen_vae_tpu_torch.models.build import build_extended_ae_model
-    from preset_gen_vae_tpu_torch.parallel import multihost
+    from preset_gen_vae_tpu_torch.parallel import multihost, sharding_rules
     from preset_gen_vae_tpu_torch.training.train_step import Criteria, make_optimizer, \
         train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    base = torch.cuda.memory_allocated()
     model = build_extended_ae_model(model_c, train_c, helper, seed=0).to("cuda", dtype)
+    if grid is not None:
+        sharding_rules.shard_model(model, grid, train_c.tp_min_elements)
     generator = torch.Generator(device="cuda").manual_seed(11)
     m = train_step(model, make_optimizer(model, train_c), Criteria(model_c, train_c, helper),
                    train_c, x.to(dtype), v.to(dtype), info, 0.2, generator)
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     loss = m["TotalLoss"].reshape(1).clone()
     multihost.all_reduce_mean_([loss])
-    return {"loss": loss.cpu(),
-            "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+    return {"loss": loss.cpu(), "peak_gib": peak_gib,
+            "grads": {k: g.cpu() for k, g in sharding_rules.full_gradients(model).items()},
             "stats": {k: b.cpu() for k, b in model.named_buffers()
                       if k.endswith(("running_mean", "running_var"))},
             "generator": generator.get_state()}
@@ -1736,25 +1771,11 @@ def phase_multiproc2(root: str):
     against one process's step on the 160 rows: the loss, every averaged
     gradient and every BatchNorm running statistic within 1e-4 of the
     tensor's largest entry, in float64; float32's differences printed."""
-    import torch.multiprocessing as mp
-
     out = pathlib.Path(root) / "multiproc2"
     out.mkdir()
 
     def run():
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=multiproc2_rank, args=(r, 2, str(out / "store"), str(out)))
-                 for r in range(2)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=600)
-        hung = [p.pid for p in procs if p.is_alive()]
-        for p in procs:
-            p.kill()
-        if hung or any(p.exitcode != 0 for p in procs):
-            raise AssertionError(f"multiproc2: ranks hung {hung}, exit codes "
-                                 f"{[p.exitcode for p in procs]}")
+        spawn_ranks(multiproc2_rank, 2, (str(out / "store"), str(out)))
         inputs = multiproc2_inputs()
         return {name: flagship_step(*inputs, getattr(torch, name)) for name in MULTIPROC2_DTYPES}
 
@@ -2691,6 +2712,451 @@ def phase_cli(root: str, train_summary: dict):
     return counts
 
 
+# ---- the parallel layer's last parts: tensor parallelism and the host-fed
+# pipeline (parallel/sharding_rules.py, data/pipeline.py)
+
+def spawn_ranks(target, world: int, args, timeout: float = 600.0):
+    """``target(rank, world, *args)`` in ``world`` spawned processes on the
+    one card; fails unless each exits 0 in ``timeout`` seconds."""
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, *args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=timeout)
+    hung = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        p.kill()
+    if hung or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"{target.__name__}: ranks hung {hung}, exit codes "
+                             f"{[p.exitcode for p in procs]}")
+
+
+def tp_rank(rank: int, world: int, store: str, out: str, run, batch: int, dtypes):
+    """Process ``rank`` of a (1, ``world``) tensor-parallel grid under gloo on
+    the one card: the step of ``multiproc2_inputs(run, batch)`` on all the
+    rows, sharded, in each of ``dtypes``."""
+    import torch.distributed as dist
+
+    from preset_gen_vae_tpu_torch.models.layers import ShardedLinear
+    from preset_gen_vae_tpu_torch.parallel import sharding_rules
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        grid = sharding_rules.make_2d_grid(1, world)
+        inputs = multiproc2_inputs(run, batch)
+        with sharding_rules.grid_scope(grid):
+            for name in dtypes:
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
+                torch.save(flagship_step(*inputs, getattr(torch, name), grid=grid),
+                           f"{out}/rank{rank}_{name}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_against_one(name: str, root: str, world: int, run=None, batch: int = MULTIPROC2_BATCH,
+                   bar: float = 1e-8):
+    """A (1, ``world``) grid's step against one process's on the same rows:
+    float64 within ``bar`` of each tensor's scale (``module_scales``),
+    float32 printed; the plan, its sharded elements and each step's peak
+    device memory in each process printed. -> (launch counts, the plan,
+    (kernels, elements) sharded)."""
+    from preset_gen_vae_tpu_torch.models.build import build_extended_ae_model
+    from preset_gen_vae_tpu_torch.parallel import sharding_rules
+
+    out = pathlib.Path(root) / name
+    out.mkdir()
+
+    def run_both():
+        spawn_ranks(tp_rank, world, (str(out / "store"), str(out), run, batch,
+                                     MULTIPROC2_DTYPES))
+        inputs, steps = multiproc2_inputs(run, batch), {}
+        for d in MULTIPROC2_DTYPES:
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            steps[d] = flagship_step(*inputs, getattr(torch, d))
+        return steps
+
+    want, counts, wall, _ = drive(name, run_both, k1=0)
+    model_c, train_c, helper, *_ = multiproc2_inputs(run, 1)
+    full = build_extended_ae_model(model_c, train_c, helper, seed=0)
+    plan = sharding_rules.shard_plan(full, world, train_c.tp_min_elements)
+    n, elements, total = sharding_rules.count_sharded(full, world, train_c.tp_min_elements)
+    scales = module_scales(want["float64"])
+    worst, peaks = {}, collections.defaultdict(list)
+    for d in MULTIPROC2_DTYPES:
+        errs = {}
+        for r in range(world):
+            got = torch.load(out / f"rank{r}_{d}.pt")
+            peaks[d].append(round(got["peak_gib"], 3))
+            if not torch.equal(got["generator"], want[d]["generator"]):
+                raise AssertionError(f"{name}: rank {r}'s generator state differs ({d})")
+            for k, e in step_errors(got, want[d], scales).items():
+                errs[k] = max(errs.get(k, 0.0), e)
+        worst[d] = sorted(errs.items(), key=lambda kv: -kv[1])
+    print(f"[{name}] {card_line()}: {run or 'flagship'} on {batch} rows, a (1, {world}) grid of "
+          f"gloo processes against one process, wall {wall:.2f} s; {n} kernels sharded "
+          f"({elements:,} of {total:,} elements): {json.dumps(plan)} (0 column, 1 row); a "
+          f"step's peak device memory above what was allocated before its model, each "
+          f"process against the one process: "
+          + ", ".join(f"{d} {peaks[d]} against {want[d]['peak_gib']:.3f} GiB"
+                      for d in MULTIPROC2_DTYPES) + "; "
+          + "; ".join(f"{d}: loss {dict(worst[d])['loss']:.2e}, worst "
+                      f"{[(k, f'{e:.2e}') for k, e in worst[d][:3]]}" for d in MULTIPROC2_DTYPES),
+          flush=True)
+    if worst["float64"][0][1] > bar:
+        raise AssertionError(f"{name}: float64 {worst['float64'][:5]} (bar {bar:g})")
+    SUMMARY[-1].update(tp_sharded=n, tp_float64_worst=worst["float64"][0][1],
+                       tp_step_peaks_gib=dict(peaks),
+                       one_process_step_peak_gib={d: round(want[d]["peak_gib"], 3)
+                                                  for d in MULTIPROC2_DTYPES})
+    return counts, plan, (n, elements)
+
+
+TP_ROWS_BATCH = 32  # r2mlp400's rows for four processes on the one card
+
+
+def phase_tp_step(root: str):
+    """The flagship's step under a (data=1, model=2) grid of two gloo
+    processes on the card against one process, on multiproc2's 160 rows:
+    float64 within 1e-8 of each tensor's scale; 2 kernels, 44,974,080
+    elements sharded at the default ``tp_min_elements``."""
+    counts, plan, sharded = tp_against_one("tp_step", root, 2)
+    if sharded != (2, 44_974_080):
+        raise AssertionError(f"tp_step: sharded {sharded}, want (2, 44974080)")
+    return {"tp_step": counts}
+
+
+def phase_tp_rows(root: str):
+    """``r2mlp400`` under a (1, 4) grid of four gloo processes against one
+    process on 32 rows: its head's ``fc4`` (flax (1024, 610): 610 % 4 != 0)
+    sharded by rows, float64 within 1e-8."""
+    counts, plan, _ = tp_against_one("tp_rows", root, 4, run="r2mlp400", batch=TP_ROWS_BATCH)
+    if plan.get("reg_model.fc4") != 1:
+        raise AssertionError(f"tp_rows: reg_model.fc4 not row-sharded: {plan}")
+    return {"tp_rows": counts}
+
+
+def tp_train_rank(rank: int, world: int, store: str, out: str, model_c, train_c, kwargs):
+    """Process ``rank`` of a (1, ``world``) grid under gloo: ``train_config``
+    on ``cuda:0`` with ``model_parallel_devices = world``; its summary and
+    the kernel launches of its process saved. With ``world`` 1, the grid's
+    column twin instead (``column_twin_builds``): one process, no process
+    group, its steps eager as the grid's (``force_multihost_data``)."""
+    import torch.distributed as dist
+
+    from preset_gen_vae_tpu_torch.ops import spectrogram as sp
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+    from preset_gen_vae_tpu_torch.training.loop import train_config
+
+    twin = world == 1
+    if not twin:
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                                world_size=world)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        train_c = dataclasses.replace(train_c, model_parallel_devices=world,
+                                      force_multihost_data=twin)
+        with column_twin_builds(train_c.tp_min_elements) if twin else contextlib.nullcontext():
+            summary = train_config(model_c, train_c, device="cuda:0", use_tensorboard=False,
+                                   dataset_kwargs=kwargs)
+        torch.save({"summary": summary, "launches": {**sp.LAUNCHES, **ft.LAUNCHES},
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30},
+                   f"{out}/rank{rank}.pt")
+    finally:
+        if not twin:
+            dist.destroy_process_group()
+
+
+class _ToColumns(torch.autograd.Function):
+    """The input of the column halves: the identity, whose backward hands on
+    the halves' input gradients as one sum, as ``layers._CopyToModel``'s
+    all-reduce does (summed into the input's other gradients one by one,
+    they would round otherwise)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _JoinColumns(torch.autograd.Function):
+    """The column halves' outputs joined along the last axis; backward,
+    each half's gradient as a tensor of its own, as
+    ``layers._GatherFromModel`` hands each process its slice."""
+
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.widths = [p.shape[-1] for p in parts]
+        return torch.cat(parts, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(s.contiguous() for s in g.split(ctx.widths, -1))
+
+
+class GridColumns(torch.nn.Module):
+    """A Linear that a (1, 2) grid shards by columns, computed in one process
+    as the grid's two processes compute it (``layers.ShardedLinear``): each
+    half of the weight (masked, for a ``MaskedDense``) and of the bias in a
+    tensor of its own, multiplied on its own, the outputs joined. The
+    input's gradient is the sum of the halves', handed on as one tensor,
+    as the model group's all-reduce hands it on: a sum of two terms does
+    not depend on their order. The parameters are the whole layer's, so that the run's
+    checkpoints and Adam's state are a one-process run's."""
+
+    def __init__(self, linear: torch.nn.Linear):
+        super().__init__()
+        self.weight, self.bias = linear.weight, linear.bias
+        self.register_buffer("mask", getattr(linear, "mask", None), persistent=False)
+
+    def forward(self, x):
+        import torch.nn.functional as F
+
+        x, parts = _ToColumns.apply(x), []
+        for r in range(2):
+            w = self.weight.chunk(2)[r]
+            w = w.clone() if self.mask is None else w * self.mask.chunk(2)[r]
+            parts.append(F.linear(x, w, self.bias.chunk(2)[r].clone()))
+        return _JoinColumns.apply(*parts)
+
+
+def column_twin(model: torch.nn.Module, min_elements: int) -> dict:
+    """Replaces in place each Linear that a (1, 2) grid shards at
+    ``min_elements`` by its ``GridColumns``: the grid's arithmetic in one
+    process. -> the plan. Raises for a layer the grid shards by rows."""
+    from preset_gen_vae_tpu_torch.parallel import sharding_rules
+
+    plan = sharding_rules.shard_plan(model, 2, min_elements)
+    for name, dim in plan.items():
+        if dim != sharding_rules.COLUMN:
+            raise NotImplementedError(f"{name} is sharded by rows on a (1, 2) grid")
+        parent, _, attr = name.rpartition(".")
+        owner = model.get_submodule(parent) if parent else model
+        setattr(owner, attr, GridColumns(getattr(owner, attr)))
+    return plan
+
+
+@contextlib.contextmanager
+def column_twin_builds(min_elements: int):
+    """Inside the block ``train_config`` trains its model's column twin
+    (``column_twin``)."""
+    from unittest import mock
+
+    from preset_gen_vae_tpu_torch.training import loop
+
+    build = loop.build_extended_ae_model
+
+    def twin_build(*args, **kwargs):
+        model = build(*args, **kwargs)
+        column_twin(model, min_elements)
+        return model
+
+    with mock.patch.object(loop, "build_extended_ae_model", twin_build):
+        yield
+
+
+TP_TRAIN_BAR = 2e-3  # tests/test_parallel_integration.py:76-79
+
+
+def phase_tp_train(root: str, train_summary: dict):
+    """The train path's configs (1,024 presets, 2 epochs, bf16) under a
+    (data=1, model=2) grid of two gloo processes through ``train_config``:
+    ``tp_kernels_sharded`` 2, its processes' launches counted in the path's
+    (rank 0's cold corpus pass: 16 K1), finite metrics. Its one-process
+    yardstick is its column twin (``column_twin``), trained in a process of
+    its own on the same corpus: every /Valid scalar within 2e-3 relative
+    (``TP_TRAIN_BAR``), the checkpoints' parameters, Adam's state and the
+    generators' differences printed. At random weights the flows amplify
+    any rounding difference to percents in 8 steps, so the scalars are
+    held against the grid's own arithmetic; those against the one-process
+    train path's (K=16 graphs) are printed. Then each run's last
+    checkpoint (layout-free) resumes for a third epoch in this process
+    (``tp_resume``: the grid's, from its step; the twin's beside it),
+    every /Valid scalar within 2e-3 of each other's."""
+    from preset_gen_vae_tpu_torch import config as cfg
+    from preset_gen_vae_tpu_torch.logs.logger import load_checkpoint
+    from preset_gen_vae_tpu_torch.training.loop import train_config
+
+    out = pathlib.Path(root) / "tp_train"
+    out.mkdir()
+    train_c = cfg.TrainConfig(n_epochs=2, minibatch_size=160, lr_warmup_epochs=0, save_period=1,
+                              verbosity=1)
+    model_c = cfg.ModelConfig(logs_root_dir=root, run_name="tp_train")
+    twin_c = cfg.ModelConfig(logs_root_dir=root, run_name="tp_train_twin")
+    corpus = fresh_corpus(CORPUS, root, "tp_train")
+    _, counts, wall, _ = drive("tp_train", lambda: spawn_ranks(
+        tp_train_rank, 2, (str(out / "store"), str(out), model_c, train_c, corpus)), k1=0)
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for k in counts:
+        counts[k] += sum(r["launches"][k] for r in ranks)
+    tp_line = SUMMARY[-1]
+    launched = tp_line["launches"] = {k: n for k, n in counts.items() if n}
+    summary = ranks[0]["summary"]
+    check_train_summary("tp_train", summary, 2, graphs=(False, False))
+    if counts["logmel"] != 16 or summary["tp_kernels_sharded"] != 2 or \
+            summary["tp_grid"] != [1, 2]:
+        raise AssertionError(f"tp_train: K1 {counts['logmel']} (want 16), sharded "
+                             f"{summary['tp_kernels_sharded']} (want 2), grid {summary['tp_grid']}")
+    # the twin on the corpus cache that rank 0's pass wrote (warm: no K1)
+    (out / "twin").mkdir()
+    spawn_ranks(tp_train_rank, 1, ("", str(out / "twin"), twin_c, train_c, corpus))
+    twin = torch.load(out / "twin" / "rank0.pt", weights_only=False)["summary"]
+    check_train_summary("tp_train twin", twin, 2, graphs=(False, False))
+
+    def relative(got: dict, want: dict) -> dict:
+        return {k: abs(got[k] - w) / abs(w) if w else abs(got[k])
+                for k, w in valid_scalars(want).items()}
+
+    rel = relative(summary, twin)
+    d = run_difference((model_c, summary), (twin_c, twin), 1)
+    step = load_checkpoint(model_c, 1)["state"]["step"]
+    resume_c = dataclasses.replace(train_c, start_epoch=2, n_epochs=3)
+    resumed, resume_counts, r_wall, r_mem = drive("tp_resume", lambda: train_config(
+        model_c, resume_c, dataset_kwargs=corpus, device="cuda", use_tensorboard=False), k1=0)
+    check_train_summary("tp_resume", resumed, 3, graphs=(False, True))
+    twin_resumed = train_config(twin_c, resume_c, dataset_kwargs=corpus, device="cuda",
+                                use_tensorboard=False)
+    checkpoint_state.cache_clear()
+    resume_rel = relative(resumed, twin_resumed)
+    print(f"[tp_train path] {card_line()}: 2 gloo processes, grid (1, 2), wall {wall:.2f} s, "
+          f"launches {launched}, {summary['tp_kernels_sharded']} kernels sharded "
+          f"({summary['tp_sharded_elements']:,} elements), steady step {summary['step_ms']:.2f} "
+          f"ms (its column twin's {twin['step_ms']:.2f} ms, one process, eager; the one-process "
+          f"train path's {train_summary['step_ms']:.2f} ms, K=16 graphs), peak device memory "
+          f"of each process {[round(r['peak_gib'], 3) for r in ranks]} GiB; /Valid relative to "
+          f"the column twin's {json.dumps(rel)} (bar {TP_TRAIN_BAR:g} on each), checkpoint 1 "
+          f"against the twin's {json.dumps(d)}; /Valid relative to the one-process train "
+          f"path's (not gated) {json.dumps(relative(summary, train_summary))}; resumed in one "
+          f"process from checkpoint 1 (step {step}): wall {r_wall:.2f} s, start step "
+          f"{resumed['start_step']}, /Valid relative to the twin's resumed "
+          f"{json.dumps(resume_rel)}, peak {r_mem:.3f} GiB", flush=True)
+    tp_line.update(tp_train_worst_rel=max(rel.values()),
+                       tp_resume_worst_rel=max(resume_rel.values()))
+    if max(rel.values()) > TP_TRAIN_BAR or max(resume_rel.values()) > TP_TRAIN_BAR or \
+            resumed["start_step"] != step:
+        raise AssertionError(f"tp_train: /Valid {rel}, resume {resume_rel} (bar {TP_TRAIN_BAR:g} "
+                             f"on each), start step {resumed['start_step']} against the "
+                             f"checkpoint's {step}")
+    return {"tp_train": counts, "tp_resume": resume_counts}
+
+
+def phase_hostfed(root: str):
+    """The host-fed pipeline (``dataset_cache_device=False``) against the
+    resident corpus on the flagship's train path (1,024 presets, 2
+    epochs), both eager (K=1): in float32 on cuDNN's deterministic
+    algorithms, /Valid, parameters, Adam's state and the generator's state
+    bit-equal; then bf16, the host-fed step against the resident K=16
+    step. First two cold corpus passes (16 K1 each), host-fed and
+    resident, each on a cache of its own: the same tiers and statistics
+    bit for bit, each pass's peak device memory beside the raw corpus's
+    bytes (the host-fed pass holds a chunk of it at a time). Each run's
+    peak device memory (above what was allocated before its dataset),
+    steady step and the corpus bytes kept off the card printed; every run
+    reloads the corpus from the cache that the host-fed cold pass
+    wrote."""
+    from preset_gen_vae_tpu_torch import config as cfg
+    from preset_gen_vae_tpu_torch.training.loop import prepare_dataset, train_config
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.allow_tf32, cudnn.deterministic)
+    runs, peaks, cold = {}, {}, {}
+
+    corpus = fresh_corpus(CORPUS, root, "hostfed")
+
+    def cold_pass(on_device: bool, kwargs: dict):
+        """A cold corpus pass; its peak above what was allocated before it,
+        its cache directory, statistics and raw corpus bytes."""
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ds = prepare_dataset(cfg.ModelConfig(), cfg.TrainConfig(dataset_cache_device=on_device),
+                             torch.device("cuda"), dataset_kwargs=kwargs)[2]
+        ds.load_corpus()
+        cold[on_device] = {"peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                           "dir": ds._corpus_cache_dir(), "stats": ds.spec_stats,
+                           "raw_bytes": math.prod(ds._raw_shape()) * 4}
+
+    def run(name, dtype, on_device, k):
+        """One run on the warm cache; its peak above what was allocated
+        before its dataset was built (the resident corpus counts)."""
+        model_c = cfg.ModelConfig(logs_root_dir=root, run_name=f"hostfed_{name}")
+        train_c = cfg.TrainConfig(n_epochs=2, minibatch_size=160, lr_warmup_epochs=0,
+                                  save_period=1, verbosity=0, compute_dtype=dtype,
+                                  steps_per_dispatch=k, dataset_cache_device=on_device)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, train_c, dataset = prepare_dataset(model_c, train_c, torch.device("cuda"),
+                                              dataset_kwargs=corpus)
+        summary = train_config(model_c, train_c, dataset=dataset, device="cuda",
+                               use_tensorboard=False)
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        check_train_summary(f"hostfed {name}", summary, 2, graphs=(k > 1, on_device))
+        runs[name] = (model_c, summary)
+
+    def body():
+        # the host-fed cold pass writes the cache that every run reloads
+        cold_pass(False, corpus)
+        cold_pass(True, fresh_corpus(CORPUS, root, "hostfed_resident"))
+        cudnn.deterministic = True
+        run("float32_resident", "float32", True, 1)
+        run("float32_host", "float32", False, 1)
+        cudnn.deterministic = flags[1]
+        run("bf16_resident_k16", "bfloat16", True, 16)
+        run("bf16_host", "bfloat16", False, 1)
+
+    try:
+        _, counts, wall, mem = drive("hostfed", body)
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = flags
+    d = run_difference(runs["float32_host"], runs["float32_resident"], 1)
+    checkpoint_state.cache_clear()
+    host = runs["float32_host"][1]
+    for name, (_, s) in runs.items():
+        print(f"[hostfed] run {name}: K {s['steps_per_dispatch']}, corpus on the device "
+              f"{s['dataset_cache_device']}, {s['corpus_bytes']:,} corpus bytes, loop step "
+              f"{s['step_ms']:.2f} ms (first {s['first_step_ms']:.1f} ms), epoch "
+              f"{s['epoch_s']:.3f} s, peak device memory above its base {peaks[name]:.3f} GiB",
+              flush=True)
+    tiers_equal = all(np.array_equal(np.load(cold[False]["dir"] / n, mmap_mode="r"),
+                                     np.load(cold[True]["dir"] / n, mmap_mode="r"))
+                      for n in ("specs_raw.npy", "specs_norm_f16.npy"))
+    stats_equal = cold[False]["stats"] == cold[True]["stats"]
+    print(f"[hostfed] {card_line()}: cold corpus pass ('cpp', {cold[False]['raw_bytes']:,} raw "
+          f"bytes in float32), peak device memory above its base host-fed "
+          f"{cold[False]['peak_gib']:.3f} GiB against resident {cold[True]['peak_gib']:.3f} GiB; "
+          f"tiers equal {tiers_equal}, statistics equal {stats_equal}", flush=True)
+    print(f"[hostfed] {card_line()}: float32 host-fed against resident (K=1, cuDNN's "
+          f"deterministic algorithms): {json.dumps(d)}; {host['corpus_bytes']:,} corpus bytes off "
+          f"the card, peak {peaks['float32_host']:.3f} against {peaks['float32_resident']:.3f} "
+          f"GiB; bf16 host-fed step {runs['bf16_host'][1]['step_ms']:.2f} ms against the "
+          f"resident K=16 step {runs['bf16_resident_k16'][1]['step_ms']:.2f} ms; wall "
+          f"{wall:.2f} s, K1 launches {counts['logmel']}", flush=True)
+    SUMMARY[-1].update(host_step_ms=round(runs["bf16_host"][1]["step_ms"], 3),
+                       resident_k16_step_ms=round(runs["bf16_resident_k16"][1]["step_ms"], 3),
+                       host_peak_gib=round(peaks["float32_host"], 3),
+                       resident_peak_gib=round(peaks["float32_resident"], 3),
+                       cold_pass_peak_gib={"host": round(cold[False]["peak_gib"], 3),
+                                           "resident": round(cold[True]["peak_gib"], 3)})
+    exact = (d["valid_max_abs"] == 0 and d["params_max_abs"] == 0 and d["adam_max_abs"] == 0
+             and d["generator_equal"])
+    if not exact or peaks["float32_host"] >= peaks["float32_resident"] or not tiers_equal or \
+            not stats_equal or cold[False]["peak_gib"] >= cold[True]["peak_gib"]:
+        raise AssertionError(f"hostfed: bit-equal {exact} ({d}), peaks {peaks}, cold passes "
+                             f"{cold}, tiers equal {tiers_equal}")
+    return {"hostfed": counts}
+
+
 class Tee:
     """Standard output, also written line for line into a file."""
 
@@ -2759,6 +3225,11 @@ def main(argv=None) -> int:
         counts.update(phase_remat())
         counts.update(phase_dispatch(root))
         counts.update(phase_cli(root, train_summary))
+        # the parallel layer's last parts, after every earlier path
+        counts.update(phase_tp_step(root))
+        counts.update(phase_tp_rows(root))
+        counts.update(phase_tp_train(root, train_summary))
+        counts.update(phase_hostfed(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = [k1, *fm, f1b, f2b]

@@ -106,6 +106,7 @@ class ModelConfig:
 class TrainConfig:
     """Training configuration (reference: config.py:78-138)."""
 
+    # the run's creation time, a record in config.json; nothing reads it
     start_datetime: str = field(default_factory=lambda: datetime.datetime.now().isoformat())
     minibatch_size: int = 160
     main_cuda_device_idx: int = 1  # kept for config parity; unused (entry points take ``device``)
@@ -116,7 +117,7 @@ class TrainConfig:
     n_epochs: int = 400
     save_period: int = 50
     plot_period: int = 20
-    latent_loss: str = "Dkl"
+    latent_loss: str = "Dkl"  # kept for config parity; neither package reads it
     latent_flow_input_regularization: str = "bn"  # 'bn' or 'dkl'
     params_cat_bceloss: bool = False
     params_cat_softmax_temperature: float = 0.2
@@ -139,9 +140,9 @@ class TrainConfig:
     beta: float = 0.2
     beta_start_value: float = 0.1
     beta_warmup_epochs: int = 25
-    beta_cycle_epochs: int = -1
+    beta_cycle_epochs: int = -1  # kept for config parity; neither package reads it
     # Scheduler
-    scheduler_name: str = "ReduceLROnPlateau"
+    scheduler_name: str = "ReduceLROnPlateau"  # the only one; checked on resume
     scheduler_loss: Tuple[str, ...] = ("ReconsLoss/Backprop", "Controls/BackpropLoss")
     scheduler_lr_factor: float = 0.2
     scheduler_patience: int = 6
@@ -151,7 +152,7 @@ class TrainConfig:
     # Misc
     verbosity: int = 1
     init_security_pause: float = 0.0
-    logged_samples_count: int = 4
+    logged_samples_count: int = 4  # raised to the note count by resolve; nothing else reads it
     # enabled=True: a torch.profiler window over the first epoch's first 5
     # train steps, written to <run_dir>/profile/trace.json (utils/profile.py)
     profiler_args: Dict = field(default_factory=lambda: {"enabled": False})
@@ -159,25 +160,37 @@ class TrainConfig:
     profiler_full_trace: bool = False
     profiler_1_GPU: bool = False  # kept for config parity; unused
     # the JAX package's additions (not in the reference). The port trains
-    # data-parallel one process a card (torchrun, parallel/multihost.py):
-    # data_parallel_devices above 1 must equal the number of processes, else
+    # one process a card (torchrun, parallel/multihost.py) on a grid of
+    # n_data x model_parallel_devices processes: data_parallel_devices above
+    # 1 must equal n_data, the processes over model_parallel_devices, else
     # training raises; -1 (or 1) takes the processes there are
     data_parallel_devices: int = -1
-    # >1 raises: the 2-D tensor-parallel mesh is JAX-only
+    # >1: tensor parallelism (parallel/sharding_rules.py): n_data =
+    # gcd(minibatch_size, processes // model_parallel_devices), and every 2-D
+    # kernel of at least tp_min_elements entries is cut over the processes
+    # of one data rank, by its output features where they divide, else by
+    # its input features; a world the grid cannot hold raises
     model_parallel_devices: int = 1
-    tp_min_elements: int = 1 << 18  # the JAX mesh's; unused here
+    tp_min_elements: int = 1 << 18
     # The multi-process data path (each process trains on its carve of every
     # split, parallel/multihost.py) engages with a process group of more
     # than one; True takes it in one process too (the tests do). It refuses
     # dataset_corpus_cache_policy='device', as the JAX package does.
     force_multihost_data: bool = False
     compute_dtype: str = "bfloat16"  # bf16 autocast on the card; 'float32' runs in full f32
-    dataset_cache_device: bool = True  # the corpus stays in device memory (always, here)
+    # True: the corpus stays in device memory, a batch is a gather there.
+    # False: the host-fed pipeline (data/pipeline.py): the corpus pass
+    # computes on the card a chunk at a time, the corpus lives in pinned
+    # host memory and each batch is gathered there and copied to the card,
+    # steps one at a time
+    dataset_cache_device: bool = True
     # Shard the HBM-resident corpus's rows over the mesh's 'data' axis
     # (per-device HBM ~P/n_data rows; the batch gather partitions as
     # local-gather + mask + psum — tests/test_corpus_sharded.py pins that
     # no corpus-sized all-gather appears). False replicates the corpus
     # per device (pre-round-5 behavior). Irrelevant on a 1-device mesh.
+    # Not read here: each process already holds only its carve's rows on
+    # its card (parallel/multihost.py:shard_loaders_for_host).
     corpus_rows_sharded: bool = True
     # >1: chain K train steps into ONE device dispatch (lax.scan over K
     # index batches, device-resident corpus only). Identical math/PRNG
@@ -188,9 +201,10 @@ class TrainConfig:
     # In this package (training/dispatch.py): in one process, K whole
     # train steps are one CUDA graph, captured once per run after the first
     # group (run eagerly as its warm-up) and replayed once per group; the
-    # remainder steps one at a time, and so do K=1, several processes and
-    # the profiled epoch. The validation step of an epoch that draws no
-    # figure is a graph replayed per batch, whatever K is.
+    # remainder steps one at a time, and so do K=1, several processes, the
+    # host-fed pipeline (dataset_cache_device=False) and the profiled epoch.
+    # The validation step of an epoch that draws no figure is a graph
+    # replayed per batch, whatever K is (one process, resident corpus).
     steps_per_dispatch: int = 16
     # lax.scan unroll factor for the K-step/whole-epoch scans (>1 inlines
     # that many step bodies per scan iteration, letting XLA overlap work

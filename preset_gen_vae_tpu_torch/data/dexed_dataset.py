@@ -47,6 +47,20 @@ are rounded through float16, the disk tier's dtype, then become the
 corpus dtype; under ``'jax'`` a two-byte corpus dtype takes the raw
 buffer's place.
 
+``corpus_on_device=False`` (the loop's ``dataset_cache_device=False``)
+keeps the corpus off the device, for a corpus larger than the device's
+memory: the pass computes where it computes otherwise (K1, and F1/F2
+under ``'jax'``, on the card, 64 presets at a time), but the raw corpus
+goes to the host chunk by chunk (under ``'disk'`` straight into its tier
+file, so that neither the device nor the host holds it whole), the
+statistics and the normalisation take it back to the device a chunk at a
+time, and the served corpus lives in pinned host memory; a warm
+``'disk'`` reload reads the float16 tier straight into it and casts on
+the host. The device then holds a chunk of the pass at a time, and the
+pass gives the resident one's tiers, statistics and corpus bit for
+bit. ``x``, ``v`` and ``info`` are all host tensors then,
+which the loaders feed to the card batch by batch (``data/pipeline.py``).
+
 ``corpus_tensors`` serves the corpus in the two multi-note layouts of
 abstract_dataset.py:609-631: stacked, one item per preset with its notes as
 channels, or un-stacked, one item per (preset, note), as a view of the same
@@ -59,6 +73,7 @@ import contextlib
 import csv
 import hashlib
 import json
+import math
 import os
 import pathlib
 import time
@@ -164,6 +179,7 @@ class DexedDataset:
         corpus_cache_policy: str = "disk",
         device="cuda",
         corpus_dtype: torch.dtype = torch.float32,
+        corpus_on_device: bool = True,
     ):
         if spectrogram_normalization not in NORMALIZATIONS:
             raise ValueError(f"spectrogram_normalization={spectrogram_normalization!r}")
@@ -191,6 +207,7 @@ class DexedDataset:
         self.data_root = pathlib.Path(data_root) if data_root else default_data_root()
         self.device = torch.device(device)
         self.corpus_dtype = corpus_dtype
+        self.corpus_on_device = bool(corpus_on_device)
         self.spectrogram = SpectrogramProcessor(
             SpectrogramConfig(n_fft=n_fft, fft_hop=fft_hop, min_dB=spectrogram_min_dB,
                               n_mel_bins=n_mel_bins, sample_rate=sample_rate),
@@ -353,8 +370,45 @@ class DexedDataset:
                 json.dump(current, f)
 
     # ------------------------------------------------------------------ corpus
+    def _served(self, shape) -> torch.Tensor:
+        """An empty served corpus: on the device, or in pinned host memory
+        (pageable on a machine without a card) with ``corpus_on_device=False``."""
+        if self.corpus_on_device:
+            return torch.empty(shape, dtype=self.corpus_dtype, device=self.device)
+        return torch.empty(shape, dtype=self.corpus_dtype, pin_memory=self.device.type == "cuda")
+
+    def _raw_shape(self):
+        """(P, n_notes, H, W) of the raw corpus."""
+        _, H, W = self.get_spectrogram_tensor_size()
+        return len(self.uids), len(self.midi_notes), H, W
+
+    def _raw_buffer(self, dtype: torch.dtype) -> torch.Tensor:
+        """An empty raw corpus: on the device, or on the host with
+        ``corpus_on_device=False``."""
+        device = self.device if self.corpus_on_device else torch.device("cpu")
+        return torch.empty(self._raw_shape(), dtype=dtype, device=device)
+
+    def _raw_dtype(self) -> torch.dtype:
+        return torch.float16 if self.corpus_render_backend == "jax" else torch.float32
+
+    def _chunk(self, raw, s: int) -> torch.Tensor:
+        """Presets ``s:s+64`` of a raw corpus (a tensor, or a tier mapped
+        from disk) on the device."""
+        x = raw[s:s + CORPUS_CHUNK]
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.array(x))
+        return x.to(self.device)
+
+    def _placed(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (a small host tensor) where the corpus is served from: on
+        the device, or in pinned host memory."""
+        if self.corpus_on_device:
+            return t.to(self.device)
+        return t.pin_memory() if self.device.type == "cuda" else t
+
     def load_corpus(self, force_recompute: bool = False) -> torch.Tensor:
-        """The normalised corpus (P, n_notes, H, W) on the device, built once;
+        """The normalised corpus (P, n_notes, H, W) on the device (on the host
+        with ``corpus_on_device=False``), built once;
         ``force_recompute`` renders it again, past the memo and the disk tiers."""
         if self._corpus is not None and not force_recompute:
             return self._corpus
@@ -386,32 +440,49 @@ class DexedDataset:
             with open(stats_path) as f:
                 self.spec_stats = json.load(f)
         else:
-            raw = self._render_raw()
-            _save_tier(raw_path, raw)
+            if self.corpus_on_device:
+                raw = self._render_raw()
+                _save_tier(raw_path, raw)
+            else:  # straight into its tier: held whole neither on the host nor on the device
+                dtype = np.float16 if self._raw_dtype() == torch.float16 else np.float32
+                with _tier_file(raw_path, self._raw_shape(), dtype) as tier:
+                    self._render_raw(tier)
+                raw = np.load(raw_path, mmap_mode="r")
             with open(stats_path, "w") as f:
                 json.dump(self.spec_stats, f)
         return self._normalized(raw, norm_path)
 
     def _upload(self, tier: np.ndarray) -> torch.Tensor:
         """A float16 tier mapped from disk, 64 presets at a time to the
-        device, cast there to the corpus dtype."""
-        corpus = torch.empty(tier.shape, dtype=self.corpus_dtype, device=self.device)
+        device, cast there to the corpus dtype; or, with
+        ``corpus_on_device=False``, cast on the host into the host corpus."""
+        corpus = self._served(tier.shape)
         for s in range(0, tier.shape[0], CORPUS_CHUNK):
             chunk = torch.from_numpy(np.array(tier[s:s + CORPUS_CHUNK]))
-            corpus[s:s + CORPUS_CHUNK] = chunk.to(self.device).to(self.corpus_dtype)
+            corpus[s:s + CORPUS_CHUNK] = chunk.to(corpus.device).to(self.corpus_dtype)
         return corpus
 
-    def _render_raw(self) -> torch.Tensor:
-        """Raw log-mels (P, n_notes, H, W) on the device, float32 on 'cpp' and
-        float16 on 'jax'; sets ``spec_stats``."""
+    def _render_raw(self, raw=None):
+        """Raw log-mels (P, n_notes, H, W), float32 on 'cpp' and float16 on
+        'jax', into ``raw`` (a tier mapped for writing), else into a tensor
+        on the device (on the host with ``corpus_on_device=False``); sets
+        ``spec_stats``. -> ``raw``."""
+        if raw is None:
+            raw = self._raw_buffer(self._raw_dtype())
         if self.corpus_render_backend == "jax":
-            return self._fm_raw()
-        return self._cpp_raw()
+            return self._fm_raw(raw)
+        return self._cpp_raw(raw)
 
-    def _cpp_raw(self) -> torch.Tensor:
-        P, (_, H, W) = len(self.uids), self.get_spectrogram_tensor_size()
-        raw = torch.empty((P, len(self.midi_notes), H, W), dtype=torch.float32,
-                          device=self.device)
+    @staticmethod
+    def _put(raw, index, t: torch.Tensor) -> None:
+        """``raw[index] = t`` for a raw tensor or a tier mapped from disk."""
+        if isinstance(raw, np.ndarray):
+            raw[index] = t.cpu().numpy()
+        else:
+            raw[index] = t
+
+    def _cpp_raw(self, raw):
+        P = len(self.uids)
         for note_i, (pitch, vel) in enumerate(self.midi_notes):
             for s in range(0, P, CORPUS_CHUNK):
                 chunk = self.presets[s:s + CORPUS_CHUNK]
@@ -419,31 +490,34 @@ class DexedDataset:
                 t_r = time.perf_counter()
                 wav = self.renderer.render_batch(chunk, [pitch] * n, [vel] * n)
                 self.render_seconds += time.perf_counter() - t_r
-                raw[s:s + n, note_i] = self.spectrogram(torch.from_numpy(wav).to(self.device))
+                self._put(raw, (slice(s, s + n), note_i),
+                          self.spectrogram(torch.from_numpy(wav).to(self.device)))
         self.spec_stats = self._compute_stats(raw)
         return raw
 
-    def _compute_stats(self, raw: torch.Tensor) -> Dict[str, float]:
+    def _compute_stats(self, raw) -> Dict[str, float]:
         """min, max, mean and std of the raw corpus (abstract_dataset.py:272-281),
-        on the device: the sums and the squared deviations in float64, 64
-        presets at a time."""
-        mn, mx = torch.aminmax(raw)
-        total = torch.zeros((), dtype=torch.float64, device=self.device)
+        on the device 64 presets at a time (wherever the raw corpus is): the
+        extremes, then the sums and the squared deviations in float64."""
+        n_el = math.prod(raw.shape)
+        ext, total = [], torch.zeros((), dtype=torch.float64, device=self.device)
         for s in range(0, raw.shape[0], CORPUS_CHUNK):
-            total += raw[s:s + CORPUS_CHUNK].sum(dtype=torch.float64)
-        mean = total / raw.numel()
+            x = self._chunk(raw, s)
+            ext.append(torch.stack(torch.aminmax(x)))
+            total += x.sum(dtype=torch.float64)
+        ext = torch.stack(ext)
+        mean = total / n_el
         sq = torch.zeros((), dtype=torch.float64, device=self.device)
         for s in range(0, raw.shape[0], CORPUS_CHUNK):
-            sq += (raw[s:s + CORPUS_CHUNK].double() - mean).square().sum()
-        return {"min": float(mn), "max": float(mx), "mean": float(mean),
-                "std": float((sq / raw.numel()).sqrt())}
+            sq += (self._chunk(raw, s).double() - mean).square().sum()
+        return {"min": float(ext[:, 0].min()), "max": float(ext[:, 1].max()),
+                "mean": float(mean), "std": float((sq / n_el).sqrt())}
 
-    def _fm_raw(self) -> torch.Tensor:
+    def _fm_raw(self, raw):
         """The 'jax' backend's pass (abstract_dataset.py:380-518 in meaning)."""
         P, (_, H, W) = len(self.uids), self.get_spectrogram_tensor_size()
         n_notes = len(self.midi_notes)
         presets = torch.from_numpy(self.presets).to(self.device)
-        raw = torch.empty((P, n_notes, H, W), dtype=torch.float16, device=self.device)
         parts = []
         on_s, total_s = self.note_duration[0], sum(self.note_duration)
         for note_i, (pitch, vel) in enumerate(self.midi_notes):
@@ -459,7 +533,7 @@ class DexedDataset:
                 for j in range(0, n, CORPUS_CHUNK):
                     sp = self.spectrogram(wav[j:j + CORPUS_CHUNK])
                     parts.append(torch.stack([sp.amin(), sp.amax(), sp.sum(), (sp * sp).sum()]))
-                    raw[s + j:s + j + sp.shape[0], note_i] = sp
+                    self._put(raw, (slice(s + j, s + j + sp.shape[0]), note_i), sp)
                 del wav
         st = torch.stack(parts).cpu().numpy().astype(np.float64)
         n_el = float(P * n_notes * H * W)
@@ -470,16 +544,17 @@ class DexedDataset:
         return raw
 
     def _normalized(self, raw, norm_path: Optional[pathlib.Path] = None) -> torch.Tensor:
-        """The corpus served from the raw one (a device tensor, or the raw tier
-        mapped from disk), 64 presets at a time: the normalisation
+        """The corpus served from the raw one (a tensor, or the raw tier mapped
+        from disk), 64 presets at a time on the device: the normalisation
         (abstract_dataset.py:548-556) in the raw dtype, its constants rounded
         to that dtype from the stats' Python floats as numpy rounds them; the
         float16 rounding (written to ``norm_path`` if given); the corpus
         dtype. Without a normalisation the raw values are served as they are
         and no float16 tier is written (abstract_dataset.py:371-377)."""
         norm, st = self.spectrogram_normalization, self.spec_stats
-        on_device = isinstance(raw, torch.Tensor)
-        f16 = raw.dtype == (torch.float16 if on_device else np.float16)
+        is_tensor = isinstance(raw, torch.Tensor)
+        on_device = is_tensor and raw.device == self.device
+        f16 = raw.dtype == (torch.float16 if is_tensor else np.float16)
         raw_np_dtype = np.float16 if f16 else np.float32
 
         def const(v):
@@ -489,17 +564,14 @@ class DexedDataset:
             shift, scale = const(st["min"]), const((st["max"] - st["min"]) / 2.0)
         elif norm == "mean_std":
             shift, scale = const(st["mean"]), const(st["std"])
-        in_place = (on_device and f16
+        in_place = (on_device and f16 and self.corpus_on_device
                     and torch.empty((), dtype=self.corpus_dtype).element_size() == 2)
-        corpus = raw.view(self.corpus_dtype) if in_place else torch.empty(
-            tuple(raw.shape), dtype=self.corpus_dtype, device=self.device)
+        corpus = raw.view(self.corpus_dtype) if in_place else self._served(tuple(raw.shape))
         write = norm is not None and norm_path is not None
         with (_tier_file(norm_path, raw.shape, np.float16) if write
               else contextlib.nullcontext()) as tier:
             for s in range(0, raw.shape[0], CORPUS_CHUNK):
-                x = raw[s:s + CORPUS_CHUNK]
-                if not on_device:
-                    x = torch.from_numpy(np.array(x)).to(self.device)
+                x = self._chunk(raw, s)
                 if norm is not None:
                     x = (x - shift).div_(scale)
                     if norm == "min_max":
@@ -522,7 +594,7 @@ class DexedDataset:
             w = csv.writer(f)
             w.writerow(["UID", "min", "max", "mean", "var"])
             for s in range(0, raw.shape[0], CORPUS_CHUNK):
-                chunk = raw[s:s + CORPUS_CHUNK]
+                chunk = self._chunk(raw, s)
                 x = chunk.reshape(chunk.shape[0], -1).double()
                 mean = x.mean(1)
                 rows = torch.stack([x.amin(1), x.amax(1), mean,
@@ -555,7 +627,8 @@ class DexedDataset:
 
     def corpus_tensors(self) -> Dict[str, torch.Tensor]:
         """x, v (N, L) float32 and info (N, 3) int32 (uid, pitch, velocity),
-        all on the device (abstract_dataset.py:581-631). Single-note or
+        all on the device, or all on the host with ``corpus_on_device=False``
+        (abstract_dataset.py:581-631). Single-note or
         stacked: N = P items, x (P, n_notes, H, W), info the first note.
         Un-stacked multi-note: N = P * n_notes items, note-major per preset,
         x (N, 1, H, W) a view of the (P, n_notes, H, W) corpus (no second
@@ -572,5 +645,5 @@ class DexedDataset:
             v = np.repeat(learnable, n_notes, axis=0)
             info = np.concatenate([np.repeat(self.uids, n_notes)[:, None], np.tile(notes, (P, 1))],
                                   axis=1)
-        return {"x": x, "v": torch.from_numpy(v.astype(np.float32)).to(self.device),
-                "info": torch.from_numpy(info.astype(np.int32)).to(self.device)}
+        return {"x": x, "v": self._placed(torch.from_numpy(v.astype(np.float32))),
+                "info": self._placed(torch.from_numpy(info.astype(np.int32)))}

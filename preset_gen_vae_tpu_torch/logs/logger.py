@@ -14,7 +14,11 @@ state_dict (BatchNorm running statistics included), "optimizer": the
 optimizer's state_dict, "step": the train-step count, "generator": the
 state of the run's torch.Generator}``. Everything in it is a tensor, a
 number, a string or a container of those, so ``torch.load(...,
-weights_only=True)`` reads it.
+weights_only=True)`` reads it. A checkpoint is layout-free: under tensor
+parallelism every process first gathers its model group's shards of the
+weights and of Adam's moments (``parallel/sharding_rules.py``), and rank 0
+writes the full tensors, so that the run resumes in one process or under
+any grid.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from .. import config as cfg
 from .._native import REPO_ROOT
+from ..parallel.sharding_rules import layout_free_state
 
 
 def get_run_dir(model_config: cfg.ModelConfig) -> pathlib.Path:
@@ -155,14 +160,16 @@ class RunLogger:
                         optimizer: torch.optim.Optimizer, step: int,
                         generator: torch.Generator, scheduler) -> None:
         """(reference: logger.py:199-202). ``scheduler`` is the host-side
-        ReduceLROnPlateau."""
+        ReduceLROnPlateau. Every process calls it: a sharded model's full
+        tensors are gathered over its model groups before rank 0 writes."""
+        model_sd, optimizer_sd = layout_free_state(model, optimizer)
         if not self.write:
             return
         d = self.run_dir / "checkpoints" / str(epoch)
         if d.exists():
             shutil.rmtree(d)
         d.mkdir(parents=True)
-        torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+        torch.save({"model": model_sd, "optimizer": optimizer_sd,
                     "step": int(step), "generator": generator.get_state()}, d / "state.pt")
         with open(d / "meta.json", "w") as f:
             json.dump({"epoch": epoch, "scheduler": scheduler.state_dict()}, f)

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..data.preset import PresetIndexesHelper
-from ..parallel.multihost import global_count, world_size
+from ..parallel.multihost import data_world_size, global_count
 
 
 class _Tables:
@@ -98,7 +98,7 @@ class SynthParamsLoss:
             q, tgt, pad = v_out[:, t["idx_m"]], v_in[:, t["idx_m"]], t["pad"]
             useful = 1.0 - cat_useless[:, : self.G].float()
             # the items that count, over every process's rows
-            n_useful = torch.clamp(global_count(useful.sum(0)), min=1.0 / world_size())
+            n_useful = torch.clamp(global_count(useful.sum(0)), min=1.0 / data_world_size())
             if not self.cat_bce:
                 if self.cat_softmax:
                     q = torch.softmax(torch.where(pad[None], q / self.cat_softmax_t,

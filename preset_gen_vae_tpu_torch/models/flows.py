@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.multihost import batch_moments, world_size
+from ..parallel.multihost import batch_moments, data_world_size
 from .layers import BatchNorm, dropout, update_running_stats, widen
 
 
@@ -133,7 +133,7 @@ class BatchNormFlow(nn.Module):
 
     def forward(self, x, generator=None):
         if self.training:
-            if world_size() > 1:
+            if data_world_size() > 1:
                 mean, var = batch_moments(x, [0])
             else:
                 var, mean = torch.var_mean(x, dim=0, unbiased=False)

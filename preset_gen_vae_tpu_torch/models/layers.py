@@ -7,6 +7,10 @@ flax module names (``Conv_0``, ``BatchNorm_0``, ``TorchConvTranspose2d_0``)
 so that ``weights.py`` maps a flax variables dict onto a ``state_dict`` by
 path alone.
 
+``ShardedLinear`` is a Dense layer cut over the model group of a
+tensor-parallel grid (``parallel/sharding_rules.py``), the counterpart of
+the JAX package's ``P(None, 'model')`` / ``P('model', None)`` kernels.
+
 ``torch.nn.ConvTranspose2d`` already has the geometry that the JAX
 package's ``TorchConvTranspose2d`` (layers.py:36-90) rebuilds by hand:
 ``H_out = (H_in-1)*stride - 2*pad + dilation*(k-1) + output_padding + 1``.
@@ -19,10 +23,12 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.multihost import batch_moments, global_draw, world_size
+from ..parallel.multihost import batch_moments, data_world_size, global_draw
+from ..parallel.sharding_rules import COLUMN, Grid, gather_shards
 
 
 def _pair(v):
@@ -105,7 +111,8 @@ class BatchNorm(nn.Module):
     float32 at least (bf16 inputs are widened, float64 stays). Under a process
     group of more than one, the batch statistics span every process's rows
     (``parallel/multihost.py:batch_moments``), as the JAX package's BatchNorm
-    reduces over the global batch."""
+    reduces over the global batch (under tensor parallelism, every process
+    of the data group's rows)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -118,7 +125,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = widen(x)
-        if self.training and world_size() > 1:
+        if self.training and data_world_size() > 1:
             dims = [0] + list(range(2, x.dim()))
             mean, var = batch_moments(x, dims)
             update_running_stats(self, mean, var)
@@ -133,6 +140,110 @@ class BatchNorm(nn.Module):
         return F.batch_norm(x, None if self.training else self.running_mean,
                             None if self.training else self.running_var,
                             self.weight, self.bias, training=self.training, eps=self.eps)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The input of a column-sharded layer: the identity forward; backward,
+    the model group's partial input gradients summed."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The output of a column-sharded layer: forward, the model group's
+    slices gathered along the last axis; backward, this process's slice of
+    the gradient only (every process of the group holds the same full
+    gradient, so a summing backward would scale it by the group's size)."""
+
+    @staticmethod
+    def forward(ctx, y, grid: Grid):
+        ctx.width, ctx.rank = y.shape[-1], grid.model_rank
+        return gather_shards(y, y.dim() - 1, grid.model_group, grid.n_model)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.rank * ctx.width, ctx.width).contiguous(), None
+
+
+class _SplitToModel(torch.autograd.Function):
+    """The input of a row-sharded layer: forward, this process's slice of
+    the last axis; backward, the group's slices of the gradient gathered."""
+
+    @staticmethod
+    def forward(ctx, x, grid: Grid):
+        ctx.grid = grid
+        width = x.shape[-1] // grid.n_model
+        return x.narrow(-1, grid.model_rank * width, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        grid = ctx.grid
+        return gather_shards(g, g.dim() - 1, grid.model_group, grid.n_model), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The output of a row-sharded layer: forward, the group's partial
+    products summed; backward, the identity (the full gradient is every
+    partial's)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class ShardedLinear(nn.Module):
+    """This process's slice of a Dense layer over the model group of
+    ``grid``. ``dim`` = ``COLUMN``: the weight's output rows and the bias
+    are cut, the replicated input goes through the local matmul and the
+    group's outputs are gathered (the input's gradient summed over the
+    group). ``dim`` = ``ROW``: the weight's input columns are cut, this
+    process takes its slice of the input, the group's partial products are
+    summed and the whole bias is added once, after the sum. A
+    ``MaskedDense``'s mask is cut with its weight. The parameters keep the
+    names ``weight`` and ``bias``; any autocast around the call applies to
+    the local matmul as it would to the whole layer's (``f32_linear`` keeps
+    it float32)."""
+
+    def __init__(self, linear: nn.Linear, dim: int, grid: Grid):
+        super().__init__()
+        self.dim, self.grid = dim, grid
+        self.weight = nn.Parameter(self.local(linear.weight.detach(), dim).clone())
+        bias = linear.bias.detach()
+        self.bias = nn.Parameter((self.local(bias, COLUMN) if dim == COLUMN else bias).clone())
+        mask = getattr(linear, "mask", None)
+        self.register_buffer("mask", None if mask is None else self.local(mask, dim).clone(),
+                             persistent=False)
+
+    def local(self, full: torch.Tensor, dim: int) -> torch.Tensor:
+        """This process's slice of a full tensor along ``dim``."""
+        if full.shape[dim] % self.grid.n_model:
+            raise ValueError(f"a shard of {tuple(full.shape)} along dim {dim} does not divide "
+                             f"model_parallel_devices={self.grid.n_model}")
+        return full.chunk(self.grid.n_model, dim)[self.grid.model_rank]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight if self.mask is None else self.weight * self.mask
+        if self.dim == COLUMN:
+            y = F.linear(_CopyToModel.apply(x, self.grid.model_group), w, self.bias)
+            return _GatherFromModel.apply(y, self.grid)
+        y = _ReduceFromModel.apply(F.linear(_SplitToModel.apply(x, self.grid), w),
+                                   self.grid.model_group)
+        return y + self.bias.to(y.dtype)
 
 
 class Conv2DBlock(nn.Module):

@@ -24,6 +24,13 @@ concatenated:
   cotangents of the shared statistics across the processes, so the mean of
   the processes' gradients is the gradient of the one-process loss.
 
+Under tensor parallelism (``parallel/sharding_rules.py``) every "over the
+processes" above means over the active grid's data group: the processes
+of one model group see the same rows, draw the same masks and hold the
+same statistics, and the loop carves the splits by data rank
+(``data_rank_and_size``). Without an active grid the data group is the
+whole world.
+
 Without a process group every function here is the single-process code
 path, with the same numbers. ``make_global_batch`` has no counterpart:
 each process steps on its local batch.
@@ -41,6 +48,8 @@ from typing import Iterable, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .sharding_rules import active_grid
 
 
 def initialize_distributed(init_method: Optional[str] = None, world_size: Optional[int] = None,
@@ -62,6 +71,21 @@ def rank_and_world() -> Tuple[int, int]:
 
 def world_size() -> int:
     return rank_and_world()[1]
+
+
+def data_rank_and_size() -> Tuple[int, int]:
+    """(rank, size) in the data group: the active grid's, else the world's."""
+    grid = active_grid()
+    return (grid.data_rank, grid.n_data) if grid is not None else rank_and_world()
+
+
+def data_world_size() -> int:
+    return data_rank_and_size()[1]
+
+
+def _data_group():
+    grid = active_grid()
+    return grid.data_group if grid is not None else None
 
 
 def barrier() -> None:
@@ -138,6 +162,8 @@ def shard_loaders_for_host(loaders, rank: int, world: int, corpus_cache_policy: 
         remap = np.full(int(rows.max()) + 1 if len(rows) else 1, -1, dtype=np.int64)
         remap[rows] = np.arange(len(rows))
         tensors = {k: t[torch.as_tensor(rows, device=t.device)] for k, t in ld.tensors.items()}
+        if ld.tensors["x"].is_pinned():  # the carve of a pinned host corpus stays pinned
+            tensors = {k: t.pin_memory() for k, t in tensors.items()}
         local_bs = ld.batch_size // world
         out[name] = SplitLoader(
             tensors, remap[local], batch_size=local_bs, shuffle=ld.shuffle,
@@ -148,25 +174,28 @@ def shard_loaders_for_host(loaders, rank: int, world: int, corpus_cache_policy: 
 
 def batch_moments(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean, biased variance) of ``x`` over ``dims`` and over the rows of
-    every process of a group of more than one: the sum, then the sum of
-    squared deviations from the global mean, each all-reduced through
+    every process of the data group: the sum, then the sum of squared
+    deviations from the global mean, each all-reduced through
     ``torch.distributed.nn`` so that the gradient flows to every
     process's rows."""
     from torch.distributed.nn import functional as dist_nn
 
-    n = math.prod(x.shape[d] for d in dims) * world_size()
+    group = _data_group()
+    group = dist.group.WORLD if group is None else group
+    n = math.prod(x.shape[d] for d in dims) * data_world_size()
     shape = [1 if d in dims else s for d, s in enumerate(x.shape)]
-    mean = dist_nn.all_reduce(x.sum(dims)) / n
+    mean = dist_nn.all_reduce(x.sum(dims), group=group) / n
     centred = x - mean.reshape(shape)
-    var = dist_nn.all_reduce(torch.square(centred).sum(dims)) / n
+    var = dist_nn.all_reduce(torch.square(centred).sum(dims), group=group) / n
     return mean, var
 
 
 def global_draw(draw, shape, **kwargs) -> torch.Tensor:
     """``draw(shape, **kwargs)`` (``torch.rand``, ``torch.randn``) at the
-    global batch shape, world x shape[0] rows, of which this process keeps
-    its own; ``draw(shape)`` itself without a group of more than one."""
-    rank, world = rank_and_world()
+    global batch shape, (data group size) x shape[0] rows, of which this
+    process keeps its own; ``draw(shape)`` itself without a data group of
+    more than one. The processes of one model group draw the same rows."""
+    rank, world = data_rank_and_size()
     if world <= 1:
         return draw(shape, **kwargs)
     b = shape[0]
@@ -174,36 +203,37 @@ def global_draw(draw, shape, **kwargs) -> torch.Tensor:
 
 
 def global_count(counts: torch.Tensor) -> torch.Tensor:
-    """``counts`` summed over the processes, divided by the world size: the
-    mean count a process would see, whose ratio to a local sum has the mean
+    """``counts`` summed over the data group, divided by its size: the mean
+    count a process would see, whose ratio to a local sum has the mean
     over the processes that the one-process ratio has. ``counts`` itself
-    without a group of more than one."""
-    world = world_size()
+    without a data group of more than one."""
+    world = data_world_size()
     if world <= 1:
         return counts
     counts = counts.detach().clone()
-    dist.all_reduce(counts)
+    dist.all_reduce(counts, group=_data_group())
     return counts / world
 
 
 def all_reduce_mean_(tensors: Iterable[torch.Tensor]) -> None:
-    """Replaces each tensor by its mean over the processes, through one
+    """Replaces each tensor by its mean over the data group, through one
     flat all-reduce; nothing without a process group (a group of one runs
     the all-reduce, with the same numbers)."""
     tensors = list(tensors)
     if not tensors or not (dist.is_available() and dist.is_initialized()):
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
-    flat /= dist.get_world_size()
+    dist.all_reduce(flat, group=_data_group())
+    flat /= data_world_size()
     for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(part.view_as(t))
 
 
 def average_gradients(model: torch.nn.Module) -> None:
-    """The gradients after ``backward()``, averaged over the processes of a
-    group of more than one (a group of one would only copy them)."""
-    if world_size() > 1:
+    """The gradients after ``backward()``, averaged over the data group when
+    it holds more than one process (a group of one would only copy them);
+    a shard's gradient over the processes holding the same shard."""
+    if data_world_size() > 1:
         all_reduce_mean_(p.grad for p in model.parameters() if p.grad is not None)
 
 

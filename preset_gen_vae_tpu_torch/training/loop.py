@@ -36,8 +36,24 @@ before the call; loop.py:87-100, 204-239 there): each process trains on
 ``cuda:LOCAL_RANK``, from rank 0's parameters, on its carve of every split
 (``parallel/multihost.py``), with the gradients and the scalars averaged
 over the processes and synchronised batch statistics; rank 0 alone writes.
-``force_multihost_data`` takes that path in one process. The 2-D
-tensor-parallel mesh is JAX-only.
+``force_multihost_data`` takes that path in one process.
+
+Tensor parallelism (``model_parallel_devices`` above 1; loop.py:155-190
+there): the world becomes a grid of ``n_data x n_model`` processes
+(``parallel/sharding_rules.py``), ``n_data = gcd(minibatch_size, world //
+n_model)``, and a world the grid cannot hold raises. After rank 0's
+weights are broadcast, every 2-D kernel of at least ``tp_min_elements``
+entries is cut over the model group (``models/layers.py:ShardedLinear``),
+the optimizer is made over the shards, the splits are carved by data rank
+and the gradients and scalars averaged over the data group; the summary
+reports ``tp_kernels_sharded``. Checkpoints are layout-free
+(``logs/logger.py``): a run resumes under any grid or in one process.
+
+The host-fed pipeline (``dataset_cache_device=False``; loop.py:207-209,
+233-237 there): the corpus pass computes on the card as always, a chunk
+at a time, then the corpus lives in pinned host memory
+(``data/dexed_dataset.py``) and each batch is gathered there into pinned
+memory and copied to the card (``data/pipeline.py:SplitLoader.device_batches``).
 
 K-step dispatch (``steps_per_dispatch``, loop.py:225-233, 392-424,
 588-622, 739-758 there; ``training/dispatch.py``): in one process, K
@@ -49,7 +65,9 @@ warm-up, the second captures it, the later ones replay it; a failed
 capture raises. An epoch that draws no figure replays the validation
 step's graph (captured after one eager batch) over its batches, the
 counterpart of the whole-validation scan. K = 1 steps one at a time, as
-do several processes and the profiled epoch. The epoch's one fetch of the
+do several processes (tensor parallelism too), the host-fed pipeline (the
+JAX loop dispatches K steps only over a resident corpus, loop.py:588 there)
+and the profiled epoch. The epoch's one fetch of the
 train scalars, the NaN check and the validation weighting are the same on
 every path; on the CPU the groups run their steps eagerly through the
 same static buffers.
@@ -78,7 +96,7 @@ from ..device import resolve_device
 from ..logs.logger import RunLogger, get_run_dir, load_checkpoint
 from ..logs.metrics import BufferedMetric, EpochMetric, LatentMetric, SimpleMetric
 from ..models.build import build_extended_ae_model
-from ..parallel import multihost
+from ..parallel import multihost, sharding_rules
 from ..utils.exception import check_nan_values
 from ..utils.hparams import LinearDynamicParam
 from ..utils.profile import get_optional_profiler
@@ -140,14 +158,19 @@ def prepare_dataset(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dev: tor
                     dataset: Optional[DexedDataset] = None,
                     dataset_kwargs: Optional[Dict] = None):
     """Builds the dataset unless one is given (its corpus pass launches K1
-    on the card) and resolves the configs against it
-    (loop.py:73-85 there); -> (model_c, train_c, dataset)."""
+    on the card), its corpus on the device or, with
+    ``dataset_cache_device=False``, on the host, and resolves the configs
+    against it (loop.py:73-85 there); -> (model_c, train_c, dataset). A
+    given dataset must keep its corpus where the field says."""
     if dataset is None:
         bf16 = dev.type == "cuda" and train_c.compute_dtype == "bfloat16"
         kwargs = model_config_to_dataset_kwargs(model_c)
         kwargs.update(device=dev, corpus_dtype=torch.bfloat16 if bf16 else torch.float32,
-                      **(dataset_kwargs or {}))
+                      corpus_on_device=train_c.dataset_cache_device, **(dataset_kwargs or {}))
         dataset = DexedDataset(**kwargs)
+    if dataset.corpus_on_device != train_c.dataset_cache_device:
+        raise ValueError(f"dataset_cache_device={train_c.dataset_cache_device} with a dataset "
+                         f"built with corpus_on_device={dataset.corpus_on_device}")
     model_c, train_c = cfg.resolve_with_dataset(model_c, train_c, dataset)
     size = dataset.get_spectrogram_tensor_size()  # (C, H, W), C = stacked notes
     model_c = dataclasses.replace(
@@ -160,18 +183,14 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def check_parallel_fields(train_c: cfg.TrainConfig, world: int) -> None:
-    """The port's data parallelism is one process a card: ``data_parallel_devices``
-    above 1 must be the world size, and the JAX package's tensor-parallel
-    mesh (``model_parallel_devices`` above 1) has no counterpart."""
-    if train_c.model_parallel_devices > 1:
-        raise ValueError(f"model_parallel_devices={train_c.model_parallel_devices}: the 2-D "
-                         "tensor-parallel mesh is JAX-only; the port trains data-parallel, "
-                         "one process a card")
-    if train_c.data_parallel_devices > 1 and train_c.data_parallel_devices != world:
-        raise ValueError(f"data_parallel_devices={train_c.data_parallel_devices} in a world of "
-                         f"{world} process(es): the port trains one process a card; launch "
-                         f"them with torchrun --nproc_per_node={train_c.data_parallel_devices}")
+def check_parallel_fields(train_c: cfg.TrainConfig, world: int) -> Tuple[int, int]:
+    """(n_data, n_model) of the grid the world of ``world`` processes, one a
+    card, trains on (``sharding_rules.grid_shape``); raises, naming the
+    field, where ``model_parallel_devices``, ``data_parallel_devices`` or
+    ``minibatch_size`` ask for a grid the world cannot hold."""
+    return sharding_rules.grid_shape(world, train_c.minibatch_size,
+                                     train_c.model_parallel_devices,
+                                     train_c.data_parallel_devices)
 
 
 def train_config(model_config: Optional[cfg.ModelConfig] = None,
@@ -186,26 +205,42 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
     if train_c.start_epoch >= train_c.n_epochs:
         raise ValueError(f"start_epoch {train_c.start_epoch} >= n_epochs {train_c.n_epochs}")
     rank, world = multihost.rank_and_world()
-    check_parallel_fields(train_c, world)
+    n_data, n_model = check_parallel_fields(train_c, world)
     multiproc = world > 1 or train_c.force_multihost_data
     if multiproc and dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
         torch.cuda.set_device(dev)
+    grid = sharding_rules.make_2d_grid(n_data, n_model) if n_model > 1 else None
+    with sharding_rules.grid_scope(grid):
+        return _train(model_c, train_c, dataset, dev, dataset_kwargs, use_tensorboard, grid)
+
+
+def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional[DexedDataset],
+           dev: torch.device, dataset_kwargs: Optional[Dict], use_tensorboard: bool,
+           grid: Optional[sharding_rules.Grid]) -> Dict:
+    """``train_config``'s run on ``dev``, inside its grid's scope."""
+    rank, world = multihost.rank_and_world()
+    data_rank, n_data = multihost.data_rank_and_size()
+    multiproc = world > 1 or train_c.force_multihost_data
+    host_fed = not train_c.dataset_cache_device
     if dev.type == "cuda" and train_c.compute_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False  # float32 convolutions in full f32
     # rank 0's corpus pass first: a cold 'disk' pass writes the cache, which
     # the other processes then reload warm, instead of racing on its files
+    # (the dataset builds its corpus lazily: rank 0 loads it before the barrier)
     if rank == 0:
         model_c, train_c, dataset_r = prepare_dataset(model_c, train_c, dev, dataset,
                                                       dataset_kwargs)
+        if world > 1:
+            dataset_r.load_corpus()
     multihost.barrier()
     if rank != 0:
         model_c, train_c, dataset_r = prepare_dataset(model_c, train_c, dev, dataset,
                                                       dataset_kwargs)
     dataset = dataset_r
     loaders = get_split_loaders(dataset, train_c)
-    if multiproc:  # each process's carve of every split (loop.py:87-100 there)
-        loaders = multihost.shard_loaders_for_host(loaders, rank, world,
+    if multiproc:  # each data rank's carve of every split (loop.py:87-100 there)
+        loaders = multihost.shard_loaders_for_host(loaders, data_rank, n_data,
                                                    dataset.corpus_cache_policy,
                                                    force=train_c.force_multihost_data)
     helper = dataset.preset_indexes_helper
@@ -225,19 +260,28 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
     build_s = time.perf_counter() - t_build
     if train_c.verbosity >= 1:
         logger.init_with_model(model)
-    optimizer = make_optimizer(model, train_c)
+    n_params = sum(p.numel() for p in model.parameters())
     criteria = Criteria(model_c, train_c, helper)
     generator = torch.Generator(device=dev).manual_seed(train_c.seed)
     schedule = EpochSchedule(train_c)
     step = 0
-    if start_checkpoint is not None:  # (loop.py:136-147)
+    if start_checkpoint is not None:  # (loop.py:136-147); a checkpoint holds full tensors
         state = start_checkpoint["state"]
         model.load_state_dict(state["model"])
-        load_optimizer_state(optimizer, state["optimizer"])
         step = int(state["step"])
         generator.set_state(state["generator"])
         schedule.plateau.load_state_dict(start_checkpoint["scheduler"])
     multihost.broadcast_(model.state_dict().values())  # every process from rank 0's weights
+    tp_report = None
+    if grid is not None:  # each process keeps its shards (loop.py:165-190 there)
+        tp_report = sharding_rules.count_sharded(model, grid.n_model, train_c.tp_min_elements)
+        sharding_rules.shard_model(model, grid, train_c.tp_min_elements)
+        logger.log(f"[tp] mesh (data={grid.n_data}, model={grid.n_model}): {tp_report[0]} "
+                   f"kernels sharded ({tp_report[1]}/{tp_report[2]} elements)", level=1)
+    optimizer = make_optimizer(model, train_c)
+    if start_checkpoint is not None:
+        load_optimizer_state(optimizer, sharding_rules.shard_optimizer_state(
+            start_checkpoint["state"]["optimizer"], model))
     start_step = step
 
     scalars: Dict[str, object] = {f"{k}/{split}": EpochMetric()
@@ -260,9 +304,8 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
     nan_cols = [train_keys.index(k) for k in NAN_CHECKED]
     beta_t = torch.zeros((), device=dev)  # the epoch's beta, read by every step on the device
 
-    def one_step(sel, latents: bool):
-        x, v, info = train_loader.gather(sel)
-        return train_step(model, optimizer, criteria, train_c, x, v, info, beta_t, generator,
+    def one_step(batch, latents: bool):
+        return train_step(model, optimizer, criteria, train_c, *batch, beta_t, generator,
                           latents=latents)
 
     def eval_rows(sel):
@@ -271,15 +314,16 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         m = eval_step(model, criteria, train_c, x, v, info)
         return torch.stack([m[k] for k in criteria.scalars]), torch.stack([m["z0_mu"], m["z0"]])
 
-    # in one process, the JAX loop's K-step scans as CUDA graphs
-    # (training/dispatch.py): groups of K train steps, and the validation
-    # step of the epochs that draw no figure
+    # in one process over a resident corpus, the JAX loop's K-step scans as
+    # CUDA graphs (training/dispatch.py): groups of K train steps, and the
+    # validation step of the epochs that draw no figure
     groups = evals = None
-    if not multiproc:
+    if not multiproc and not host_fed:
         name = f"{model_c.name}/{model_c.run_name}"
         k = dispatch_k(train_c.steps_per_dispatch, len(train_loader))
         if k > 1:
-            groups = TrainGroups(k, train_loader.batch_size, lambda sel: one_step(sel, True),
+            groups = TrainGroups(k, train_loader.batch_size,
+                                 lambda sel: one_step(train_loader.gather(sel), True),
                                  train_keys, dev, f"{k} train steps of {name}", generator)
         evals = EvalReplays(valid_loader.batch_size, eval_rows, dev,
                             f"the validation step of {name}")
@@ -299,9 +343,10 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         should_plot = (epoch % train_c.plot_period == 0 and logger.tensorboard is not None
                        and world == 1)
 
-        # ---- train: the epoch's index batches go to the device in one copy;
-        # groups of K steps (the profiled epoch steps one at a time), then
-        # the remainder one step each (loop.py:588-622 there)
+        # ---- train: the epoch's index batches go to the device in one copy
+        # (host-fed: the batches themselves, one at a time); groups of K
+        # steps (the profiled epoch steps one at a time), then the remainder
+        # one step each (loop.py:588-622 there)
         batches = list(train_loader.epoch_index_batches(epoch))
         if not batches:
             raise ValueError("train split smaller than one (drop_last) minibatch")
@@ -312,7 +357,10 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
                  else [1] * len(batches))
         captured_s = groups.call.capture_s if groups is not None else 0.0
         t0 = time.perf_counter()
-        idx = torch.from_numpy(np.stack(batches)).to(dev)
+        if host_fed:
+            feed = train_loader.device_batches(batches, dev)
+        else:
+            idx = torch.from_numpy(np.stack(batches)).to(dev)
         rows, train_latents, i = [], [], 0
         for size in sizes:
             if size > 1 and groups.call.warm:
@@ -324,7 +372,8 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
                 with groups.call.warm_up() if size > 1 else contextlib.nullcontext():
                     for j in range(i, i + size):
                         with profiler.record_function("train_step"):
-                            m = one_step(idx[j], should_plot)
+                            m = one_step(next(feed) if host_fed else
+                                         train_loader.gather(idx[j]), should_plot)
                         rows.append(torch.stack([m[k] for k in train_keys])[None])
                         if should_plot:
                             train_latents.append(torch.stack([m["z0_mu"], m["z0"]])[:, None])
@@ -364,8 +413,9 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
             break  # before validation (loop.py:708-709 there)
 
         # ---- validation: padded batches weighted by their real rows; each
-        # process's batch means averaged over the processes; the latents of
-        # one process only (loop.py:768-770 there). In one process, an epoch
+        # process's batch means averaged over the data group; the latents
+        # where one data rank holds every row (loop.py:768-770 there). In
+        # one process over a resident corpus, an epoch
         # that draws no figure replays the validation step's graph over its
         # batches (the whole-validation scan, loop.py:739-758 there).
         vbatches = list(valid_loader.epoch_index_batches(epoch))
@@ -383,12 +433,11 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
                 val_rows.append(row)
                 latents.append(lat[:, :valid_real_rows(valid_loader, i)])
         else:
-            for i, sel in enumerate(vbatches):
-                x, v, info = valid_loader.gather(sel)
+            for i, (x, v, info) in enumerate(valid_loader.device_batches(vbatches, dev)):
                 m = eval_step(model, criteria, train_c, x, v, info)
                 val_rows.append(torch.stack([m[k] for k in criteria.scalars]))
                 n_real = valid_real_rows(valid_loader, i)
-                if world == 1:
+                if n_data == 1:
                     latents.append(torch.stack([m["z0_mu"][:n_real], m["z0"][:n_real]]))
                 if should_plot:
                     v_errors.append((m["v_out"].float() - v)[:n_real])
@@ -437,6 +486,7 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
     logger.on_training_finished()
 
     step_s = steady_s / steady_steps if steady_steps else first_step_s
+    corpus_x = train_loader.tensors["x"]
     summary = {
         "epochs_trained": epoch + 1,
         "early_stop": early_stop,
@@ -449,7 +499,7 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         "world_size": world,
         "dim_z": model_c.dim_z,
         "input_size": list(model_c.input_tensor_size),
-        "n_params": sum(p.numel() for p in model.parameters()),
+        "n_params": n_params,
         "corpus_presets": dataset.valid_presets_count,
         "corpus_seconds": dataset.corpus_seconds,
         "corpus_render_seconds": dataset.render_seconds,
@@ -469,7 +519,14 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
         "eval_graph_captures": evals.call.captures if evals is not None else 0,
         "eval_graph_replays": evals.call.replays if evals is not None else 0,
         "graph_capture_s": sum(g.call.capture_s for g in (groups, evals) if g is not None),
+        # where the corpus lives (the host-fed pipeline: not on the device)
+        "dataset_cache_device": train_c.dataset_cache_device,
+        "corpus_bytes": corpus_x.numel() * corpus_x.element_size(),
     }
+    if tp_report is not None:  # (loop.py:890-891 there)
+        summary["tp_kernels_sharded"] = tp_report[0]
+        summary["tp_sharded_elements"] = tp_report[1]
+        summary["tp_grid"] = [grid.n_data, grid.n_model]
     for k, s in scalars.items():  # the scalars that have data (loop.py:892-896 there)
         if k != "Sched/LR" and getattr(s, "has_data", True):
             summary[k] = s.get()

@@ -46,6 +46,11 @@ On the card Adam is ``capturable`` (its step counts and its learning rate
 are device tensors) and autocast keeps no cache of cast weights, so that
 one step and a CUDA graph of K steps (``training/dispatch.py``) run the
 same arithmetic. ``beta`` may be a device scalar, which the graph reads.
+Under tensor parallelism the optimizer is made over the model's shards
+(``parallel/sharding_rules.py``): Adam's moments and the coupled L2 are
+elementwise, so each process updates its shards as one process would
+update those slices; ``load_optimizer_state`` takes the shards'
+moments (``sharding_rules.shard_optimizer_state``).
 """
 
 from __future__ import annotations

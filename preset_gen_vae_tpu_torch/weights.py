@@ -15,7 +15,9 @@ imported):
 - BatchNorm scale/bias (params) and mean/var (batch_stats) -> weight/bias
   and running_mean/running_var; BatchNormFlow log_gamma/beta likewise.
 
-Inputs are plain numpy arrays (``jax.device_get`` of the variables).
+Inputs are plain numpy arrays (``jax.device_get`` of the variables). A
+model under tensor parallelism (``parallel/sharding_rules.py``) takes each
+sharded layer's slice of the full leaf (``ShardedLinear.local``).
 """
 
 from __future__ import annotations
@@ -27,12 +29,14 @@ import torch
 from torch import nn
 
 from .models.flows import BatchNormFlow, MaskedDense
-from .models.layers import BatchNorm
+from .models.layers import BatchNorm, ShardedLinear
+from .parallel.sharding_rules import COLUMN
 
 # torch attribute -> (flax collection, flax leaf, layout transform)
 _LEAVES = {
     nn.Linear: {"weight": ("params", "kernel", "dense_T"), "bias": ("params", "bias", None)},
     MaskedDense: {"weight": ("params", "kernel", "dense_T"), "bias": ("params", "bias", None)},
+    ShardedLinear: {"weight": ("params", "kernel", "dense_T"), "bias": ("params", "bias", None)},
     nn.Conv2d: {"weight": ("params", "kernel", "conv_OIHW"), "bias": ("params", "bias", None)},
     nn.ConvTranspose2d: {"weight": ("params", "kernel", "tconv_IOHW"),
                          "bias": ("params", "bias", None)},
@@ -95,11 +99,17 @@ def lookup(tree: Dict, path: Tuple[str, ...]):
 
 
 def state_dict_from_flax(model: nn.Module, variables: Dict) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` for ``model`` holding the flax ``variables``."""
+    """The ``state_dict`` for ``model`` holding the flax ``variables``; a
+    sharded layer's entries are its slices of the full leaves."""
     sd = {}
     for key, coll, path, tf in flax_leaves(model):
-        sd[key] = torch.from_numpy(
-            np.array(to_torch_layout(lookup(variables[coll], path), tf), order="C"))
+        t = torch.from_numpy(np.array(to_torch_layout(lookup(variables[coll], path), tf),
+                                      order="C"))
+        name, _, attr = key.rpartition(".")
+        mod = model.get_submodule(name)
+        if isinstance(mod, ShardedLinear) and (attr == "weight" or mod.dim == COLUMN):
+            t = mod.local(t, mod.dim).contiguous()
+        sd[key] = t
     return sd
 
 
@@ -116,7 +126,12 @@ def from_torch_layout(t: torch.Tensor, transform) -> np.ndarray:
 
 def flax_variables_from_model(model: nn.Module) -> Dict:
     """The inverse map: ``{'params': ..., 'batch_stats': ...}`` nested dicts
-    of numpy arrays holding ``model``'s weights in the flax layout."""
+    of numpy arrays holding ``model``'s weights in the flax layout; raises
+    for a model with sharded layers, whose full weights are on several
+    processes (``sharding_rules.layout_free_state`` gathers them)."""
+    if any(isinstance(m, ShardedLinear) for m in model.modules()):
+        raise ValueError("flax_variables_from_model needs the full model; this one is sharded "
+                         "(model_parallel_devices > 1)")
     sd, out = model.state_dict(), {"params": {}, "batch_stats": {}}
     for key, coll, path, tf in flax_leaves(model):
         node = out[coll]

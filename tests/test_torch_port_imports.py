@@ -79,7 +79,8 @@ def test_every_module_imports_without_the_blocked_packages():
     assert {f"preset_gen_vae_tpu_torch.{m}" for m in (
         "synth.sysex", "utils.audio_io", "evaluation.interpolate", "scripts.train_from_syx",
         "scripts.preset_morph_demo", "scripts.sound_match_demo", "utils.profile",
-        "utils.figures", "utils.label", "parallel.multihost", "scripts.dump_figures",
+        "utils.figures", "utils.label", "parallel.multihost", "parallel.sharding_rules",
+        "scripts.dump_figures",
         "scripts.clean_logs", "scripts.train_queue", "scripts.evaluate", "scripts.run_stack3_v2",
         "training.loop", "training.dispatch")
     } <= set(modules)
