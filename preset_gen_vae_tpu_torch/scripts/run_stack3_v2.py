@@ -89,8 +89,9 @@ def _print(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description="Train and evaluate the 3-note stacked flagship")
+def protocol_options(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The protocol's arguments after the caller's own: ``n_presets``,
+    ``epochs``, ``--resume`` and the paths and device."""
     ap.add_argument("n_presets", nargs="?", type=int, default=8192)
     ap.add_argument("epochs", nargs="?", type=int, default=400)
     ap.add_argument("--resume", action="store_true",
@@ -99,10 +100,19 @@ def main(argv=None) -> dict:
                     help="corpus cache root (default: $PGV_TPU_DATA_DIR or data_cache/)")
     ap.add_argument("--logs-root", default="saved", help="runs directory")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def run_protocol(args: argparse.Namespace, model_c: cfg.ModelConfig, train_c: cfg.TrainConfig,
+                 tags: dict) -> dict:
+    """The quality protocol on ``args`` (``protocol_options``): the corpus
+    pass once, training (or its resume), then the last checkpoint evaluated
+    on the validation split of the same dataset. Prints a JSON line per
+    phase and, last, the run's line, ``tags`` after its ``midi_notes``.
+    ``prepare_dataset``, ``train_config`` and ``evaluate_model`` are this
+    module's names, whichever script calls."""
     dev = resolve_device(args.device)
-    n, epochs = args.n_presets, args.epochs
-    model_c, train_c = run_configs(n, epochs, args.logs_root)
+    n = args.n_presets
     dataset_kwargs = {"n_synthetic_presets": n, "synthetic_style": STYLE}
     if args.data_root:
         dataset_kwargs["data_root"] = args.data_root
@@ -110,8 +120,9 @@ def main(argv=None) -> dict:
     train_needed = True
     if args.resume:  # raises FileNotFoundError where the run has no checkpoint
         last = load_checkpoint(model_c)
-        early_stop_lr = cfg.resolve(model_c, train_c)[1].early_stop_lr_threshold
-        train_needed = not (last["epoch"] == epochs - 1 or last["scheduler"]["lr"] < early_stop_lr)
+        train_r = cfg.resolve(model_c, train_c)[1]  # un-stacked notes divide the epochs
+        train_needed = not (last["epoch"] == train_r.n_epochs - 1
+                            or last["scheduler"]["lr"] < train_r.early_stop_lr_threshold)
         train_c = dataclasses.replace(train_c, start_epoch=last["epoch"] + 1)
 
     # the corpus pass, once for the training and the evaluation
@@ -146,7 +157,7 @@ def main(argv=None) -> dict:
 
     out = {
         "run": model_c.run_name, "n_presets": n, "style": STYLE,
-        "midi_notes": len(MIDI_NOTES), "stacked": True,
+        "midi_notes": len(model_c.midi_notes), **tags,
         "epochs_trained": summary.get("epochs_trained"),
         "train_wall_s": train_s, "eval_wall_s": eval_s, **s,
         "resumed_from_epoch": train_c.start_epoch if args.resume else None,
@@ -156,6 +167,14 @@ def main(argv=None) -> dict:
     }
     print(json.dumps(out), flush=True)
     return out
+
+
+def main(argv=None) -> dict:
+    ap = protocol_options(argparse.ArgumentParser(
+        description="Train and evaluate the 3-note stacked flagship"))
+    args = ap.parse_args(argv)
+    model_c, train_c = run_configs(args.n_presets, args.epochs, args.logs_root)
+    return run_protocol(args, model_c, train_c, {"stacked": True})
 
 
 if __name__ == "__main__":
