@@ -1447,16 +1447,27 @@ GRAPH_KEYS = ("steps_per_dispatch", "train_graph_captures", "train_graph_replays
               "eval_graph_captures", "eval_graph_replays")
 
 
+# the scalars of the loss that the train step backpropagates
+LOSS_KEYS = ("ReconsLoss/Backprop/", "LatLoss/", "Controls/BackpropLoss/", "FlowInputReg/",
+             "TotalLoss/", "VAELoss/")
+
+
 def check_train_summary(name: str, summary: dict, epochs_trained: int,
-                        input_size=(160, 1, 257, 347), dim_z: int = 610, *, graphs):
-    """Finite metrics, the configuration's shapes, the epochs, and
-    ``graphs`` = (train, eval): whether the K-step group's CUDA graph and
-    the validation step's were captured, once each, and replayed (a
-    one-process path with more than one group of steps, resp. validation
-    batches, on epochs that are not profiled); neither otherwise."""
-    bad = {k: v for k, v in summary.items() if isinstance(v, float) and not np.isfinite(v)}
+                        input_size=(160, 1, 257, 347), dim_z: int = 610, *, graphs,
+                        finite=None):
+    """Finite metrics (those whose names start with one of ``finite``, if
+    given; the others printed where they are not), the configuration's
+    shapes, the epochs, and ``graphs`` = (train, eval): whether the K-step
+    group's CUDA graph and the validation step's were captured, once each,
+    and replayed (a one-process path with more than one group of steps,
+    resp. validation batches, on epochs that are not profiled); neither
+    otherwise."""
+    nan = {k: v for k, v in summary.items() if isinstance(v, float) and not np.isfinite(v)}
+    bad = {k: v for k, v in nan.items() if finite is None or k.startswith(finite)}
     if bad:
         raise AssertionError(f"{name}: non-finite metrics: {bad}")
+    if nan:
+        print(f"[{name} path] non-finite monitors (not gated): {nan}", flush=True)
     for kind, want in zip(("train", "eval"), graphs):
         got = (summary[f"{kind}_graph_captures"], summary[f"{kind}_graph_replays"])
         if got[0] != int(want) or (got[1] > 0) != bool(want):
@@ -2201,10 +2212,11 @@ def corpus_fm_launches(model_c, corpus) -> int:
     return len(model_c.midi_notes) * -(-corpus["n_synthetic_presets"] // RENDER_ROWS)
 
 
-def variant_train(counts, name, model_c, train_c, corpus, epochs, dim_z):
+def variant_train(counts, name, model_c, train_c, corpus, epochs, dim_z, finite=None):
     """One train path: K1 launched once per 64 presets and note, F1 and F2
     once per note on the 'jax' corpus backend, the input shape (B, stacked
-    notes, 257, 347), finite metrics; timings printed."""
+    notes, 257, 347), finite metrics (``finite``: those of
+    ``check_train_summary``); timings printed."""
     from preset_gen_vae_tpu_torch.data.dexed_dataset import CORPUS_CHUNK
     from preset_gen_vae_tpu_torch.training.loop import train_config
 
@@ -2214,7 +2226,7 @@ def variant_train(counts, name, model_c, train_c, corpus, epochs, dim_z):
     n_notes = len(model_c.midi_notes)
     channels = n_notes if model_c.stack_spectrograms else 1
     check_train_summary(name, summary, epochs, (train_c.minibatch_size, channels, 257, 347),
-                        dim_z, graphs=(True, True))
+                        dim_z, graphs=(True, True), finite=finite)
     k1 = n_notes * -(-corpus["n_synthetic_presets"] // CORPUS_CHUNK)
     if counts[name]["logmel"] != k1:
         raise AssertionError(f"{name}: {counts[name]['logmel']} K1 launches, want {k1}")
@@ -2275,9 +2287,12 @@ def phase_variant_paths(root: str):
     """The saved runs' other configurations through the same entry points.
     At 1,024 structured2 presets on their saved 'jax' / 'device' corpus
     render: stack3 48 K1 and 3 F1/F2 launches a pass, 164 eval items (one
-    audio batch); multi6 96 K1 and 6 F1/F2 launches, 24 steps, 984 eval
-    items (4 audio batches); at 512 presets on the C++ corpus render 8 K1
-    launches."""
+    audio batch); stack6 96 K1 and 6 F1/F2 launches a pass, 164 eval items;
+    multi6 96 K1 and 6 F1/F2 launches, 24 steps, 984 eval items (4 audio
+    batches); at 512 presets on the C++ corpus render 8 K1 launches: the
+    flow-loss paths in both BN modes, the MLP head, BasicVAE with a MAF
+    head, and the MAF head under FlowParamsLoss (its inverse in every
+    forward, then held to ``MAF_INVERSE_BAR``)."""
     from preset_gen_vae_tpu_torch.data.sampler import split_preset_indexes
 
     counts = {}
@@ -2285,6 +2300,12 @@ def phase_variant_paths(root: str):
     model_c, train_c = saved_run_configs("r5stack3_v2_20480", root, n_epochs=2)
     summary = variant_train(counts, "stack3 train", model_c, train_c, CORPUS_V2, 2, 610)
     variant_eval(counts, "stack3 eval", model_c, summary["run_dir"], CORPUS_V2)
+
+    # ---- the reference's six notes stacked: the shared CNN six times, mix7 on
+    # six channels' features, full width, 2 epochs
+    model_c, train_c = saved_run_configs("r5stack6_v2_8192", root, n_epochs=2)
+    summary = variant_train(counts, "stack6 train", model_c, train_c, CORPUS_V2, 2, 610)
+    variant_eval(counts, "stack6 eval", model_c, summary["run_dir"], CORPUS_V2)
 
     # ---- 6 un-stacked notes, MIDI in z0, 1800-channel mixers, 2 epochs
     # (24 steps each: a group of 16, the graph's warm-up, then replayed);
@@ -2303,15 +2324,16 @@ def phase_variant_paths(root: str):
     print(f"[multi6 eval path] z0 dims 0-1 of all {len(midi)} items equal -1 + 2 (pitch, "
           f"velocity) / 127 of their own note (max |err| {err:.1e})", flush=True)
 
-    # ---- FlowParamsLoss, the train-mode pullback (cut corpus)
-    model_c, train_c = saved_run_configs("r2flowloss_train", root, n_epochs=2)
-    summary = variant_train(counts, "flowloss train", model_c, train_c, VARIANT_CORPUS, 2, 610)
-    share = summary["Controls/FlooredShare/Train"]  # of the last epoch
-    n_train = summary["train_steps"] // 2 * train_c.minibatch_size
-    print(f"[flowloss train path] Controls/BackpropLoss {summary['Controls/BackpropLoss/Train']}"
-          f" (train), {summary['Controls/BackpropLoss/Valid']} (valid); items at the -1e8 floor:"
-          f" {share * n_train:.0f} of {n_train} trained ({share:.1%}), "
-          f"{summary['Controls/FlooredShare/Valid']:.1%} of validation", flush=True)
+    # ---- FlowParamsLoss, the pullback in train mode, then in eval mode on
+    # the running statistics from before the step (cut corpus)
+    for mode in ("train", "eval"):
+        model_c, train_c = saved_run_configs(f"r2flowloss_{mode}", root, n_epochs=2)
+        if train_c.flow_loss_bn_mode != mode:
+            raise AssertionError(f"r2flowloss_{mode}: flow_loss_bn_mode "
+                                 f"{train_c.flow_loss_bn_mode!r}")
+        summary = variant_train(counts, f"flowloss {mode}", model_c, train_c, VARIANT_CORPUS, 2,
+                                610)
+        print_floored(f"flowloss {mode}", summary, train_c)
 
     # ---- the MLP head, dim_z 256 (cut corpus)
     model_c, train_c = saved_run_configs("r2mlp400", root, n_epochs=2)
@@ -2328,7 +2350,89 @@ def phase_variant_paths(root: str):
     summary = variant_train(counts, "basic_maf train", model_c, train_c, VARIANT_CORPUS, 2, 610)
     print(f"[basic_maf train path] LatLoss (Dkl) {summary['LatLoss/Train']} (train), "
           f"{summary['LatLoss/Valid']} (valid)", flush=True)
+
+    # ---- the MAF head with FlowParamsLoss, which needs the latent flow
+    # (BasicVAE has none to pull back through): the head maps z_K -> v by
+    # the MAF's inverse (regression.py:121-124), 610 MADE passes a layer in
+    # every forward, and pulls the target back by its one-pass forward. The
+    # losses are gated finite; the monitors of v (QLoss, accuracy) are not:
+    # on the train-mode z_K of a model 2 epochs from its init the inverse's
+    # passes can leave f32's range, in the JAX package too
+    # (tests/test_torch_port_variants.py::test_maf_inverse_overflows_where_the_jax_one_does)
+    model_c, train_c = saved_run_configs(
+        "r2flowloss_train", root, dict(run_name="smoke_maf_flowloss",
+                                       params_regression_architecture="flow_maf_6l300"),
+        n_epochs=2)
+    summary = variant_train(counts, "maf flowloss", model_c, train_c, VARIANT_CORPUS, 2, 610,
+                            finite=LOSS_KEYS)
+    print_floored("maf flowloss", summary, train_c)
+    maf_inverse_check(model_c, train_c)
     return counts
+
+
+def print_floored(name: str, summary: dict, train_c):
+    """The FlowParamsLoss scalars of a flow-loss path's last epoch and its
+    share of items at the -1e8 floor."""
+    share = summary["Controls/FlooredShare/Train"]
+    n_train = summary["train_steps"] // 2 * train_c.minibatch_size
+    print(f"[{name} path] flow_loss_bn_mode {train_c.flow_loss_bn_mode!r}, "
+          f"Controls/BackpropLoss {summary['Controls/BackpropLoss/Train']} (train), "
+          f"{summary['Controls/BackpropLoss/Valid']} (valid); items at the -1e8 floor: "
+          f"{share * n_train:.0f} of {n_train} trained ({share:.1%}), "
+          f"{summary['Controls/FlooredShare/Valid']:.1%} of validation", flush=True)
+
+
+MAF_INVERSE_BAR = 1e-4  # max |inverse(forward(x)) - x| over max(1, max |x|), float32
+MAF_INVERSE_ROWS = 160
+
+
+def maf_inverse_check(model_c, train_c):
+    """The trained MAF head's flow from the path's last checkpoint, in eval
+    mode and float32 on the card: ``inverse(forward(x))`` against ``x`` on a
+    seeded batch of ``MAF_INVERSE_ROWS`` rows (the forward is one MADE pass a
+    layer, the inverse ``features`` passes a layer), the log-determinants
+    against each other's negation, and the inverse's device time a call by
+    CUDA events."""
+    from preset_gen_vae_tpu_torch.logs.logger import load_checkpoint
+    from preset_gen_vae_tpu_torch.models.flows import MaskedAffineAutoregressive, \
+        RegressionFlow
+
+    arch = model_c.params_regression_architecture.replace("flow_", "")
+    flow = RegressionFlow(arch, model_c.dim_z, train_c.reg_fc_dropout)
+    prefix = "reg_model.flow."
+    state = load_checkpoint(model_c)["state"]["model"]
+    flow.load_state_dict({k[len(prefix):]: t for k, t in state.items() if k.startswith(prefix)})
+    flow = flow.cuda().eval()
+    mafs = [m for m in flow.modules() if isinstance(m, MaskedAffineAutoregressive)]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((MAF_INVERSE_ROWS, model_c.dim_z), device="cuda", generator=g)
+    with torch.no_grad():
+        y, logdet = flow.forward(x)
+        back, inv_logdet = flow.inverse(y)
+        ms = [cuda_ms(lambda a: flow.inverse(a), [y], reps=1) for _ in range(3)]
+        graph = torch.cuda.CUDAGraph()  # the same call replayed: the device's time alone
+        with torch.cuda.graph(graph):
+            replayed, _ = flow.inverse(y)
+        replay_ms = cuda_ms(lambda _: graph.replay(), [None], reps=3)
+    torch.cuda.synchronize()
+    err = float((back - x).abs().max()) / max(1.0, float(x.abs().max()))
+    ld_err = float((logdet + inv_logdet).abs().max()) / max(1.0, float(logdet.abs().max()))
+    passes = sum(m.features for m in mafs)
+    print(f"[maf flowloss inverse] {card_line()}: {len(mafs)} MAF layers, {passes} MADE "
+          f"passes an inverse on ({MAF_INVERSE_ROWS}, {model_c.dim_z}) float32, checkpoint "
+          f"weights; max |inverse(forward(x)) - x| / max(1, max |x|) {err:.3e} (bar "
+          f"{MAF_INVERSE_BAR:.0e}), log-determinants {ld_err:.3e} apart; inverse "
+          f"{json.dumps([round(t, 3) for t in ms])} ms a call eagerly (CUDA events, 3 calls; "
+          f"the stream waits on the host's launches), {replay_ms:.3f} ms a replay of its CUDA "
+          f"graph ({replay_ms / passes * 1e3:.1f} us a MADE pass; replayed output "
+          f"{'bit-equal to' if torch.equal(replayed, back) else 'differs from'} the eager "
+          f"call's)", flush=True)
+    if not (err <= MAF_INVERSE_BAR and ld_err <= MAF_INVERSE_BAR):
+        raise AssertionError(f"MAF inverse: {err:.3e} from x, log-determinants {ld_err:.3e} "
+                             f"apart (bar {MAF_INVERSE_BAR})")
+    SUMMARY.append({"path": "maf inverse", "inverse_ms": min(ms),
+                    "inverse_replay_ms": replay_ms, "made_passes": passes, "max_rel_err": err,
+                    "launches": {}})
 
 
 EXAMPLE_BANK = pathlib.Path(__file__).resolve().parent / "docs" / "examples" / "structured2_bank.syx"

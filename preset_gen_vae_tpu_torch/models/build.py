@@ -44,6 +44,10 @@ def build_extended_ae_model(model_config: ModelConfig, train_config: TrainConfig
                                  tuple(model_config.spectrogram_size), channels,
                                  train_config.fc_dropout, force_bigger)
     if model_config.latent_flow_arch is None:
+        if not model_config.forward_controls_loss:
+            raise ValueError("FlowParamsLoss (forward_controls_loss=False) pulls the target back "
+                             "through the latent flow's inverse: BasicVAE has no latent flow "
+                             "(extended_ae.py:45-47)")
         ae_model = BasicVAE(encoder, decoder, model_config.dim_z)
     else:
         ae_model = FlowVAE(encoder, decoder, model_config.dim_z, model_config.latent_flow_arch,

@@ -4,7 +4,7 @@ package's ``saved/FlVAE2/r5stack6_v2_8192/`` and ``r5multi6_v2_8192/``.
 Counterpart of ``scripts/run_6note_r5.py``.
 
     python -m preset_gen_vae_tpu_torch.scripts.run_6note {stack,multi} [n_presets] [epochs] \\
-        [--resume] [--device cuda] [--data-root DIR] [--logs-root saved]
+        [--seed 0] [--resume] [--device cuda] [--data-root DIR] [--logs-root saved]
 
 The protocol is the JAX script's: ``n_presets`` (8,192) ``structured2``
 presets from seed 0 at the notes ``NOTES_6``, the corpus rendered on the
@@ -22,8 +22,11 @@ default re-render, on the same dataset.
 
 The run is ``FlVAE2/torch_{mode}6_v2_<n_presets>``, never a JAX run's name:
 a new run erases its directory, and the JAX package's runs are the
-yardsticks. ``--resume`` and the printed lines are those of
-``run_stack3_v2``, whose protocol body this script runs. The JAX script's
+yardsticks. ``--seed`` (``TrainConfig.seed``, 0 as in the JAX script's
+runs) measures the protocol's spread over seeds; another seed's run is
+``..._seed<k>``. The corpus is the same for every seed. ``--resume`` and
+the printed lines are those of ``run_stack3_v2``, whose protocol body
+this script runs. The JAX script's
 ``--no-eval`` is not ported: it kept its evaluation off a 15.75 GB
 accelerator, and the 80 GB card holds the corpus, the training's remnants
 and the re-render together. Its accelerator lock and compile cache have no
@@ -44,24 +47,28 @@ MODES = ("stack", "multi")
 NOTES_6 = ((40, 85), (50, 85), (60, 42), (60, 85), (60, 127), (70, 85))
 
 
-def run_configs(mode: str, n_presets: int, epochs: int, logs_root: str = "saved"
-                ) -> Tuple[cfg.ModelConfig, cfg.TrainConfig]:
+def run_configs(mode: str, n_presets: int, epochs: int, logs_root: str = "saved",
+                seed: int = 0) -> Tuple[cfg.ModelConfig, cfg.TrainConfig]:
     """The JAX script's configs, under the port's run name."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
+    run_name = f"{RUN_PREFIX.format(mode=mode)}{n_presets}" + (f"_seed{seed}" if seed else "")
     model_c = cfg.ModelConfig(
-        run_name=f"{RUN_PREFIX.format(mode=mode)}{n_presets}", midi_notes=NOTES_6,
+        run_name=run_name, midi_notes=NOTES_6,
         stack_spectrograms=(mode == "stack"), dataset_corpus_render_backend="jax",
         dataset_corpus_cache_policy="device", logs_root_dir=logs_root)
-    train_c = cfg.TrainConfig(n_epochs=epochs, save_period=max(epochs // 2, 1), verbosity=0)
+    train_c = cfg.TrainConfig(n_epochs=epochs, save_period=max(epochs // 2, 1), verbosity=0,
+                              seed=seed)
     return model_c, train_c
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="Train and evaluate the six-note family")
     ap.add_argument("mode", choices=MODES)
+    ap.add_argument("--seed", type=int, default=0, help="TrainConfig.seed")
     args = protocol_options(ap).parse_args(argv)
-    model_c, train_c = run_configs(args.mode, args.n_presets, args.epochs, args.logs_root)
+    model_c, train_c = run_configs(args.mode, args.n_presets, args.epochs, args.logs_root,
+                                   args.seed)
     return run_protocol(args, model_c, train_c, {"mode": args.mode})
 
 

@@ -24,7 +24,8 @@ device.
 
 Prints one JSON line per phase (``corpus``, ``train``, ``eval``) and, last,
 one line with the JAX script's keys, the card's name and power limit, the
-peak device memory and the kernels' launches by phase.
+peak device memory and the kernels' launches by phase. ``run_protocol`` is
+also the six-note protocol's body (``run_6note.py``).
 """
 
 from __future__ import annotations

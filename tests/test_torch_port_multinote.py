@@ -1,6 +1,7 @@
 """The port's multi-note models and datasets against the JAX package's:
-stacked notes as channels (the repo's best run, ``r5stack3_v2_20480``) and
-un-stacked notes with MIDI pitch and velocity in z0 (``r5multi6_v2_12288``).
+stacked notes as channels (the repo's best run, ``r5stack3_v2_20480``, and
+the reference's six notes, ``r5stack6_v2_8192``) and un-stacked notes with
+MIDI pitch and velocity in z0 (``r5multi6_v2_12288``).
 
 - Dataset: ``corpus_tensors`` of both packages on the same 8-preset, 3-note
   corpus; v and info exactly, x within K1's plain-version bar (0.05 dB,
@@ -10,8 +11,8 @@ un-stacked notes with MIDI pitch and velocity in z0 (``r5multi6_v2_12288``).
 - Model: the eval-mode ``forward_full`` from the same weights at rtol 1e-4 /
   atol 2e-4 (the bar of tests/test_torch_port_model.py), and the exported
   flax tree against the JAX model's own init structure.
-- One train step of the stacked model in train mode, at the bars of
-  tests/test_torch_port_train.py: the shared per-channel CNN normalises
+- One train step of the stacked model in train mode, at three and at six
+  notes, at the bars of tests/test_torch_port_train.py: the shared per-channel CNN normalises
   each channel with its own batch statistics and chains C running-statistic
   updates, which the BN check after the step would catch if the channels
   were folded into the batch.
@@ -50,7 +51,8 @@ from test_torch_port_train import (
 )
 
 NOTES3 = ((40, 85), (50, 85), (60, 85))  # r5stack3_v2_20480
-NOTES6 = ((40, 85), (50, 85), (60, 42), (60, 85), (60, 127), (70, 85))  # r5multi6_v2_12288
+# r5multi6_v2_12288, r5stack6_v2_8192
+NOTES6 = ((40, 85), (50, 85), (60, 42), (60, 85), (60, 127), (70, 85))
 FLOWS = dict(latent_flow_arch="realnvp_3l300", params_regression_architecture="flow_realnvp_3l300")
 E2E_FLOWS = dict(latent_flow_arch="realnvp_2l300",
                  params_regression_architecture="flow_realnvp_2l300")
@@ -59,6 +61,8 @@ CONFIGS = {
     "stack3_mix8": dict(midi_notes=NOTES3, stack_spectrograms=True,
                         stack_specs_deepest_features_mix=True, **FLOWS),
     "multi6_midi_z0": dict(midi_notes=NOTES6, **FLOWS),
+    # six channels' features concatenated before mix7 (encoder.py:165-188 there)
+    "stack6_mix7": dict(midi_notes=NOTES6, stack_spectrograms=True, **FLOWS),
 }
 OUTPUTS = ("z0_mu_logvar", "z0", "zK", "logdet", "x_out", "v_out")
 
@@ -146,14 +150,18 @@ def test_eval_forward_matches_jax(pair):
     name, (port, ext, jvars, (pm, _), _, helper, _, x, v, info) = pair
     outs, touts = eval_forward_both(port, ext, jvars, x, info)
     assert_outputs_match(outs, touts)
-    C = 3 if name.startswith("stack3") else 1
+    C = {"stack3": 3, "stack6": 6}.get(name[:6], 1)
     assert touts[4].shape == (B, C, 257, 347) and touts[5].shape == (B, 610)
     mixers = {"stack3_mix7": ["mix7", "mix8"], "stack3_mix8": ["mix8"],
-              "multi6_midi_z0": ["mix7", "mix8"]}[name]
+              "multi6_midi_z0": ["mix7", "mix8"], "stack6_mix7": ["mix7", "mix8"]}[name]
     enc = port.ae_model.encoder
     assert enc.mixers == mixers
-    widths = {"stack3_mix7": (768, 1024), "stack3_mix8": (1024,), "multi6_midi_z0": (1800, 2048)}
+    widths = {"stack3_mix7": (768, 1024), "stack3_mix8": (1024,), "multi6_midi_z0": (1800, 2048),
+              "stack6_mix7": (768, 1024)}
     assert tuple(getattr(enc, m).Conv_0.out_channels for m in mixers) == widths[name]
+    # mix7 (or mix8 alone) reads the C channels' concatenated features
+    first = getattr(enc, mixers[0]).Conv_0
+    assert first.in_channels == C * enc.single_ch_cnn.out_ch
     dec = port.ae_model.decoder
     assert dec.unmix1.TorchConvTranspose2d_0.out_channels == C * dec.last_4x4_ch
 
@@ -219,6 +227,25 @@ def test_stacked_train_step_gradients_align_with_jax(stepped_stack3):
 
 def test_stacked_batch_stats_after_step_match_jax(stepped_stack3):
     assert_batch_stats_match(stepped_stack3, min_stats=50)  # 60 with 2-layer flows
+
+
+@pytest.fixture(scope="module")
+def stepped_stack6():
+    # six notes through the shared CNN, mix7 on their 6 x 512 features;
+    # 2-layer flows as above, 257x347 and the mixers' widths kept
+    return step_both({}, dict(CONFIGS["stack6_mix7"], **E2E_FLOWS))
+
+
+def test_stack6_train_step_loss_terms_match_jax(stepped_stack6):
+    assert_loss_terms_match(stepped_stack6)
+
+
+def test_stack6_train_step_gradients_align_with_jax(stepped_stack6):
+    assert_gradients_align(stepped_stack6)
+
+
+def test_stack6_batch_stats_after_step_match_jax(stepped_stack6):
+    assert_batch_stats_match(stepped_stack6, min_stats=50)
 
 
 # ---------------------------------------------------------------- end to end

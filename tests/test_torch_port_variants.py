@@ -101,6 +101,11 @@ def test_builder_refuses_what_the_jax_package_cannot_run():
                        tc)[0]
     with pytest.raises(ValueError, match="latent flow"):
         build_extended_ae_model(midi, tc, helper)
+    pullback = cfg.resolve(cfg.ModelConfig(latent_flow_arch=None, forward_controls_loss=False,
+                                           params_regression_architecture="flow_maf_2l300"),
+                           tc)[0]
+    with pytest.raises(ValueError, match="latent flow"):
+        build_extended_ae_model(pullback, tc, helper)
 
 
 # ---------------------------------------------------------------- MAF
@@ -143,6 +148,29 @@ def test_maf_flows_match_jax_both_directions(kind):
             y, ld = getattr(port, direction)(torch.from_numpy(x))
         np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-4, atol=2e-4)
         np.testing.assert_allclose(ld.numpy(), np.asarray(jld), rtol=1e-4, atol=2e-4)
+
+
+
+def test_maf_inverse_overflows_where_the_jax_one_does():
+    """The MAF regression head's inverse at full width (``maf_6l300``, 610
+    features, the same weights): equal to the JAX package's on unit-scale
+    inputs, and on inputs 10x larger its 6 x 610 sequential passes leave
+    f32's range on the same rows in both packages, so a non-finite z_K -> v
+    (the head's direction under FlowParamsLoss) is the reference's too."""
+    port, jflow = RegressionFlow("maf_6l300", 610), jflows.RegressionFlow("maf_6l300", 610)
+    port, jvars = _maf_pair(port, jflow)
+    port.eval()
+    rng = np.random.default_rng(1)
+    for scale, blown in ((1.0, False), (10.0, True)):
+        x = (rng.standard_normal((4, 610)) * scale).astype(np.float32)
+        jy, _ = jflow.apply(jvars, jnp.asarray(x), train=False, method="inverse")
+        with torch.no_grad():
+            y, _ = port.inverse(torch.from_numpy(x))
+        jy, y = np.asarray(jy), y.numpy()
+        np.testing.assert_array_equal(np.isfinite(y).all(1), np.isfinite(jy).all(1))
+        assert (~np.isfinite(y).all(1)).all() if blown else np.isfinite(y).all()
+        if not blown:
+            np.testing.assert_allclose(y, jy, rtol=1e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("flow_cls", [LatentFlow, RegressionFlow])
@@ -265,16 +293,19 @@ def test_flow_params_loss_guard_floors_blown_up_items():
 
 
 # ---------------------------------------------------------------- end to end
-@pytest.mark.parametrize("name", ["flowloss", "mlp"])
+@pytest.mark.parametrize("name", ["flowloss", "mlp", "maf_flowloss"])
 def test_variant_trains_and_evaluates_on_cpu(tmp_path, name):
     """One epoch of a variant through ``train_config`` on a small corpus;
-    the FlowParamsLoss run reports its floored share, and the MLP run is
-    evaluated from its run dir (the eval steps of BasicVAE and
+    the FlowParamsLoss runs report their floored share (with a MAF head,
+    whose z_K -> v direction is its inverse in every forward), and the MLP
+    run is evaluated from its run dir (the eval steps of BasicVAE and
     FlowParamsLoss are held against the JAX package above)."""
     model_kw = {"flowloss": dict(forward_controls_loss=False, latent_flow_arch="realnvp_2l300",
                                  params_regression_architecture="flow_realnvp_3l300"),
                 "mlp": dict(params_regression_architecture="mlp_3l1024", dim_z=256,
-                            latent_flow_arch="realnvp_2l300")}[name]
+                            latent_flow_arch="realnvp_2l300"),
+                "maf_flowloss": dict(forward_controls_loss=False, latent_flow_arch="realnvp_2l300",
+                                     params_regression_architecture="flow_maf_2l300")}[name]
     model_c = cfg.ModelConfig(dataset_synth_args=(None, (1, 2)), logs_root_dir=str(tmp_path),
                               run_name=name, **model_kw)
     kw = {"n_synthetic_presets": 12}
@@ -283,8 +314,8 @@ def test_variant_trains_and_evaluates_on_cpu(tmp_path, name):
     assert summary["train_steps"] == 1
     vals = {k: v for k, v in summary.items() if isinstance(v, float)}
     assert all(np.isfinite(list(vals.values()))), vals
-    assert (f"{ts.FLOORED}/Train" in summary) is (name == "flowloss")
-    if name == "flowloss":
+    assert (f"{ts.FLOORED}/Train" in summary) is name.endswith("flowloss")
+    if name.endswith("flowloss"):
         assert 0.0 <= summary[f"{ts.FLOORED}/Train"] <= 1.0
     if name == "mlp":
         means = ev.evaluate_model_from_dir(summary["run_dir"],
