@@ -25,7 +25,9 @@ device.
 Prints one JSON line per phase (``corpus``, ``train``, ``eval``) and, last,
 one line with the JAX script's keys, the card's name and power limit, the
 peak device memory and the kernels' launches by phase. ``run_protocol`` is
-also the six-note protocol's body (``run_6note.py``).
+also the body of the six-note protocol (``run_6note.py``), of the
+default-config style comparison (``compare_corpus_styles.py``) and of the
+FlowParamsLoss runs (``run_flowloss.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import dataclasses
 import json
 import subprocess
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -90,11 +92,14 @@ def _print(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def protocol_options(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The protocol's arguments after the caller's own: ``n_presets``,
-    ``epochs``, ``--resume`` and the paths and device."""
-    ap.add_argument("n_presets", nargs="?", type=int, default=8192)
-    ap.add_argument("epochs", nargs="?", type=int, default=400)
+def protocol_options(ap: argparse.ArgumentParser, positional: bool = True
+                     ) -> argparse.ArgumentParser:
+    """The protocol's arguments after the caller's own: ``n_presets`` and
+    ``epochs`` (unless the caller names them itself), ``--resume`` and the
+    paths and device."""
+    if positional:
+        ap.add_argument("n_presets", nargs="?", type=int, default=8192)
+        ap.add_argument("epochs", nargs="?", type=int, default=400)
     ap.add_argument("--resume", action="store_true",
                     help="restart from the run's last checkpoint")
     ap.add_argument("--data-root", default=None,
@@ -104,19 +109,42 @@ def protocol_options(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return ap
 
 
-def run_protocol(args: argparse.Namespace, model_c: cfg.ModelConfig, train_c: cfg.TrainConfig,
-                 tags: dict) -> dict:
-    """The quality protocol on ``args`` (``protocol_options``): the corpus
-    pass once, training (or its resume), then the last checkpoint evaluated
-    on the validation split of the same dataset. Prints a JSON line per
-    phase and, last, the run's line, ``tags`` after its ``midi_notes``.
-    ``prepare_dataset``, ``train_config`` and ``evaluate_model`` are this
-    module's names, whichever script calls."""
+def corpus_phase(args: argparse.Namespace, model_c: cfg.ModelConfig, train_c: cfg.TrainConfig,
+                 style: str = STYLE):
+    """The corpus pass of ``args.n_presets`` presets of ``style``, once for
+    every training and evaluation on it; prints its JSON line and returns
+    (dataset, wall s, launches)."""
     dev = resolve_device(args.device)
-    n = args.n_presets
-    dataset_kwargs = {"n_synthetic_presets": n, "synthetic_style": STYLE}
+    dataset_kwargs = {"n_synthetic_presets": args.n_presets, "synthetic_style": style}
     if args.data_root:
         dataset_kwargs["data_root"] = args.data_root
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    before, t0 = launches(), time.time()
+    _, _, dataset = prepare_dataset(*cfg.resolve(model_c, train_c), dev, None, dataset_kwargs)
+    dataset.load_corpus()  # else the loop's first gather renders it
+    corpus_s, by_phase = time.time() - t0, _since(before)
+    _print("corpus", wall_s=corpus_s, pass_s=dataset.corpus_seconds,
+           render_s=dataset.render_seconds, presets=dataset.valid_presets_count,
+           peak_gib=_peak_gib(dev), launches=by_phase)
+    return dataset, corpus_s, by_phase
+
+
+def run_protocol(args: argparse.Namespace, model_c: cfg.ModelConfig, train_c: cfg.TrainConfig,
+                 tags: dict, style: str = STYLE, dataset=None, render_audio: bool = True,
+                 phase_tags: Optional[dict] = None, record: Optional[dict] = None) -> dict:
+    """The quality protocol on ``args`` (``protocol_options``): the corpus
+    pass once (unless ``dataset`` holds one already), training (or its
+    resume), then the last checkpoint evaluated on the validation split of
+    the same dataset, re-rendering unless ``render_audio`` is False. Prints
+    a JSON line per phase, ``phase_tags`` first in the training's and the
+    evaluation's, and, last, the run's line, ``tags`` after its
+    ``midi_notes``; ``record``, if given, receives the training's summary
+    and the evaluation's as ``train`` and ``eval``. ``prepare_dataset``,
+    ``train_config`` and ``evaluate_model`` are this module's names,
+    whichever script calls."""
+    dev = resolve_device(args.device)
+    phase_tags = phase_tags or {}
 
     train_needed = True
     if args.resume:  # raises FileNotFoundError where the run has no checkpoint
@@ -126,17 +154,11 @@ def run_protocol(args: argparse.Namespace, model_c: cfg.ModelConfig, train_c: cf
                             or last["scheduler"]["lr"] < train_r.early_stop_lr_threshold)
         train_c = dataclasses.replace(train_c, start_epoch=last["epoch"] + 1)
 
-    # the corpus pass, once for the training and the evaluation
-    by_phase = {}
-    if dev.type == "cuda":
+    by_phase, corpus_s = {}, 0.0
+    if dataset is None:
+        dataset, corpus_s, by_phase["corpus"] = corpus_phase(args, model_c, train_c, style)
+    elif dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    before, t0 = launches(), time.time()
-    _, _, dataset = prepare_dataset(*cfg.resolve(model_c, train_c), dev, None, dataset_kwargs)
-    dataset.load_corpus()  # else the loop's first gather renders it
-    corpus_s, by_phase["corpus"] = time.time() - t0, _since(before)
-    _print("corpus", wall_s=corpus_s, pass_s=dataset.corpus_seconds,
-           render_s=dataset.render_seconds, presets=dataset.valid_presets_count,
-           peak_gib=_peak_gib(dev), launches=by_phase["corpus"])
 
     summary, train_s = {}, 0.0
     if train_needed:
@@ -144,20 +166,23 @@ def run_protocol(args: argparse.Namespace, model_c: cfg.ModelConfig, train_c: cf
         summary = train_config(model_c, train_c, dataset=dataset, device=dev,
                                use_tensorboard=False)
         train_s, by_phase["train"] = time.time() - t0, _since(before)
-        _print("train", wall_s=train_s, **summary)
+        _print("train", **phase_tags, wall_s=train_s, **summary)
 
     ep = list_checkpoint_epochs(model_c)[-1]
     eval_c = cfg.EvalConfig(epoch=ep, dataset="validation", override_previous_eval=True)
     before, t0 = launches(), time.time()
     phases = {}
-    evaluate_model(model_c, train_c, eval_c, device=dev, dataset=dataset, phase_seconds=phases)
+    evaluate_model(model_c, train_c, eval_c, device=dev, dataset=dataset, phase_seconds=phases,
+                   **({} if render_audio else {"render_audio": False}))
     eval_s, by_phase["eval"] = time.time() - t0, _since(before)
     with open(get_run_dir(model_c) / "eval_validation_summary.json") as f:
         s = json.load(f)
-    _print("eval", epoch=ep, wall_s=eval_s, phase_seconds=phases, **s)
+    _print("eval", **phase_tags, epoch=ep, wall_s=eval_s, phase_seconds=phases, **s)
+    if record is not None:
+        record.update(train=summary, eval=s)
 
     out = {
-        "run": model_c.run_name, "n_presets": n, "style": STYLE,
+        "run": model_c.run_name, "n_presets": args.n_presets, "style": style,
         "midi_notes": len(model_c.midi_notes), **tags,
         "epochs_trained": summary.get("epochs_trained"),
         "train_wall_s": train_s, "eval_wall_s": eval_s, **s,
