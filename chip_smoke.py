@@ -107,7 +107,13 @@ process beside the twin's (``tp_resume``: every /Valid scalar within
 the train path with ``dataset_cache_device=False`` against the resident
 corpus, both eager: bit-equal in float32 (cuDNN's deterministic
 algorithms), a lower peak, and the bf16 host-fed step against the
-resident K=16 step. Each path prints
+resident K=16 step. Last, ``cli_protocols`` runs the flagship's own
+protocols through their ``main``: ``scripts.compare_corpus_styles`` on
+both corpus styles and ``scripts.run_flowloss`` in both inverse-BN
+modes, at 256 presets and 1 epoch on a data root of their own (three
+cold passes of 4 K1 each; the style runs' evals re-render through F1 and
+F2), each run's name, line keys, finite metrics and 41 validation items
+gated. Each path prints
 its wall time, launches of every kernel and peak memory, the training
 paths also their model build time, steady step, corpus and render
 seconds. Runs and caches live in a
@@ -117,8 +123,8 @@ Run from the repository root with one GPU:
 
     python3 chip_smoke.py
 
-It prints the card's name and power limit, one line per phase, the
-kernels' JSON line, a compact summary of every path and kernel, and as
+It prints the card's name and power limit, one line per phase, its
+total time, the kernels' JSON line, a compact summary of every path and kernel, and as
 its last line ``{"ok": true, "device": {...}}``; every printed line also
 goes to ``build/chip_smoke/output.txt`` and the kernels', summary's and
 last lines to ``build/chip_smoke/results.jsonl`` (``--out DIR`` moves
@@ -3261,6 +3267,94 @@ def phase_hostfed(root: str):
     return {"hostfed": counts}
 
 
+# ---- the flagship's own protocols (scripts/compare_corpus_styles.py,
+# scripts/run_flowloss.py), each through its main as a user calls it
+
+PROTOCOL_PRESETS = 256  # 4 chunks of 64 presets: 4 K1 a cold pass
+PROTOCOL_VALID = 41  # the port's validation split of 256 presets
+PROTOCOL_KEYS = {"style", "n_presets", "epochs_trained", "train_wall_s", "eval_wall_s",
+                 "n_items", "card", "peak_gib", "launches"}  # the JAX script's and ours
+PARAM_METRICS = ("num_eval_loss", "num_mae", "num_mae_dyn", "acc", "acc_dyn")
+
+
+def printed_lines(fn):
+    """``fn()`` with its standard output captured, then printed; -> (its
+    result, the JSON objects it printed)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    return result, [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def phase_cli_protocols(root: str):
+    """The two protocol scripts' ``main(argv)`` in this process on the card,
+    at 256 presets and 1 epoch, on a data root of their own ('cpp'/'disk'
+    cold): ``compare_corpus_styles`` for both styles (a cold pass each,
+    then training and the re-rendering eval, F1 and F2 once a style) and
+    ``run_flowloss`` (one cold pass for both BN modes, evals without a
+    render). Gates: each run's name and its line's keys, the corpus lines'
+    4 K1 each, the training summaries as every training path's, finite
+    metrics, 41 validation items in every eval, the comparison file."""
+    from preset_gen_vae_tpu_torch.scripts import compare_corpus_styles, run_flowloss
+
+    def argv(name):  # a data root of the script's own: the two share a corpus
+        return ["--n-presets", str(PROTOCOL_PRESETS), "--epochs", "1", "--logs-root", root,
+                "--data-root", fresh_corpus({}, root, f"cli_protocols_{name}")["data_root"]]
+    lines = {}
+
+    def body():
+        lines["cmp"] = printed_lines(lambda: compare_corpus_styles.main(argv("cmp")))[1]
+        lines["flowloss"] = printed_lines(lambda: run_flowloss.main(argv("flowloss")))[1]
+
+    _, counts, wall, peak = drive("cli_protocols", body, k1=3 * 4, fm=2)
+    corpus = [line for group in lines.values() for line in group if line.get("phase") == "corpus"]
+    trains = [line for group in lines.values() for line in group if line.get("phase") == "train"]
+    evals = [line for group in lines.values() for line in group if line.get("phase") == "eval"]
+    runs = [line for line in lines["cmp"] if "run" in line]
+    bad = []
+    if [c["launches"].get("logmel") for c in corpus] != [4, 4, 4]:
+        bad.append(f"K1 launches of the cold passes {[c['launches'] for c in corpus]}, want 4 "
+                   "each")
+    if [(r["run"], r["style"]) for r in runs] != [
+            (f"torch_cmp_{s}_{PROTOCOL_PRESETS}", s) for s in ("structured", "structured2")]:
+        bad.append(f"compare_corpus_styles runs {[(r['run'], r['style']) for r in runs]}")
+    for r in runs:
+        missing = PROTOCOL_KEYS - set(r)
+        if missing or r["n_items"] != PROTOCOL_VALID or not all(
+                np.isfinite(r[k]) for k in EVAL_METRICS):
+            bad.append(f"{r['run']}: missing keys {missing}, {r['n_items']} items, "
+                       f"{ {k: r[k] for k in EVAL_METRICS} }")
+    modes = [(line["bn_mode"], line["run"]) for line in lines["flowloss"] if "run" in line]
+    if modes != [(m, f"torch_flowloss_{m}") for m in ("train", "eval")] or \
+            [line.get("bn_mode") for line in trains[2:] + evals[2:]] != ["train", "eval"] * 2:
+        bad.append(f"run_flowloss runs {modes}")
+    for line in evals:
+        metrics = PARAM_METRICS + (() if "bn_mode" in line else EVAL_METRICS[5:])
+        if line["n_items"] != PROTOCOL_VALID or not all(np.isfinite(line[k]) for k in metrics):
+            bad.append(f"eval {line.get('bn_mode', '')}: {line['n_items']} items, "
+                       f"{ {k: line[k] for k in metrics} }")
+    if not (pathlib.Path(root) / run_flowloss.COMPARISON).is_file():
+        bad.append(f"no {run_flowloss.COMPARISON}")
+    if bad:
+        raise AssertionError("cli_protocols: " + "; ".join(bad))
+    for line in trains:
+        name = f"cli_protocols {line.get('bn_mode') or line['run_dir'].rsplit('/', 1)[-1]}"
+        check_train_summary(name, {k: v for k, v in line.items() if k != "phase"}, 1,
+                            graphs=(False, False), finite=LOSS_KEYS)
+    print(f"[cli_protocols path] {card_line()}: compare_corpus_styles (2 styles) and run_flowloss "
+          f"(2 BN modes) at {PROTOCOL_PRESETS} presets, 1 epoch: wall {wall:.2f} s, peak "
+          f"{peak:.3f} GiB, launches {json.dumps({k: n for k, n in counts.items() if n})}; "
+          f"step ms {[round(t['step_ms'], 2) for t in trains]}, train walls "
+          f"{[round(t['wall_s'], 2) for t in trains]} s, eval walls "
+          f"{[round(e['wall_s'], 2) for e in evals]} s, cold passes "
+          f"{[round(c['wall_s'], 2) for c in corpus]} s", flush=True)
+    return {"cli_protocols": counts}
+
+
 class Tee:
     """Standard output, also written line for line into a file."""
 
@@ -3299,6 +3393,7 @@ def main(argv=None) -> int:
                                          "chip_smoke"),
                     help="directory of output.txt (every line printed) and results.jsonl")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -3334,6 +3429,8 @@ def main(argv=None) -> int:
         counts.update(phase_tp_rows(root))
         counts.update(phase_tp_train(root, train_summary))
         counts.update(phase_hostfed(root))
+        # the flagship's own protocols, last
+        counts.update(phase_cli_protocols(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = [k1, *fm, f1b, f2b]
@@ -3350,6 +3447,8 @@ def main(argv=None) -> int:
     with open(out / "results.jsonl", "w") as f:
         for obj in ({"kernels": kernels}, {"summary": SUMMARY}, ok):
             f.write(json.dumps(obj) + "\n")
+    print(f"[smoke] total {time.perf_counter() - t_start:.1f} s from the start of main",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print_summary(kernels)
     print(json.dumps(ok), flush=True)

@@ -52,7 +52,8 @@ def run_configs(style: str, n_presets: int, epochs: int, logs_root: str = "saved
 
 
 def main(argv=None) -> List[dict]:
-    ap = argparse.ArgumentParser(description="Train and evaluate the flagship on each corpus style")
+    ap = argparse.ArgumentParser(
+        description="Train and evaluate the flagship on each corpus style")
     ap.add_argument("--n-presets", type=int, default=2048)
     ap.add_argument("--epochs", type=int, default=100)
     ap.add_argument("--styles", nargs="+", choices=STYLES, default=list(STYLES))

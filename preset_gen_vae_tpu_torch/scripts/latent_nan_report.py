@@ -2,11 +2,11 @@
 latent dimensions and the log-variances behind them.
 
     python -m preset_gen_vae_tpu_torch.scripts.latent_nan_report MODEL/RUN \\
-        [--n-presets N] [--style S] [--epoch -1] [--out report.npz] \\
+        [--n-presets N] [--style S] [--out report.npz] \\
         [--device cuda] [--data-root DIR] [--logs-root saved]
 
-The run's frozen ``config.json`` and checkpoint ``--epoch`` (the last by
-default) go through the validation split one padded batch at a time, with
+The run's frozen ``config.json`` and last checkpoint go through the
+validation split one padded batch at a time, with
 the training loop's own ``eval_step`` (eagerly, no graph), in the run's
 ``compute_dtype``. In eval mode z0 = mu, so each row's ``log q(z0)`` sums
 ``logvar + 0 / exp(logvar)`` over its latent dimensions: a dimension
@@ -17,13 +17,14 @@ batches' ``LatLoss`` and the loop's weighted mean.
 
 The ``.npz`` written to ``--out`` keeps what a CPU check against the JAX
 package needs without the checkpoint (the encoder's dense head alone is
-120 MB in float32): for the non-finite rows and for the first
-``--finite-rows`` finite ones, their items, ``sample_info``, the latent
-tensors ``z0_mu_logvar``, ``z0``, ``zK`` and ``log_abs_det_jac``; for the
-non-finite rows also the encoder head's input ``h`` and, for the latent
-dimensions at 0, the head's weight rows, bias and the output batch norm's
-parameters and running statistics, with the log-variances recomputed from
-them in float64. Prints one JSON line.
+120 MB in float32): for the non-finite rows, the finite rows with an
+``exp(logvar)`` at 0 or subnormal somewhere, and the first
+``FINITE_ROWS`` other finite ones, their items, ``sample_info``, the
+latent tensors ``z0_mu_logvar``, ``z0``, ``zK`` and ``log_abs_det_jac``
+and per-row latent loss; for the non-finite rows also the encoder head's
+input ``h`` and, for the latent dimensions at 0 or subnormal, the head's
+weight rows, bias and the output batch norm's parameters and running
+statistics. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -44,7 +45,11 @@ from ..ops.probability import gaussian_log_probability, standard_gaussian_log_pr
 from ..training.loop import prepare_dataset, valid_real_rows
 from ..training.train_step import Criteria, autocast, eval_step
 
-F32_TINY = float(np.finfo(np.float32).tiny)  # the least normal float32
+# the least normal float32. exp(logvar) is classed on the device: the host
+# process flushes subnormals once the C++ engine is loaded (it is built with
+# -ffast-math), so on the host a subnormal compares equal to 0
+F32_TINY = float(np.finfo(np.float32).tiny)
+FINITE_ROWS = 8  # finite rows kept in the .npz beside the non-finite ones
 
 
 def row_latent_loss(mu_logvar, z0, zK, logdet) -> torch.Tensor:
@@ -59,8 +64,6 @@ def main(argv=None) -> dict:
     ap.add_argument("run", metavar="MODEL/RUN")
     ap.add_argument("--n-presets", type=int, default=8192)
     ap.add_argument("--style", default="structured2")
-    ap.add_argument("--epoch", type=int, default=-1)
-    ap.add_argument("--finite-rows", type=int, default=8)
     ap.add_argument("--out", default=None, help="the .npz to write")
     ap.add_argument("--data-root", default=None)
     ap.add_argument("--logs-root", default="saved")
@@ -79,7 +82,7 @@ def main(argv=None) -> dict:
     helper = dataset.preset_indexes_helper
     loader = get_split_loaders(dataset, train_c)["validation"]
     model = build_extended_ae_model(model_c, train_c, helper).to(dev)
-    ckpt = load_checkpoint(model_c, args.epoch)
+    ckpt = load_checkpoint(model_c)
     model.load_state_dict(ckpt["state"]["model"])
     model.eval()
     criteria = Criteria(model_c, train_c, helper)
@@ -88,7 +91,7 @@ def main(argv=None) -> dict:
     hook = encoder.mlp_out.register_forward_hook(lambda m, i, o: heads.append(i[0].detach()))
 
     batch_lat, weights, rows = [], [], {k: [] for k in (
-        "item", "info", "mu_logvar", "var", "z0", "zK", "logdet", "h", "lat")}
+        "item", "info", "mu_logvar", "zero", "subnormal", "z0", "zK", "logdet", "h", "lat")}
     for i, sel in enumerate(loader.epoch_index_batches(0)):
         x, v, info = loader.gather(sel)
         heads.clear()
@@ -101,43 +104,35 @@ def main(argv=None) -> dict:
         mu_logvar, z0, zK, logdet = (t[:n].float() for t in outs[:4])
         rows["item"].append(np.asarray(sel[:n]))
         rows["info"].append(info[:n].cpu().numpy())
-        for k, t in (("mu_logvar", mu_logvar), ("var", torch.exp(mu_logvar[:, 1, :])),
-                     ("z0", z0), ("zK", zK), ("logdet", logdet), ("h", heads[-1][:n].float())):
+        var = torch.exp(mu_logvar[:, 1, :])  # compared on the device: see F32_TINY
+        for k, t in (("mu_logvar", mu_logvar), ("zero", var == 0),
+                     ("subnormal", (var > 0) & (var < F32_TINY)), ("z0", z0), ("zK", zK),
+                     ("logdet", logdet), ("h", heads[-1][:n].float())):
             rows[k].append(t.cpu().numpy())
         rows["lat"].append(row_latent_loss(mu_logvar, z0, zK, logdet).cpu().numpy())
     hook.remove()
     rows = {k: np.concatenate(v) for k, v in rows.items()}
 
-    logvar, var = rows["mu_logvar"][:, 1, :], rows["var"]  # exp(logvar) on the device
-    at_zero, subnormal = var == 0.0, (var > 0.0) & (var < F32_TINY)
+    logvar, at_zero, subnormal = rows["mu_logvar"][:, 1, :], rows["zero"], rows["subnormal"]
     bad = ~np.isfinite(rows["lat"])
-    with np.errstate(all="ignore"):  # each cell's term of log q(z0), as the formula sums it
-        cell = logvar + (rows["z0"] - rows["mu_logvar"][:, 0, :]) ** 2 / var
-    good = np.flatnonzero(~bad)[:args.finite_rows]
-    dims = np.flatnonzero(at_zero[bad].any(axis=0))
+    good = np.flatnonzero(~bad)[:FINITE_ROWS]
+    dims = np.flatnonzero((at_zero | subnormal).any(axis=0))  # exp(logvar) at its edge
     n_head = model.ae_model.concat_midi_to_z0 * 2  # MIDI dims come first in z0
     enc_dims = dims - n_head  # each dim's index in the encoder's output
     bn = encoder.lat_in_regularization if encoder.output_bn else None
     out_rows = encoder.mlp_out.weight.shape[0] // 2 + enc_dims  # the log-variance rows
 
-    def head64(h):  # the log-variances of ``dims``, recomputed in float64
-        w = encoder.mlp_out.weight.detach()[out_rows].double().cpu().numpy()
-        b = encoder.mlp_out.bias.detach()[out_rows].double().cpu().numpy()
-        y = h.astype(np.float64) @ w.T + b
-        if bn is not None:
-            rm, rv, g, be = (t.detach()[out_rows].double().cpu().numpy()
-                             for t in (bn.running_mean, bn.running_var, bn.weight, bn.bias))
-            y = (y - rm) / np.sqrt(rv + bn.eps) * g + be
-        return y
-
     sel = np.flatnonzero(bad)
+    edge = np.flatnonzero(~bad & (at_zero | subnormal).any(axis=1))  # finite, exp at its edge
     report = {
         "run": args.run, "epoch": int(ckpt["epoch"]), "n_items": int(len(rows["lat"])),
         "batches": len(batch_lat), "batch_lat_nan": int(np.sum(~np.isfinite(batch_lat))),
         "lat_valid": float(np.average(batch_lat, weights=weights)),
         "rows_nan": int(bad.sum()), "rows_with_zero_var": int(at_zero.any(axis=1).sum()),
         "rows_with_subnormal_var": int(subnormal.any(axis=1).sum()),
-        "dims_at_zero": dims.tolist(), "cells_at_zero": int(at_zero.sum()),
+        "dims_at_zero": np.flatnonzero(at_zero.any(axis=0)).tolist(),
+        "dims_subnormal": np.flatnonzero(subnormal.any(axis=0)).tolist(),
+        "cells_at_zero": int(at_zero.sum()),
         "cells_subnormal": int(subnormal.sum()),
         "logvar_min": float(logvar.min()), "logvar_max": float(logvar.max()),
         "logvar_at_zero": ([float(logvar[at_zero].min()), float(logvar[at_zero].max())]
@@ -145,21 +140,18 @@ def main(argv=None) -> dict:
         "logvar_subnormal": ([float(logvar[subnormal].min()), float(logvar[subnormal].max())]
                              if subnormal.any() else None),
         "rows_nan_items": rows["item"][sel].tolist(),
+        "rows_edge_items": rows["item"][edge].tolist(),
         "rows_nan_uid_pitch_vel": rows["info"][sel].tolist(),
         "lat_finite_mean": float(rows["lat"][~bad].mean()) if (~bad).any() else None,
-        "dims_nonfinite_logq": np.flatnonzero((~np.isfinite(cell[bad])).any(axis=0)).tolist(),
         "rows_nan_zK_nonfinite": int((~np.isfinite(rows["zK"][bad])).any(axis=1).sum()),
         "rows_nan_logdet_nonfinite": int((~np.isfinite(rows["logdet"][bad])).sum()),
     }
-    if len(sel) and len(dims):
-        lv64 = head64(rows["h"][sel])
-        report["logvar64_at_zero_dims"] = [float(lv64.min()), float(lv64.max())]
     if args.out:
-        keep = np.concatenate([sel, good])
+        keep = np.concatenate([sel, edge, good])
         payload = {k: rows[k][keep] for k in ("item", "info", "mu_logvar", "z0", "zK",
                                               "logdet", "lat")}
-        payload.update(n_bad=np.int64(len(sel)), dims=dims, h=rows["h"][sel],
-                       compute_dtype=np.array(train_c.compute_dtype))
+        payload.update(n_bad=np.int64(len(sel)), n_edge=np.int64(len(edge)), dims=dims,
+                       h=rows["h"][sel], compute_dtype=np.array(train_c.compute_dtype))
         if len(dims):
             payload["w"] = encoder.mlp_out.weight.detach()[out_rows].float().cpu().numpy()
             payload["b"] = encoder.mlp_out.bias.detach()[out_rows].float().cpu().numpy()

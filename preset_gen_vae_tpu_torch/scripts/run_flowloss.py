@@ -4,7 +4,8 @@ package's ``saved/FlVAE2/r2flowloss_train/`` and ``r2flowloss_eval/``.
 Counterpart of ``scripts/run_flowloss_r2.py``.
 
     python -m preset_gen_vae_tpu_torch.scripts.run_flowloss [--n-presets 2048] \\
-        [--epochs 150] [--resume] [--device cuda] [--data-root DIR] [--logs-root saved]
+        [--epochs 150] [--seed 0] [--resume] [--device cuda] [--data-root DIR] \\
+        [--logs-root saved]
 
 The configs are the JAX script's: ``ModelConfig(forward_controls_loss=False)``
 (the controls loss pulled back through the regression flow's inverse,
@@ -18,13 +19,15 @@ on the validation split with ``render_audio=False``. ``--n-presets`` and
 ``--epochs`` cut the protocol for a quick run; the saved runs are at the
 defaults. TensorBoard is off (the JAX script left it on).
 
-The runs are ``FlVAE2/torch_flowloss_<mode>``, never a JAX run's name.
+The runs are ``FlVAE2/torch_flowloss_<mode>`` (``..._seed<k>`` for
+another ``--seed``, ``TrainConfig.seed``; the corpus is the same for
+every seed), never a JAX run's name.
 Prints the corpus pass's JSON line, then per mode a ``train`` and an
 ``eval`` line with the JAX script's keys (``bn_mode`` first) and the run's
 line of ``run_stack3_v2``, whose protocol body this script runs; last,
 both modes' training and evaluation summaries go to
-``<logs-root>/torch_flowloss_comparison.json``. ``--resume`` is
-``run_stack3_v2``'s, for each mode.
+``<logs-root>/torch_flowloss_comparison.json`` (``..._seed<k>.json``).
+``--resume`` is ``run_stack3_v2``'s, for each mode.
 """
 
 from __future__ import annotations
@@ -45,14 +48,19 @@ STYLE = "structured"  # the dataset's default, which the JAX script keeps
 COMPARISON = "torch_flowloss_comparison.json"
 
 
-def run_configs(bn_mode: str, epochs: int = N_EPOCHS, logs_root: str = "saved"
-                ) -> Tuple[cfg.ModelConfig, cfg.TrainConfig]:
+def seed_suffix(seed: int) -> str:
+    return f"_seed{seed}" if seed else ""
+
+
+def run_configs(bn_mode: str, epochs: int = N_EPOCHS, logs_root: str = "saved",
+                seed: int = 0) -> Tuple[cfg.ModelConfig, cfg.TrainConfig]:
     """The JAX script's configs, under the port's run name."""
     if bn_mode not in BN_MODES:
         raise ValueError(f"flow_loss_bn_mode {bn_mode!r} is not one of {BN_MODES}")
-    model_c = cfg.ModelConfig(run_name=f"{RUN_PREFIX}{bn_mode}", forward_controls_loss=False,
-                              logs_root_dir=logs_root)
-    train_c = cfg.TrainConfig(n_epochs=epochs, save_period=50, flow_loss_bn_mode=bn_mode)
+    model_c = cfg.ModelConfig(run_name=f"{RUN_PREFIX}{bn_mode}{seed_suffix(seed)}",
+                              forward_controls_loss=False, logs_root_dir=logs_root)
+    train_c = cfg.TrainConfig(n_epochs=epochs, save_period=50, flow_loss_bn_mode=bn_mode,
+                              seed=seed)
     return model_c, train_c
 
 
@@ -60,17 +68,19 @@ def main(argv=None) -> Dict[str, dict]:
     ap = argparse.ArgumentParser(description="Train and evaluate FlowParamsLoss in both BN modes")
     ap.add_argument("--n-presets", type=int, default=N_PRESETS)
     ap.add_argument("--epochs", type=int, default=N_EPOCHS)
+    ap.add_argument("--seed", type=int, default=0, help="TrainConfig.seed")
     args = protocol_options(ap, positional=False).parse_args(argv)
     dataset, results = None, {}
     for bn_mode in BN_MODES:
-        model_c, train_c = run_configs(bn_mode, args.epochs, args.logs_root)
+        model_c, train_c = run_configs(bn_mode, args.epochs, args.logs_root, args.seed)
         if dataset is None:
             dataset = corpus_phase(args, model_c, train_c, STYLE)[0]
         record = {}
         run_protocol(args, model_c, train_c, {"bn_mode": bn_mode}, style=STYLE, dataset=dataset,
                      render_audio=False, phase_tags={"bn_mode": bn_mode}, record=record)
         results[bn_mode] = record
-    path = pathlib.Path(args.logs_root) / COMPARISON
+    path = pathlib.Path(args.logs_root) / COMPARISON.replace(".json",
+                                                             f"{seed_suffix(args.seed)}.json")
     path.parent.mkdir(parents=True, exist_ok=True)
     with open(path, "w") as f:
         json.dump(results, f, indent=2)

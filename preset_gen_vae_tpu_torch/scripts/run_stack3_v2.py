@@ -172,6 +172,7 @@ def run_protocol(args: argparse.Namespace, model_c: cfg.ModelConfig, train_c: cf
     eval_c = cfg.EvalConfig(epoch=ep, dataset="validation", override_previous_eval=True)
     before, t0 = launches(), time.time()
     phases = {}
+    # render_audio passed only when off: the other protocols' call stays as it was
     evaluate_model(model_c, train_c, eval_c, device=dev, dataset=dataset, phase_seconds=phases,
                    **({} if render_audio else {"render_audio": False}))
     eval_s, by_phase["eval"] = time.time() - t0, _since(before)

@@ -82,7 +82,8 @@ def test_every_module_imports_without_the_blocked_packages():
         "utils.figures", "utils.label", "parallel.multihost", "parallel.sharding_rules",
         "scripts.dump_figures",
         "scripts.clean_logs", "scripts.train_queue", "scripts.evaluate", "scripts.run_stack3_v2",
-        "scripts.run_6note", "training.loop", "training.dispatch")
+        "scripts.run_6note", "scripts.compare_corpus_styles", "scripts.run_flowloss",
+        "scripts.latent_nan_report", "training.loop", "training.dispatch")
     } <= set(modules)
     code = _GUARD.format(blocked=BLOCKED, modules=modules)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -97,8 +98,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from preset_gen_vae_tpu_torch.evaluation import evaluate as ev
     from preset_gen_vae_tpu_torch.evaluation.interpolate import interpolate_presets
     from preset_gen_vae_tpu_torch.evaluation.similarity import SimilarityEvaluator
-    from preset_gen_vae_tpu_torch.scripts import dump_figures, evaluate, preset_morph_demo, \
-        run_stack3_v2, sound_match_demo, train_from_syx, train_queue
+    from preset_gen_vae_tpu_torch.scripts import compare_corpus_styles, dump_figures, evaluate, \
+        latent_nan_report, preset_morph_demo, run_flowloss, run_stack3_v2, sound_match_demo, \
+        train_from_syx, train_queue
     from preset_gen_vae_tpu_torch.synth import database, sysex
     from preset_gen_vae_tpu_torch.training import loop
     from preset_gen_vae_tpu_torch.training.loop import train_config
@@ -120,6 +122,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         lambda: train_from_syx.main([str(bank), "--logs-root", str(tmp_path)]),
         lambda: sound_match_demo.main([]),
         lambda: dump_figures.main([str(tmp_path)]),
+        lambda: compare_corpus_styles.main(["--logs-root", str(tmp_path)]),
+        lambda: run_flowloss.main(["--logs-root", str(tmp_path)]),
+        lambda: latent_nan_report.main(["FlVAE2/none", "--logs-root", str(tmp_path)]),
         lambda: resolve_device(),
     ]
     # the command-line entry points: on the card by default, on the CPU

@@ -23,6 +23,7 @@ tests/test_torch_port_train.py, so the JAX compiles stay short.
 """
 
 import json
+import pathlib
 import tempfile
 
 import jax
@@ -33,16 +34,20 @@ import torch
 
 from preset_gen_vae_tpu.data.dexed_dataset import DexedDataset as JaxDexedDataset
 from preset_gen_vae_tpu.models import build as jbuild
+from preset_gen_vae_tpu import config as jcfg
+from preset_gen_vae_tpu.training.train_step import _latent_loss, create_train_state, make_eval_step
 from preset_gen_vae_tpu_torch import config as cfg
 from preset_gen_vae_tpu_torch.data.dexed_dataset import (
     DexedDataset,
     model_config_to_dataset_kwargs,
 )
 from preset_gen_vae_tpu_torch.evaluation import evaluate as ev
+from preset_gen_vae_tpu_torch.losses.vae_losses import flow_vae_latent_loss
 from preset_gen_vae_tpu_torch.models.encoder import SpectrogramEncoder
+from preset_gen_vae_tpu_torch.training import train_step as ts
 from preset_gen_vae_tpu_torch.training.loop import train_config
 from _torch_port_fixtures import isolated_data_root, two_torch_threads  # noqa: F401 (autouse)
-from test_torch_port_model import B, flagship_pair
+from test_torch_port_model import B, H, W, flagship_pair
 from test_torch_port_train import (
     assert_batch_stats_match,
     assert_gradients_align,
@@ -283,3 +288,116 @@ def test_train_and_evaluate_multi_note_on_cpu(tmp_path, stacked):
     if not stacked:  # z0 dims 0-1 of every item hold its own MIDI note
         want = -1.0 + 2.0 * np.stack([items["midi_pitch"], items["midi_velocity"]], 1) / 127.0
         np.testing.assert_allclose(latents["z0"][:, :2], want, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------- eval-mode 0/0
+def _split_logvar_dim(model, out: dict) -> None:
+    """Sets the encoder's output batch norm on one log-variance dimension so
+    that it splits ``flagship_pair``'s rows: the two rows lowest before the
+    norm get a log-variance far below float32's exp range (about -115),
+    where exp(logvar) is 0 and, with z0 = mu in eval mode, ``(z0 - mu)^2 /
+    exp(logvar)`` is 0/0; the two highest one inside it (above -76). The
+    dimension is the one whose middle gap between rows is widest. ``out``
+    receives the NaN rows."""
+    rng = np.random.default_rng(3)  # flagship_pair's x: its first draw
+    x = torch.from_numpy((rng.standard_normal((B, 1, H, W)) * 0.3).astype(np.float32))
+    enc = model.ae_model.encoder
+    seen = []
+    hook = enc.mlp_out.register_forward_hook(lambda m, i, o: seen.append(o.detach()))
+    enc.eval()
+    with torch.no_grad():
+        enc(x)
+    hook.remove()
+    half = enc.mlp_out.out_features // 2
+    y = np.sort(seen[0][:, half:].numpy(), axis=0)  # the log-variances, before the norm
+    d = int(np.argmax(y[B // 2] - y[B // 2 - 1]))
+    lo, hi = float(y[B // 2 - 1, d]), float(y[B // 2, d])
+    bn = enc.lat_in_regularization
+    with torch.no_grad():
+        bn.running_mean[half + d] = (lo + hi) / 2
+        bn.running_var[half + d] = 1.0 - bn.eps
+        bn.weight[half + d] = 40.0 / (hi - lo)
+        bn.bias[half + d] = -95.5
+    out["nan_rows"] = sorted(np.argsort(seen[0][:, half + d].numpy())[:B // 2].tolist())
+
+
+def test_eval_latent_loss_is_nan_on_the_same_rows_as_jax():
+    """The reference's own 0/0, found on ``torch_multi6_v2_8192``'s
+    validation split (``ROADMAP.md`` §3): in eval mode z0 = mu, so a row
+    whose log-variance leaves float32's exp range on some dimension has a
+    NaN latent loss, in the JAX package's eval step as in the port's. With
+    one dimension's output norm set to split the rows (MIDI in z0, the
+    multi6 layout), each row's eval step in both packages: NaN on the same
+    rows, the finite rows within 1e-5, and every other metric finite."""
+    split = {}
+    port, ext, jvars, (pm, pt), (jm, jt), helper, jhelper, x, v, info = flagship_pair(
+        model_kwargs=dict(CONFIGS["multi6_midi_z0"], **E2E_FLOWS),
+        adjust=lambda model: _split_logvar_dim(model, split))
+    jstep = jax.jit(make_eval_step(ext, jm, jt, jhelper))
+    state = create_train_state(ext, jvars, jt)
+    criteria = ts.Criteria(pm, pt, helper)
+    ours, theirs = [], []
+    for i in range(B):
+        row = slice(i, i + 1)
+        theirs.append(jax.device_get(jstep(state, jnp.asarray(x[row]), jnp.asarray(v[row]),
+                                           jnp.asarray(info[row]))))
+        ours.append(ts.eval_step(port, criteria, pt, torch.from_numpy(x[row]),
+                                 torch.from_numpy(v[row]), torch.from_numpy(info[row])))
+    lat = np.array([float(m["LatLoss"]) for m in ours])
+    jlat = np.array([float(m["LatLoss"]) for m in theirs])
+    assert np.flatnonzero(np.isnan(lat)).tolist() == split["nan_rows"]
+    assert np.flatnonzero(np.isnan(jlat)).tolist() == split["nan_rows"]
+    finite = ~np.isnan(jlat)
+    np.testing.assert_allclose(lat[finite], jlat[finite], rtol=1e-5, atol=1e-5)
+    for k in ("ReconsLoss/Backprop", "Controls/BackpropLoss", "Controls/Accuracy"):
+        assert all(np.isfinite(float(m[k])) for m in ours + theirs), k
+
+
+# rows of torch_multi6_v2_8192's validation split, written on the card by
+# preset_gen_vae_tpu_torch/scripts/latent_nan_report.py from the run's last
+# checkpoint (bf16 autocast; the checkpoint itself, 304 MB, stays off the repo)
+NAN_ROWS = pathlib.Path(__file__).resolve().parent / "data" / "torch_multi6_v2_8192_nan_rows.npz"
+F32_EXP_ZERO = -103.972  # float32 exp(x) rounds to 0 below this, subnormals kept or not
+
+
+def test_multi6_nan_rows_are_nan_in_the_jax_latent_loss():
+    """The rows whose validation latent loss the card computed NaN, and the
+    finite rows whose exp(logvar) is subnormal there (the card keeps
+    subnormals): the JAX package's eval-step latent loss
+    (``train_step._latent_loss``) on the card's latent tensors is NaN on
+    every NaN row, and on the subnormal rows too, since XLA on the CPU
+    flushes subnormals to 0 (as a TPU does); the port's formula on the CPU
+    is NaN where its own exp gives 0 (it keeps subnormals unless the C++
+    engine, built with -ffast-math, was loaded into the process). Every
+    finite value equals the card's within 1e-5. The NaN rows'
+    log-variances, recomputed by JAX from the encoder head's input, weights
+    and output norm, equal the card's within 1e-5 relative, and each NaN
+    row has one below float32's exp range."""
+    z = np.load(NAN_ROWS)
+    n_bad, n_edge = int(z["n_bad"]), int(z["n_edge"])
+    assert str(z["compute_dtype"]) == "bfloat16" and (n_bad, n_edge) == (3, 2)
+    jm, jt = jcfg.resolve(jcfg.ModelConfig(midi_notes=NOTES6), jcfg.TrainConfig())
+    theirs, ours, torch_zero = [], [], []
+    for i in range(len(z["lat"])):
+        row = [z[k][i:i + 1] for k in ("mu_logvar", "z0", "zK", "logdet")]
+        theirs.append(float(_latent_loss(jm, jt, *map(jnp.asarray, row))))
+        ours.append(float(flow_vae_latent_loss(*map(torch.from_numpy, row), normalize=True)))
+        torch_zero.append(bool((torch.exp(torch.from_numpy(row[0][:, 1])) == 0).any()))
+    theirs, ours, card = np.array(theirs), np.array(ours), z["lat"]
+    rows = np.arange(len(card))
+    bad, edge = rows < n_bad, (rows >= n_bad) & (rows < n_bad + n_edge)
+    assert (np.isnan(card) == bad).all()
+    assert (np.isnan(theirs) == (bad | edge)).all()  # JAX is NaN wherever the card is
+    assert (np.isnan(ours) == np.array(torch_zero)).all() and np.isnan(ours[bad]).all()
+    np.testing.assert_allclose(theirs[~(bad | edge)], card[~(bad | edge)], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ours[~np.isnan(ours)], card[~np.isnan(ours)], rtol=1e-5,
+                               atol=1e-5)
+    # the encoder head (mlp_out, then the output batch norm in eval mode)
+    y = jnp.dot(jnp.asarray(z["h"]), jnp.asarray(z["w"]).T,
+                precision=jax.lax.Precision.HIGHEST) + z["b"]
+    logvar = (y - z["bn_running_mean"]) * jax.lax.rsqrt(z["bn_running_var"] + 1e-5) \
+        * z["bn_weight"] + z["bn_bias"]
+    at_dims = z["mu_logvar"][:n_bad, 1][:, z["dims"]]
+    np.testing.assert_allclose(np.asarray(logvar), at_dims, rtol=1e-5)
+    assert (at_dims.min(axis=1) < F32_EXP_ZERO).all()
+    assert (z["mu_logvar"][n_bad:, 1].min(axis=1) > F32_EXP_ZERO).all()
