@@ -275,7 +275,7 @@ def test_validation_split_size_in_both_packages(n, n_valid, tmp_path):
 
 # fields the JAX package added after the JAX run was saved; the port's runs
 # hold each at its default, which is what the JAX run did without the field
-# (steps_per_dispatch 16 is bit-equal to stepping one at a time, PERF.md PR 14)
+# (K steps a dispatch train as one at a time: test_torch_port_dispatch.py)
 ADDED_LATER = {
     ("model", "dataset_corpus_render_backend"): "cpp",
     ("model", "dataset_corpus_cache_policy"): "disk",
