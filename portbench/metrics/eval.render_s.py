@@ -1,0 +1,9 @@
+"""eval.render_s: the render phase of an evaluation pass, in seconds, the mean
+over the window's passes (``evaluate_model``'s ``phase_seconds['render']``, each
+phase synchronised)."""
+
+
+def read(ctx):
+    if ctx.get("kind") != "eval":
+        return None
+    return ctx["phase_s"].get("render")
