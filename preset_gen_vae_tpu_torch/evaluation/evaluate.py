@@ -35,10 +35,10 @@ dict of numpy columns.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import pathlib
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -57,11 +57,15 @@ from ..synth import fm_torch
 from ..synth.render import engine_version
 from ..training.loop import prepare_dataset
 from ..training.train_step import autocast
+from ..utils.profile import Spans
 from .similarity import batched_audio_errors
 
 KEYS = ("preset_UID", "midi_pitch", "midi_velocity")
 PARAM_METRICS = ("num_eval_loss", "num_mae", "num_mae_dyn", "acc", "acc_dyn")
 AUDIO_METRICS = ("spec_mae", "spec_sc", "mfcc13_mae", "mfcc40_mae")
+# evaluate_model's phase_seconds: the phases, which cover the pass, then parts of them
+PHASES = ("dataset", "model", "inference", "render", "similarity", "artifacts",
+          "model.init", "model.load", "artifacts.spearman", "artifacts.write", "artifacts.means")
 
 
 def items_path(run_dir, split: str) -> pathlib.Path:
@@ -153,119 +157,145 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
                    latents: Optional[Dict[str, np.ndarray]] = None) -> Dict[str, np.ndarray]:
     """(reference: eval.py:65-243) Returns the per-UID means as numpy
     columns. ``phase_seconds``, if given, receives the wall seconds of each
-    phase: ``dataset`` (corpus pass), ``model`` (build and restore),
-    ``inference``, ``render``, ``similarity`` and ``artifacts``; ``latents`` receives the
-    ``z0`` and ``zK`` rows (N, dim_z) of the evaluated items, in the
-    order of the per-item table."""
+    phase, each a span of the pass (``utils/profile.py:Spans``), each
+    top-level phase ending in a synchronisation: ``dataset`` (config
+    resolution and the split loaders; a corpus pass where no dataset is
+    given), ``model`` (build and restore), ``inference``, ``render`` (the
+    re-render of each batch), ``similarity`` (the rest of the audio
+    scoring) and ``artifacts`` (the files and the per-UID means), which
+    cover the pass; and under dotted names, parts of a phase:
+    ``model.init`` (``build_extended_ae_model`` and the copy to the
+    device), ``model.load`` (``load_checkpoint``, ``load_state_dict`` and
+    ``eval()``), ``artifacts.spearman`` (the z0 and zK Spearman matrices),
+    ``artifacts.write`` (the npz, npy and json files) and ``artifacts.means``
+    (``per_uid_means``). Every key is there, 0.0 where its phase does not
+    run (``render`` and ``similarity`` without ``render_audio``; the files
+    where the run dir is missing). ``latents`` receives the ``z0`` and ``zK``
+    rows (N, dim_z) of the evaluated items, in the order of the per-item
+    table."""
     dev = resolve_device(device)
     if eval_config.audio_render_backend not in ("jax", "cpp"):
         raise ValueError(f"audio_render_backend={eval_config.audio_render_backend!r}")
-    times = {} if phase_seconds is None else phase_seconds
-    t0 = time.perf_counter()
+    spans = Spans(dev)
 
-    def lap(name):
-        nonlocal t0
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        times[name], t0 = time.perf_counter() - t0, time.perf_counter()
-
-    model_c, train_c = cfg.resolve(model_config, train_config)
-    model_c, train_c, dataset = prepare_dataset(model_c, train_c, dev, dataset, dataset_kwargs)
-    helper = dataset.preset_indexes_helper
-    loader = get_split_loaders(dataset, train_c)[eval_config.dataset]
-    lap("dataset")
-    model = build_extended_ae_model(model_c, train_c, helper).to(dev)
-    model.load_state_dict(load_checkpoint(model_c, eval_config.epoch)["state"]["model"])
-    model.eval()
-    lap("model")
-
-    # ---- batched inference and per-item parameter metrics (eval.py:135-176)
-    dynamic_idx = dx.midi_key_related_param_indexes()
-    criteria = {
-        "num_eval_loss": QuantizedNumericalParamsLoss(helper, loss="mse"),
-        "num_mae": QuantizedNumericalParamsLoss(helper, loss="mae"),
-        "num_mae_dyn": QuantizedNumericalParamsLoss(
-            helper, loss="mae", limited_vst_params_indexes=dynamic_idx),
-        "acc": CategoricalParamsAccuracy(helper),
-        "acc_dyn": CategoricalParamsAccuracy(helper, limited_vst_params_indexes=dynamic_idx),
-    }
-    cols = {k: [] for k in KEYS + PARAM_METRICS + ("z0", "zK", "v_out")}
-    bs = loader.batch_size
-    with torch.no_grad():
-        for i, sel in enumerate(loader.epoch_index_batches(0)):
-            n_real = min(bs, loader.n_items - i * bs)  # the rest pads the last batch
-            x, v, info = loader.gather(sel[:n_real])
-            with autocast(dev, train_c):
-                outs = model.forward_full(x, info)
-            v_out = outs[5].float()
-            cols["z0"].append(outs[0][:, 0, :].float())
-            cols["zK"].append(outs[2].float())
-            cols["v_out"].append(v_out)
-            for j, k in enumerate(KEYS):
-                cols[k].append(info[:, j])
-            for k, crit in criteria.items():
-                cols[k].append(crit.per_item(v_out, v))
-    cols = {k: torch.cat(c).cpu().numpy() for k, c in cols.items()}  # one fetch
-    lat = {}
-    for name in ("z0", "zK"):
-        lat[name] = LatentMetric(model_c.dim_z)
-        lat[name].append(cols[name], cols[name])
-    table = {k: cols[k] for k in KEYS + PARAM_METRICS}
-    if latents is not None:
-        latents.update(z0=cols["z0"], zK=cols["zK"])
-    lap("inference")
-
-    if render_audio:  # ---- re-render and score the audio (eval.py:211-323)
-        inferred = helper.learnable_to_full_batch(cols["v_out"])
-        pitch, vel = table["midi_pitch"], table["midi_velocity"]
-        errs = {k: [] for k in AUDIO_METRICS}
-        B = eval_config.audio_batch_size
-        render_s = 0.0
-        gt_cache = None
-        if eval_config.audio_render_backend == "cpp" and eval_config.cache_gt_audio:
-            t_r = time.perf_counter()
-            gt_cache = _gt_audio_cached(dataset, dataset.renderer,
-                                        np.stack([table[k] for k in KEYS], axis=1))
-            render_s += time.perf_counter() - t_r
-        for s in range(0, len(inferred), B):
-            t_r = time.perf_counter()
-            gt = np.stack([dataset.get_full_preset_params(u)
-                           for u in table["preset_UID"][s:s + B]])
-            gt, est = render_pairs(dataset, eval_config, gt, inferred[s:s + B],
-                                   pitch[s:s + B], vel[s:s + B], dev,
-                                   gt_audio=None if gt_cache is None
-                                   else np.array(gt_cache[s:s + B]))
+    @contextlib.contextmanager
+    def phase(name):
+        with spans.span(name):
+            yield
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            render_s += time.perf_counter() - t_r
-            e = batched_audio_errors(gt, est, model_c.stft_args[0], model_c.stft_args[1],
-                                     model_c.sampling_rate)
-            for k in AUDIO_METRICS:
-                errs[k].append(e[k])
-        for k in AUDIO_METRICS:
-            table[k] = torch.cat(errs[k]).cpu().numpy()
-        lap("similarity")
-        times["render"], times["similarity"] = render_s, times["similarity"] - render_s
 
-    # ---- artifacts (eval.py:331-366)
-    run_dir = get_run_dir(model_c)
-    if run_dir.exists():
-        split = eval_config.dataset
-        np.savez(items_path(run_dir, split), **table)
-        for name in ("z0", "zK"):
-            np.save(run_dir / f"eval_{split}_{name}_spearman_r.npy", lat[name].get_spearman_corr())
-            np.save(run_dir / f"eval_{split}_{name}_spearman_p.npy",
-                    lat[name].get_spearman_pvalues())
-        metric_cols = [k for k in table if k not in KEYS]
-        summary = {k: float(np.nanmean(table[k])) for k in metric_cols}
-        summary.update({f"n_nan_{k}": int(np.isnan(table[k]).sum())
-                        for k in metric_cols if np.isnan(table[k]).any()})
-        summary.update(latent_entanglement_z0=lat["z0"].get(),
-                       latent_entanglement_zK=lat["zK"].get(), n_items=len(table["preset_UID"]))
-        with open(run_dir / f"eval_{split}_summary.json", "w") as f:
-            json.dump(summary, f, indent=2)
-    lap("artifacts")
-    return per_uid_means(table)
+    with spans.span("evaluate", id=f"{eval_config.dataset}/{eval_config.epoch}"):
+        with phase("dataset"):
+            model_c, train_c = cfg.resolve(model_config, train_config)
+            model_c, train_c, dataset = prepare_dataset(model_c, train_c, dev, dataset,
+                                                        dataset_kwargs)
+            helper = dataset.preset_indexes_helper
+            loader = get_split_loaders(dataset, train_c)[eval_config.dataset]
+        with phase("model"):
+            with spans.span("model.init"):
+                model = build_extended_ae_model(model_c, train_c, helper).to(dev)
+            with spans.span("model.load"):
+                model.load_state_dict(
+                    load_checkpoint(model_c, eval_config.epoch)["state"]["model"])
+                model.eval()
+
+        # ---- batched inference and per-item parameter metrics (eval.py:135-176)
+        with phase("inference"):
+            dynamic_idx = dx.midi_key_related_param_indexes()
+            criteria = {
+                "num_eval_loss": QuantizedNumericalParamsLoss(helper, loss="mse"),
+                "num_mae": QuantizedNumericalParamsLoss(helper, loss="mae"),
+                "num_mae_dyn": QuantizedNumericalParamsLoss(
+                    helper, loss="mae", limited_vst_params_indexes=dynamic_idx),
+                "acc": CategoricalParamsAccuracy(helper),
+                "acc_dyn": CategoricalParamsAccuracy(helper,
+                                                     limited_vst_params_indexes=dynamic_idx),
+            }
+            cols = {k: [] for k in KEYS + PARAM_METRICS + ("z0", "zK", "v_out")}
+            bs = loader.batch_size
+            with torch.no_grad():
+                for i, sel in enumerate(loader.epoch_index_batches(0)):
+                    n_real = min(bs, loader.n_items - i * bs)  # the rest pads the last batch
+                    x, v, info = loader.gather(sel[:n_real])
+                    with autocast(dev, train_c):
+                        outs = model.forward_full(x, info)
+                    v_out = outs[5].float()
+                    cols["z0"].append(outs[0][:, 0, :].float())
+                    cols["zK"].append(outs[2].float())
+                    cols["v_out"].append(v_out)
+                    for j, k in enumerate(KEYS):
+                        cols[k].append(info[:, j])
+                    for k, crit in criteria.items():
+                        cols[k].append(crit.per_item(v_out, v))
+            cols = {k: torch.cat(c).cpu().numpy() for k, c in cols.items()}  # one fetch
+            lat = {}
+            for name in ("z0", "zK"):
+                lat[name] = LatentMetric(model_c.dim_z)
+                lat[name].append(cols[name], cols[name])
+            table = {k: cols[k] for k in KEYS + PARAM_METRICS}
+            if latents is not None:
+                latents.update(z0=cols["z0"], zK=cols["zK"])
+
+        if render_audio:  # ---- re-render and score the audio (eval.py:211-323)
+            with spans.span("similarity"):
+                inferred = helper.learnable_to_full_batch(cols["v_out"])
+                pitch, vel = table["midi_pitch"], table["midi_velocity"]
+                errs = {k: [] for k in AUDIO_METRICS}
+                B = eval_config.audio_batch_size
+            gt_cache = None
+            if eval_config.audio_render_backend == "cpp" and eval_config.cache_gt_audio:
+                with spans.span("render"):
+                    gt_cache = _gt_audio_cached(dataset, dataset.renderer,
+                                                np.stack([table[k] for k in KEYS], axis=1))
+            for s in range(0, len(inferred), B):
+                with spans.span("render"):
+                    gt = np.stack([dataset.get_full_preset_params(u)
+                                   for u in table["preset_UID"][s:s + B]])
+                    gt, est = render_pairs(dataset, eval_config, gt, inferred[s:s + B],
+                                           pitch[s:s + B], vel[s:s + B], dev,
+                                           gt_audio=None if gt_cache is None
+                                           else np.array(gt_cache[s:s + B]))
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                with spans.span("similarity"):
+                    e = batched_audio_errors(gt, est, model_c.stft_args[0], model_c.stft_args[1],
+                                             model_c.sampling_rate)
+                    for k in AUDIO_METRICS:
+                        errs[k].append(e[k])
+            with phase("similarity"):
+                for k in AUDIO_METRICS:
+                    table[k] = torch.cat(errs[k]).cpu().numpy()
+
+        # ---- artifacts (eval.py:331-366)
+        with phase("artifacts"):
+            run_dir = get_run_dir(model_c)
+            if run_dir.exists():
+                split = eval_config.dataset
+                with spans.span("artifacts.spearman"):  # computed once, kept by the metric
+                    entanglement = {name: lat[name].get() for name in ("z0", "zK")}
+                with spans.span("artifacts.write"):
+                    np.savez(items_path(run_dir, split), **table)
+                    for name in ("z0", "zK"):
+                        np.save(run_dir / f"eval_{split}_{name}_spearman_r.npy",
+                                lat[name].get_spearman_corr())
+                        np.save(run_dir / f"eval_{split}_{name}_spearman_p.npy",
+                                lat[name].get_spearman_pvalues())
+                    metric_cols = [k for k in table if k not in KEYS]
+                    summary = {k: float(np.nanmean(table[k])) for k in metric_cols}
+                    summary.update({f"n_nan_{k}": int(np.isnan(table[k]).sum())
+                                    for k in metric_cols if np.isnan(table[k]).any()})
+                    summary.update(latent_entanglement_z0=entanglement["z0"],
+                                   latent_entanglement_zK=entanglement["zK"],
+                                   n_items=len(table["preset_UID"]))
+                    with open(run_dir / f"eval_{split}_summary.json", "w") as f:
+                        json.dump(summary, f, indent=2)
+            with spans.span("artifacts.means"):
+                means = per_uid_means(table)
+    if phase_seconds is not None:
+        totals = spans.totals()
+        phase_seconds.update({k: totals[k]["s"] if k in totals else 0.0 for k in PHASES})
+    return means
 
 
 def render_pairs(dataset, eval_config: cfg.EvalConfig, gt_presets: np.ndarray,

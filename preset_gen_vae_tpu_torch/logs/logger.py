@@ -90,7 +90,6 @@ class RunLogger:
         self.restart = restart_from_checkpoint
         self.run_dir = get_run_dir(model_config)
         self.tensorboard = None
-        self._epoch_t0 = time.time()
         self._minibatch_times = []
         self._epoch_durations = []
         if not write:
@@ -139,10 +138,11 @@ class RunLogger:
             dt = np.diff(self._minibatch_times[-10:]).mean()
             print(f"[RunLogger] minibatch {minibatch_idx}: avg {dt*1e3:.1f} ms")
 
-    def on_epoch_finished(self, epoch: int):
-        dur = time.time() - self._epoch_t0
+    def on_epoch_finished(self, epoch: int, dur: float):
+        """``dur``: the epoch's seconds so far, on the clock of the train
+        loop's epoch span (``utils/profile.py``), which the summary's
+        ``epoch_s`` reads too."""
         self._epoch_durations.append(dur)
-        self._epoch_t0 = time.time()
         self._minibatch_times = []
         remaining = self.train_config.n_epochs - epoch - 1
         eta_s = remaining * float(np.mean(self._epoch_durations[-10:]))

@@ -82,6 +82,12 @@ class GraphedCall:
             torch.cuda.current_stream(self.device).wait_stream(self.stream)
         self.warm = True
 
+    @property
+    def captured(self) -> bool:
+        """Whether the next call replays a graph captured before it (on the
+        CPU, where nothing is captured, always)."""
+        return self.stream is None or self.graph is not None
+
     def _capture(self) -> None:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()

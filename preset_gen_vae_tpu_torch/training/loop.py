@@ -99,7 +99,7 @@ from ..models.build import build_extended_ae_model
 from ..parallel import multihost, sharding_rules
 from ..utils.exception import check_nan_values
 from ..utils.hparams import LinearDynamicParam
-from ..utils.profile import get_optional_profiler
+from ..utils.profile import Spans, get_optional_profiler
 from .dispatch import EvalReplays, TrainGroups, dispatch_k, dispatch_sizes
 from .schedulers import ReduceLROnPlateau
 from .train_step import (
@@ -198,7 +198,38 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
                  dataset: Optional[DexedDataset] = None, device="cuda",
                  dataset_kwargs: Optional[Dict] = None, use_tensorboard: bool = True) -> Dict:
     """Trains one run; returns a summary dict of metrics and timings.
-    ``device`` defaults to the card and raises if there is none."""
+    ``device`` defaults to the card and raises if there is none.
+
+    The summary's ``spans`` maps each span of the epoch loop
+    (``utils/profile.py:Spans``) to its totals over the ``span_epochs``
+    epochs that ``epoch_s`` averages (the call's epochs after its first, or
+    its one epoch): ``s`` inclusive and ``self_s`` seconds, ``n`` spans,
+    ``device_s`` on the card's clock for a device span, ``steps`` for the
+    spans that take train steps, ``host_only: True`` where the card has
+    nothing queued. The spans, ``epoch`` the parent of the others:
+
+    - ``epoch``: the epoch's wall, which ``epoch_s`` and the logger read;
+    - ``epoch.start``: the scalars' reset, the LR and beta;
+    - ``epoch.batches``: the index batches, their stack and copy to the card;
+    - ``epoch.warmup``, ``epoch.capture``: the run's first group, eager as
+      its graph's warm-up, and the next, which captures the graph;
+    - ``epoch.replays`` (device): each later group's graph replay;
+    - ``epoch.remainder`` (device): the single steps after the groups (every
+      step where nothing is grouped), each a ``train_step``, the span that a
+      profiler window shows;
+    - ``epoch.fetch``: the train rows' one fetch to the host, where the host
+      waits for the card;
+    - ``epoch.train_scalars``: the NaN check and the per-value appends;
+    - ``epoch.validation``: ``.batches``, ``.steps`` (device: the graph's
+      replays, or eager steps), ``.fetch`` and ``.scalars`` (the weighting
+      and the latents);
+    - ``epoch.schedule``: the plateau step, and TensorBoard where it writes;
+    - ``epoch.checkpoint``: ``logger.save_checkpoint``;
+    - ``epoch.log``: ``logger.on_epoch_finished``.
+
+    Host-only: ``epoch.start``, ``epoch.batches``, ``epoch.train_scalars``,
+    ``epoch.validation.batches``, ``epoch.validation.scalars``,
+    ``epoch.schedule``, ``epoch.checkpoint``, ``epoch.log``."""
     dev = resolve_device(device)
     model_c, train_c = cfg.resolve(model_config or cfg.ModelConfig(),
                                    train_config or cfg.TrainConfig())
@@ -329,163 +360,209 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
                             f"the validation step of {name}")
     first_step_s, steady_s, steady_steps, start_lr = None, 0.0, 0, None
     early_stop, epoch_walls = False, []
+    # every epoch's spans (utils/profile.py); the host-only ones run while
+    # nothing is queued on the card, from a blocking fetch's return to the
+    # next launch
+    spans = Spans(dev)
     for epoch in range(train_c.start_epoch, train_c.n_epochs):
-        t_epoch = time.perf_counter()
-        for s in scalars.values():
-            s.on_new_epoch()
-        lr, beta = schedule.epoch_start(epoch)
-        set_learning_rate(optimizer, lr)
-        beta_t.fill_(beta)
-        if start_lr is None:
-            start_lr = [float(g["lr"]) for g in optimizer.param_groups]
-        # the plot epochs: the train latents' LatCorr/Train, the figures
-        # (loop.py:504-515, 719-723 there)
-        should_plot = (epoch % train_c.plot_period == 0 and logger.tensorboard is not None
-                       and world == 1)
+        with spans.span("epoch", id=epoch) as epoch_span:
+            with spans.span("epoch.start", host_only=True):
+                for s in scalars.values():
+                    s.on_new_epoch()
+                lr, beta = schedule.epoch_start(epoch)
+                set_learning_rate(optimizer, lr)
+                beta_t.fill_(beta)
+                if start_lr is None:
+                    start_lr = [float(g["lr"]) for g in optimizer.param_groups]
+                # the plot epochs: the train latents' LatCorr/Train, the figures
+                # (loop.py:504-515, 719-723 there)
+                should_plot = (epoch % train_c.plot_period == 0
+                               and logger.tensorboard is not None and world == 1)
 
-        # ---- train: the epoch's index batches go to the device in one copy
-        # (host-fed: the batches themselves, one at a time); groups of K
-        # steps (the profiled epoch steps one at a time), then the remainder
-        # one step each (loop.py:588-622 there)
-        batches = list(train_loader.epoch_index_batches(epoch))
-        if not batches:
-            raise ValueError("train split smaller than one (drop_last) minibatch")
-        trace_active = profiling and epoch == train_c.start_epoch
-        if trace_active:
-            profiler.start()
-        sizes = (dispatch_sizes(len(batches), groups.k) if groups is not None and not trace_active
-                 else [1] * len(batches))
-        captured_s = groups.call.capture_s if groups is not None else 0.0
-        t0 = time.perf_counter()
-        if host_fed:
-            feed = train_loader.device_batches(batches, dev)
-        else:
-            idx = torch.from_numpy(np.stack(batches)).to(dev)
-        rows, train_latents, i = [], [], 0
-        for size in sizes:
-            if size > 1 and groups.call.warm:
-                r, lat = groups.run(idx[i:i + size])
-                rows.append(r.clone())
-                if should_plot:
-                    train_latents.append(lat.clone())
-            else:  # single steps; the run's first group runs them as its graph's warm-up
-                with groups.call.warm_up() if size > 1 else contextlib.nullcontext():
-                    for j in range(i, i + size):
-                        with profiler.record_function("train_step"):
-                            m = one_step(next(feed) if host_fed else
-                                         train_loader.gather(idx[j]), should_plot)
-                        rows.append(torch.stack([m[k] for k in train_keys])[None])
-                        if should_plot:
-                            train_latents.append(torch.stack([m["z0_mu"], m["z0"]])[:, None])
-                        if first_step_s is None:  # includes cuDNN's algorithm search
-                            _sync(dev)
-                            first_step_s, t0 = time.perf_counter() - t0, time.perf_counter()
-            i += size
-            step += size
-            logger.on_minibatch_finished(i - 1)
-            if trace_active and i >= PROFILE_STEPS:
-                profiler.stop()
-                trace_active = False
-                logger.save_profiler_results(profiler)
-            if profiling and train_c.profiler_full_trace and i == 3:
-                break
-        if trace_active:  # an epoch shorter than PROFILE_STEPS
-            profiler.stop()
-            logger.save_profiler_results(profiler)
-        # the epoch's one host fetch of the train scalars (loop.py:572-582),
-        # averaged over the processes first, so that all stop on a NaN
-        train_rows = torch.cat(rows)
-        multihost.all_reduce_mean_([train_rows])
-        train_rows = train_rows.cpu().numpy()
-        # the steady time leaves out the first step and the graph's capture
-        if groups is not None:
-            captured_s = groups.call.capture_s - captured_s
-        steady_s += time.perf_counter() - t0 - captured_s
-        steady_steps += len(train_rows) - 1 if epoch == train_c.start_epoch else len(train_rows)
-        check_nan_values(epoch, *train_rows[:, nan_cols].ravel())
-        for j, k in enumerate(train_keys):
-            for value in train_rows[:, j]:
-                scalars[f"{k}/Train"].append(value)
-        if train_latents:  # (2, steps, B, dim_z)
-            lat = torch.cat(train_latents, dim=1).flatten(1, 2).float().cpu().numpy()
-            scalars["LatCorr/Train"].append(lat[0], lat[1])
-        if profiling and train_c.profiler_full_trace and epoch == train_c.start_epoch:
-            break  # before validation (loop.py:708-709 there)
-
-        # ---- validation: padded batches weighted by their real rows; each
-        # process's batch means averaged over the data group; the latents
-        # where one data rank holds every row (loop.py:768-770 there). In
-        # one process over a resident corpus, an epoch
-        # that draws no figure replays the validation step's graph over its
-        # batches (the whole-validation scan, loop.py:739-758 there).
-        vbatches = list(valid_loader.epoch_index_batches(epoch))
-        if not vbatches:
-            raise ValueError("empty validation split")
-        val_rows, latents, v_errors, first_batch = [], [], [], None
-        if evals is not None and not should_plot:
-            vidx = torch.from_numpy(np.stack(vbatches)).to(dev)
-            for i in range(len(vbatches)):
-                if evals.call.warm:
-                    row, lat = (t.clone() for t in evals.run(vidx[i]))
+            # ---- train: the epoch's index batches go to the device in one copy
+            # (host-fed: the batches themselves, one at a time); groups of K
+            # steps (the profiled epoch steps one at a time), then the remainder
+            # one step each (loop.py:588-622 there)
+            with spans.span("epoch.batches", host_only=True):
+                batches = list(train_loader.epoch_index_batches(epoch))
+                if not batches:
+                    raise ValueError("train split smaller than one (drop_last) minibatch")
+                trace_active = profiling and epoch == train_c.start_epoch
+                if trace_active:
+                    profiler.start()
+                sizes = (dispatch_sizes(len(batches), groups.k)
+                         if groups is not None and not trace_active else [1] * len(batches))
+                captured_s = groups.call.capture_s if groups is not None else 0.0
+                t0 = time.perf_counter()
+                if host_fed:
+                    feed = train_loader.device_batches(batches, dev)
                 else:
-                    with evals.call.warm_up():
-                        row, lat = eval_rows(vidx[i])
-                val_rows.append(row)
-                latents.append(lat[:, :valid_real_rows(valid_loader, i)])
-        else:
-            for i, (x, v, info) in enumerate(valid_loader.device_batches(vbatches, dev)):
-                m = eval_step(model, criteria, train_c, x, v, info)
-                val_rows.append(torch.stack([m[k] for k in criteria.scalars]))
-                n_real = valid_real_rows(valid_loader, i)
-                if n_data == 1:
-                    latents.append(torch.stack([m["z0_mu"][:n_real], m["z0"][:n_real]]))
+                    idx = torch.from_numpy(np.stack(batches)).to(dev)
+            rows, train_latents, i = [], [], 0
+
+            def single_step(j: int) -> None:
+                nonlocal first_step_s, t0
+                with spans.span("train_step"):
+                    m = one_step(next(feed) if host_fed else train_loader.gather(idx[j]),
+                                 should_plot)
+                rows.append(torch.stack([m[k] for k in train_keys])[None])
                 if should_plot:
-                    v_errors.append((m["v_out"].float() - v)[:n_real])
-                    if i == 0:
-                        first_batch = (x, m["x_out"], info)
-        val_rows = torch.stack(val_rows)
-        multihost.all_reduce_mean_([val_rows])
-        val_rows = val_rows.cpu().numpy()
-        for i, row in enumerate(val_rows):
-            for k, value in zip(criteria.scalars, row):
-                scalars[f"{k}/Valid"].append(value, weight=valid_loader.batch_weight(i))
-        if latents:
-            latents = torch.cat(latents, dim=1).cpu().numpy()
-            scalars["LatCorr/Valid"].append(latents[0], latents[1])
-        for split in ("Train", "Valid"):
-            scalars[f"VAELoss/{split}"] = SimpleMetric(
-                scalars[f"ReconsLoss/Backprop/{split}"].get() + scalars[f"LatLoss/{split}"].get())
+                    train_latents.append(torch.stack([m["z0_mu"], m["z0"]])[:, None])
+                if first_step_s is None:  # includes cuDNN's algorithm search
+                    _sync(dev)
+                    first_step_s, t0 = time.perf_counter() - t0, time.perf_counter()
 
-        # ---- plateau scheduler and early stop
-        lr, early_stop = schedule.epoch_end(
-            epoch, {n: scalars[f"{n}/Valid"].get() for n in train_c.scheduler_loss})
-        set_learning_rate(optimizer, lr)
-        scalars["Sched/LR"] = SimpleMetric(lr)
+            remainder = None  # one span over the steps left over after the groups
+            with contextlib.ExitStack() as stack:
+                for size in sizes:
+                    if size > 1 and groups.call.warm:
+                        with spans.span("epoch.replays" if groups.call.captured
+                                        else "epoch.capture", device=True) as span:
+                            r, lat = groups.run(idx[i:i + size])
+                            rows.append(r.clone())
+                            if should_plot:
+                                train_latents.append(lat.clone())
+                            span.count("steps", size)
+                    elif size > 1:  # the run's first group: its graph's warm-up
+                        with spans.span("epoch.warmup") as span, groups.call.warm_up():
+                            for j in range(i, i + size):
+                                single_step(j)
+                            span.count("steps", size)
+                    else:
+                        if remainder is None:
+                            remainder = stack.enter_context(
+                                spans.span("epoch.remainder", device=True))
+                        single_step(i)
+                        remainder.count("steps")
+                    i += size
+                    step += size
+                    logger.on_minibatch_finished(i - 1)
+                    if trace_active and i >= PROFILE_STEPS:
+                        profiler.stop()
+                        trace_active = False
+                        logger.save_profiler_results(profiler)
+                    if profiling and train_c.profiler_full_trace and i == 3:
+                        break
+                if trace_active:  # an epoch shorter than PROFILE_STEPS
+                    profiler.stop()
+                    logger.save_profiler_results(profiler)
+            # the epoch's one host fetch of the train scalars (loop.py:572-582),
+            # averaged over the processes first, so that all stop on a NaN
+            with spans.span("epoch.fetch"):
+                train_rows = torch.cat(rows)
+                multihost.all_reduce_mean_([train_rows])
+                train_rows = train_rows.cpu().numpy()
+                spans.read_device()
+            # the steady time leaves out the first step and the graph's capture
+            if groups is not None:
+                captured_s = groups.call.capture_s - captured_s
+            steady_s += time.perf_counter() - t0 - captured_s
+            steady_steps += (len(train_rows) - 1 if epoch == train_c.start_epoch
+                             else len(train_rows))
+            with spans.span("epoch.train_scalars", host_only=True):
+                check_nan_values(epoch, *train_rows[:, nan_cols].ravel())
+                for j, k in enumerate(train_keys):
+                    for value in train_rows[:, j]:
+                        scalars[f"{k}/Train"].append(value)
+                if train_latents:  # (2, steps, B, dim_z)
+                    lat = torch.cat(train_latents, dim=1).flatten(1, 2).float().cpu().numpy()
+                    scalars["LatCorr/Train"].append(lat[0], lat[1])
+            if profiling and train_c.profiler_full_trace and epoch == train_c.start_epoch:
+                break  # before validation (loop.py:708-709 there)
 
-        if logger.tensorboard is not None:
-            if world == 1 and (should_plot or early_stop):  # (loop.py:824-844)
-                add_figures(logger.tensorboard, epoch, scalars["LatCorr/Valid"], helper,
-                            first_batch, v_errors)
-            for k, s in scalars.items():  # (loop.py:846-867)
-                if getattr(s, "has_data", True):
-                    logger.tensorboard.add_scalar(k, s.get(), epoch)
-            metrics["epochs"] = epoch + 1
-            for k in TB_METRICS:
-                if getattr(scalars[k], "has_data", True):
-                    metrics[f"{k}_"].append(scalars[k].get())
-            logger.tensorboard.update_metrics(metrics)
+            # ---- validation: padded batches weighted by their real rows; each
+            # process's batch means averaged over the data group; the latents
+            # where one data rank holds every row (loop.py:768-770 there). In
+            # one process over a resident corpus, an epoch
+            # that draws no figure replays the validation step's graph (captured
+            # at its second batch) over its batches (the whole-validation scan,
+            # loop.py:739-758 there).
+            with spans.span("epoch.validation"):
+                with spans.span("epoch.validation.batches", host_only=True):
+                    vbatches = list(valid_loader.epoch_index_batches(epoch))
+                    if not vbatches:
+                        raise ValueError("empty validation split")
+                    val_rows, latents, v_errors, first_batch = [], [], [], None
+                    replayed = evals is not None and not should_plot
+                    if replayed:
+                        vidx = torch.from_numpy(np.stack(vbatches)).to(dev)
+                with spans.span("epoch.validation.steps", device=True):
+                    if replayed:
+                        for i in range(len(vbatches)):
+                            if evals.call.warm:
+                                row, lat = (t.clone() for t in evals.run(vidx[i]))
+                            else:
+                                with evals.call.warm_up():
+                                    row, lat = eval_rows(vidx[i])
+                            val_rows.append(row)
+                            latents.append(lat[:, :valid_real_rows(valid_loader, i)])
+                    else:
+                        for i, (x, v, info) in enumerate(valid_loader.device_batches(vbatches,
+                                                                                     dev)):
+                            m = eval_step(model, criteria, train_c, x, v, info)
+                            val_rows.append(torch.stack([m[k] for k in criteria.scalars]))
+                            n_real = valid_real_rows(valid_loader, i)
+                            if n_data == 1:
+                                latents.append(torch.stack([m["z0_mu"][:n_real],
+                                                            m["z0"][:n_real]]))
+                            if should_plot:
+                                v_errors.append((m["v_out"].float() - v)[:n_real])
+                                if i == 0:
+                                    first_batch = (x, m["x_out"], info)
+                with spans.span("epoch.validation.fetch"):
+                    val_rows = torch.stack(val_rows)
+                    multihost.all_reduce_mean_([val_rows])
+                    val_rows = val_rows.cpu().numpy()
+                    spans.read_device()
+                with spans.span("epoch.validation.scalars", host_only=True):
+                    for i, row in enumerate(val_rows):
+                        for k, value in zip(criteria.scalars, row):
+                            scalars[f"{k}/Valid"].append(value,
+                                                         weight=valid_loader.batch_weight(i))
+                    if latents:
+                        latents = torch.cat(latents, dim=1).cpu().numpy()
+                        scalars["LatCorr/Valid"].append(latents[0], latents[1])
+                    for split in ("Train", "Valid"):
+                        scalars[f"VAELoss/{split}"] = SimpleMetric(
+                            scalars[f"ReconsLoss/Backprop/{split}"].get()
+                            + scalars[f"LatLoss/{split}"].get())
 
-        if ((epoch > 0 and epoch % train_c.save_period == 0) or epoch == train_c.n_epochs - 1
-                or early_stop):
-            logger.save_checkpoint(epoch, model, optimizer, step, generator, schedule.plateau)
-        logger.on_epoch_finished(epoch)
-        epoch_walls.append(time.perf_counter() - t_epoch)
+            # ---- plateau scheduler and early stop
+            with spans.span("epoch.schedule", host_only=True):
+                lr, early_stop = schedule.epoch_end(
+                    epoch, {n: scalars[f"{n}/Valid"].get() for n in train_c.scheduler_loss})
+                set_learning_rate(optimizer, lr)
+                scalars["Sched/LR"] = SimpleMetric(lr)
+
+                if logger.tensorboard is not None:
+                    if world == 1 and (should_plot or early_stop):  # (loop.py:824-844)
+                        add_figures(logger.tensorboard, epoch, scalars["LatCorr/Valid"], helper,
+                                    first_batch, v_errors)
+                    for k, s in scalars.items():  # (loop.py:846-867)
+                        if getattr(s, "has_data", True):
+                            logger.tensorboard.add_scalar(k, s.get(), epoch)
+                    metrics["epochs"] = epoch + 1
+                    for k in TB_METRICS:
+                        if getattr(scalars[k], "has_data", True):
+                            metrics[f"{k}_"].append(scalars[k].get())
+                    logger.tensorboard.update_metrics(metrics)
+
+            if ((epoch > 0 and epoch % train_c.save_period == 0) or epoch == train_c.n_epochs - 1
+                    or early_stop):
+                with spans.span("epoch.checkpoint", host_only=True):
+                    logger.save_checkpoint(epoch, model, optimizer, step, generator,
+                                           schedule.plateau)
+            with spans.span("epoch.log", host_only=True):
+                logger.on_epoch_finished(epoch, epoch_span.elapsed())
+        epoch_walls.append(epoch_span.s)
         if early_stop:
             logger.log("Training stopped early (loss plateau)", level=1)
             break
     logger.on_training_finished()
 
     step_s = steady_s / steady_steps if steady_steps else first_step_s
+    span_epochs = list(range(train_c.start_epoch, train_c.start_epoch + len(epoch_walls)))
+    span_epochs = span_epochs[1:] or span_epochs  # the epochs that epoch_s averages
     corpus_x = train_loader.tensors["x"]
     summary = {
         "epochs_trained": epoch + 1,
@@ -511,6 +588,9 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
         "first_epoch_s": epoch_walls[0] if epoch_walls else None,
         "epoch_s": float(np.mean(epoch_walls[1:] or epoch_walls)) if epoch_walls else None,
         "spectrograms_per_s": train_c.minibatch_size / step_s,
+        # the loop's spans over the epochs that epoch_s averages (train_config)
+        "spans": spans.totals(span_epochs),
+        "span_epochs": len(span_epochs),
         # K-step dispatch (training/dispatch.py): K, and the CUDA graphs'
         # captures and replays (none on the CPU or across processes)
         "steps_per_dispatch": groups.k if groups is not None else 1,

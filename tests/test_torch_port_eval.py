@@ -179,7 +179,9 @@ def test_evaluate_writes_the_jax_artifacts(evaluated):
                 (250, 250)
     assert np.isfinite(df[["spec_mae", "mfcc13_mae", "mfcc40_mae"]].to_numpy()).all()
     assert set(evaluated["phases"]) == {"dataset", "model", "inference", "render", "similarity",
-                                        "artifacts"}
+                                        "artifacts", "model.init", "model.load",
+                                        "artifacts.spearman", "artifacts.write",
+                                        "artifacts.means"}
 
 
 def test_per_uid_means_are_pandas_groupby(evaluated):

@@ -28,7 +28,7 @@ from preset_gen_vae_tpu_torch import config as cfg
 from preset_gen_vae_tpu_torch.data.dexed_dataset import DexedDataset
 from preset_gen_vae_tpu_torch.logs import logger
 from preset_gen_vae_tpu_torch.training import loop
-from preset_gen_vae_tpu_torch.utils.profile import ActualProfiler, NoProfiler, \
+from preset_gen_vae_tpu_torch.utils.profile import ActualProfiler, NoProfiler, Spans, \
     get_optional_profiler
 from _torch_port_fixtures import isolated_data_root, tiny_configs, two_torch_threads  # noqa: F401
 
@@ -37,22 +37,26 @@ N_PRESETS = 64
 
 def test_profiler_wrapper(tmp_path):
     """tests/test_utils.py:81-91 for the port, and a window on the CPU that
-    exports its spans as a Chrome trace."""
+    exports the spans opened inside it (``Spans``, the loop's spans) as a
+    Chrome trace, and none opened outside it."""
     p = get_optional_profiler({"enabled": False})
     assert isinstance(p, NoProfiler)
     with p as prof:
         assert prof is None
-    with p.record_function("X"):
+    spans = Spans()
+    with p, spans.span("X"):
         pass
     actual = get_optional_profiler({"enabled": True}, tmp_path / "prof")
     assert isinstance(actual, ActualProfiler)
+    with spans.span("outside"):
+        pass
     with actual:
-        with actual.record_function("span"):
+        with spans.span("span"):
             torch.ones(4).sum()
     path = actual.export()
     assert path == tmp_path / "prof" / "trace.json"
     names = [e.get("name") for e in json.loads(path.read_text())["traceEvents"]]
-    assert names.count("span") == 1
+    assert names.count("span") == 1 and "outside" not in names and "X" not in names
 
 
 @pytest.fixture(scope="module")
