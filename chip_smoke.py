@@ -1450,7 +1450,8 @@ def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0, bwd2: int 
 
 # the loop summary's K and CUDA graph counts (training/dispatch.py)
 GRAPH_KEYS = ("steps_per_dispatch", "train_graph_captures", "train_graph_replays",
-              "eval_graph_captures", "eval_graph_replays")
+              "eval_graph_captures", "eval_graph_replays", "remainder_graph_captures",
+              "remainder_graph_replays")
 
 
 # the scalars of the loss that the train step backpropagates

@@ -201,8 +201,9 @@ class TrainConfig:
     # In this package (training/dispatch.py): in one process, K whole
     # train steps are one CUDA graph, captured once per run after the first
     # group (run eagerly as its warm-up) and replayed once per group; the
-    # remainder steps one at a time, and so do K=1, several processes, the
-    # host-fed pipeline (dataset_cache_device=False) and the profiled epoch.
+    # remainder steps one at a time, each a replay of a one-step graph. K=1,
+    # several processes, the host-fed pipeline (dataset_cache_device=False)
+    # and the profiled epoch step eagerly.
     # The validation step of an epoch that draws no figure is a graph
     # replayed per batch, whatever K is (one process, resident corpus).
     steps_per_dispatch: int = 16

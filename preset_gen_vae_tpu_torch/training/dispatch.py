@@ -8,7 +8,8 @@ for the validation). There, K train steps run as one device dispatch and
 the steps left over one dispatch each; here a CUDA graph that holds K
 whole steps (the gather from the resident corpus, forward, loss,
 backward, Adam, the scalar rows) is captured once per run and replayed
-once per group, and the remainder runs as eager steps.
+once per group, and a second graph that holds one whole step is replayed
+once per step left over (the remainder).
 
 A graphed call runs its first call eagerly, on the stream it will be
 captured on: that warm-up is real work (the run's first group of steps,
@@ -24,6 +25,17 @@ replay draws what K eager steps would and advances the generator as
 much. The capture runs under ``torch.cuda.set_sync_debug_mode('error')``:
 a step that makes the host wait cannot be captured and raises, naming
 the call. A failed capture raises; nothing falls back to eager steps.
+
+The remainder's one-step graph shares the group's call (``shares``): it
+is captured on the group's stream at its first call, after the group's
+warm-up, which did the same step's set-up at the same shapes, so it runs
+no warm-up of its own. Where the group's graph was captured first (two
+groups or more an epoch), it is captured into that graph's memory pool:
+the two replay in the order they were captured, every epoch, and each
+replay's outputs are copied out before the next, so that the remainder
+reserves no second step's activations. With one group an epoch the
+remainder comes first, in the run's first epoch, and has a pool of its
+own.
 
 On the CPU a graphed call runs its body eagerly every time, with the same
 static buffers and copies: the plain version that the tests hold against
@@ -61,15 +73,22 @@ class GraphedCall:
     ``warm_up()`` wraps the eager work that stands for the first call; the
     first ``__call__`` after it captures ``body`` (on the same stream) and
     replays it, later calls replay it, each returning the captured
-    outputs, which the next replay overwrites. On the CPU ``__call__``
-    runs ``body()``."""
+    outputs, which the next replay overwrites. A call that ``shares``
+    another is captured on that call's stream after that call's warm-up,
+    and into that call's memory pool where that call's graph exists by
+    then. On the CPU ``__call__`` runs ``body()``."""
 
     def __init__(self, body: Callable, device: torch.device, what: str,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shares: Optional["GraphedCall"] = None):
         self.body, self.device, self.what, self.generator = body, device, what, generator
+        self.shares = shares
         self.warm, self.graph, self.outputs = False, None, None
         self.captures, self.replays, self.capture_s = 0, 0, 0.0
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        if shares is not None:
+            self.stream = shares.stream
+        else:
+            self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     @contextlib.contextmanager
     def warm_up(self):
@@ -93,6 +112,8 @@ class GraphedCall:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
+        shared = self.shares.graph if self.shares is not None else None
+        pool = shared.pool() if shared is not None else None
         mode = torch.cuda.get_sync_debug_mode()
         # an earlier run's graph that the garbage collector destroys during
         # the capture would invalidate it: collect first, then not during
@@ -100,7 +121,7 @@ class GraphedCall:
         gc.collect()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with torch.cuda.graph(graph, pool=pool, stream=self.stream):
                 torch.cuda.set_sync_debug_mode("error")
                 try:
                     self.outputs = self.body()
@@ -130,13 +151,16 @@ class TrainGroups:
     step on the index row ``sel`` (a device tensor) and returns its
     metrics with the latents; ``run(idx)`` takes the K steps of the (K, B)
     index rows ``idx`` -> ((K, n_keys) scalar rows, (2, K, B, dim_z)
-    latents ``z0_mu`` and ``z0``), static buffers on the card."""
+    latents ``z0_mu`` and ``z0``), static buffers on the card. The
+    remainder's steps are a ``TrainGroups`` of K = 1 that ``shares`` the
+    groups' call."""
 
     def __init__(self, k: int, batch_size: int, step: Callable, keys: Tuple[str, ...],
-                 device: torch.device, what: str, generator: Optional[torch.Generator]):
+                 device: torch.device, what: str, generator: Optional[torch.Generator],
+                 shares: Optional[GraphedCall] = None):
         self.k, self.step, self.keys = k, step, keys
         self.idx = torch.zeros((k, batch_size), dtype=torch.int64, device=device)
-        self.call = GraphedCall(self._body, device, what, generator)
+        self.call = GraphedCall(self._body, device, what, generator, shares)
 
     def _body(self):
         rows, latents = [], []

@@ -59,10 +59,13 @@ K-step dispatch (``steps_per_dispatch``, loop.py:225-233, 392-424,
 588-622, 739-758 there; ``training/dispatch.py``): in one process, K
 train steps (K = -1: the epoch's batch count; K capped at it) run as one
 replay of a CUDA graph that holds the K whole steps, the counterpart of
-the JAX loop's K-step ``lax.scan``; the steps left over (the remainder)
-run one at a time. The run's first group runs eagerly as the graph's
-warm-up, the second captures it, the later ones replay it; a failed
-capture raises. An epoch that draws no figure replays the validation
+the JAX loop's K-step ``lax.scan``; each step left over (the remainder)
+is one replay of a second graph that holds one whole step, the JAX
+loop's one dispatch a left-over step. The run's first group runs eagerly
+as the graph's warm-up, the second captures it, the later ones replay
+it; the one-step graph is captured on the group's stream at the first
+step left over after that warm-up (in the run's first epoch, unless it
+is profiled); a failed capture raises. An epoch that draws no figure replays the validation
 step's graph (captured after one eager batch) over its batches, the
 counterpart of the whole-validation scan. K = 1 steps one at a time, as
 do several processes (tensor parallelism too), the host-fed pipeline (the
@@ -215,8 +218,10 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
       its graph's warm-up, and the next, which captures the graph;
     - ``epoch.replays`` (device): each later group's graph replay;
     - ``epoch.remainder`` (device): the single steps after the groups (every
-      step where nothing is grouped), each a ``train_step``, the span that a
-      profiler window shows;
+      step where nothing is grouped), counter ``steps``; each a replay of
+      the one-step graph once the groups' warm-up has run (counter
+      ``replayed``), else an eager ``train_step``, the span that a profiler
+      window shows;
     - ``epoch.fetch``: the train rows' one fetch to the host, where the host
       waits for the card;
     - ``epoch.train_scalars``: the NaN check and the per-value appends;
@@ -346,9 +351,11 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
         return torch.stack([m[k] for k in criteria.scalars]), torch.stack([m["z0_mu"], m["z0"]])
 
     # in one process over a resident corpus, the JAX loop's K-step scans as
-    # CUDA graphs (training/dispatch.py): groups of K train steps, and the
-    # validation step of the epochs that draw no figure
-    groups = evals = None
+    # CUDA graphs (training/dispatch.py): groups of K train steps, the steps
+    # left over after them one at a time (``rest``, where the epoch's batch
+    # count leaves any), and the validation step of the epochs that draw no
+    # figure
+    groups = rest = evals = None
     if not multiproc and not host_fed:
         name = f"{model_c.name}/{model_c.run_name}"
         k = dispatch_k(train_c.steps_per_dispatch, len(train_loader))
@@ -356,8 +363,12 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
             groups = TrainGroups(k, train_loader.batch_size,
                                  lambda sel: one_step(train_loader.gather(sel), True),
                                  train_keys, dev, f"{k} train steps of {name}", generator)
+            if len(train_loader) % k:
+                rest = TrainGroups(1, train_loader.batch_size, groups.step, train_keys, dev,
+                                   f"one train step of {name}", generator, shares=groups.call)
         evals = EvalReplays(valid_loader.batch_size, eval_rows, dev,
                             f"the validation step of {name}")
+    train_graphs = [g for g in (groups, rest) if g is not None]
     first_step_s, steady_s, steady_steps, start_lr = None, 0.0, 0, None
     early_stop, epoch_walls = False, []
     # every epoch's spans (utils/profile.py); the host-only ones run while
@@ -382,7 +393,8 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
             # ---- train: the epoch's index batches go to the device in one copy
             # (host-fed: the batches themselves, one at a time); groups of K
             # steps (the profiled epoch steps one at a time), then the remainder
-            # one step each (loop.py:588-622 there)
+            # one step each (loop.py:588-622 there), where there are groups a
+            # one-step graph's replay
             with spans.span("epoch.batches", host_only=True):
                 batches = list(train_loader.epoch_index_batches(epoch))
                 if not batches:
@@ -392,7 +404,7 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
                     profiler.start()
                 sizes = (dispatch_sizes(len(batches), groups.k)
                          if groups is not None and not trace_active else [1] * len(batches))
-                captured_s = groups.call.capture_s if groups is not None else 0.0
+                captured_s = sum(g.call.capture_s for g in train_graphs)
                 t0 = time.perf_counter()
                 if host_fed:
                     feed = train_loader.device_batches(batches, dev)
@@ -412,16 +424,19 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
                     _sync(dev)
                     first_step_s, t0 = time.perf_counter() - t0, time.perf_counter()
 
+            def replay(graphs: TrainGroups, j: int, size: int) -> None:
+                r, lat = graphs.run(idx[j:j + size])
+                rows.append(r.clone())  # before the next replay overwrites them
+                if should_plot:
+                    train_latents.append(lat.clone())
+
             remainder = None  # one span over the steps left over after the groups
             with contextlib.ExitStack() as stack:
                 for size in sizes:
                     if size > 1 and groups.call.warm:
                         with spans.span("epoch.replays" if groups.call.captured
                                         else "epoch.capture", device=True) as span:
-                            r, lat = groups.run(idx[i:i + size])
-                            rows.append(r.clone())
-                            if should_plot:
-                                train_latents.append(lat.clone())
+                            replay(groups, i, size)
                             span.count("steps", size)
                     elif size > 1:  # the run's first group: its graph's warm-up
                         with spans.span("epoch.warmup") as span, groups.call.warm_up():
@@ -432,7 +447,13 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
                         if remainder is None:
                             remainder = stack.enter_context(
                                 spans.span("epoch.remainder", device=True))
-                        single_step(i)
+                        # after the groups' warm-up, which the profiled epoch,
+                        # stepping one at a time, never runs
+                        if rest is not None and groups.call.warm:
+                            replay(rest, i, 1)
+                            remainder.count("replayed")
+                        else:
+                            single_step(i)
                         remainder.count("steps")
                     i += size
                     step += size
@@ -453,9 +474,8 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
                 multihost.all_reduce_mean_([train_rows])
                 train_rows = train_rows.cpu().numpy()
                 spans.read_device()
-            # the steady time leaves out the first step and the graph's capture
-            if groups is not None:
-                captured_s = groups.call.capture_s - captured_s
+            # the steady time leaves out the first step and the graphs' captures
+            captured_s = sum(g.call.capture_s for g in train_graphs) - captured_s
             steady_s += time.perf_counter() - t0 - captured_s
             steady_steps += (len(train_rows) - 1 if epoch == train_c.start_epoch
                              else len(train_rows))
@@ -598,7 +618,10 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
         "train_graph_replays": groups.call.replays if groups is not None else 0,
         "eval_graph_captures": evals.call.captures if evals is not None else 0,
         "eval_graph_replays": evals.call.replays if evals is not None else 0,
-        "graph_capture_s": sum(g.call.capture_s for g in (groups, evals) if g is not None),
+        "remainder_graph_captures": rest.call.captures if rest is not None else 0,
+        "remainder_graph_replays": rest.call.replays if rest is not None else 0,
+        "graph_capture_s": sum(g.call.capture_s for g in (*train_graphs, evals)
+                               if g is not None),
         # where the corpus lives (the host-fed pipeline: not on the device)
         "dataset_cache_device": train_c.dataset_cache_device,
         "corpus_bytes": corpus_x.numel() * corpus_x.element_size(),

@@ -8,11 +8,15 @@ JAX loop's K-step scan, and the graph-safety repairs of the step.
 - Runs: the flagship at full width on the loop tests' shared 64-preset
   corpus (operators 1-2) at batch 12: 3 steps an epoch (40 train items),
   so that K=2 takes a group and a remainder step and K=-1 one group of 3,
-  and one padded validation batch. On the CPU the groups run their steps
-  eagerly through the static buffers that the card's graphs use. 2
-  epochs at K=2 and at K=-1 against K=1, and 2 epochs at K=2 resumed for
-  a third against 3 epochs at K=2: every /Valid scalar, every parameter
-  and buffer, Adam's state and the generator's state bit-equal.
+  and one padded validation batch. On the CPU the groups and the
+  remainder's one-step graph run their steps eagerly through the static
+  buffers that the card's graphs use. 2 epochs at K=2 and at K=-1 against
+  K=1, and 2 epochs at K=2 resumed for a third against 3 epochs at K=2:
+  every /Valid scalar, every parameter and buffer, Adam's state and the
+  generator's state bit-equal. The remainder path: one group and a
+  remainder (K=2; its one-step graph built), no remainder (K=-1; none
+  built), and K=2 with every epoch a plot epoch (TensorBoard on), whose
+  train latents keep the order in which the steps ran.
 - The repaired helpers against the JAX functions on seeded inputs:
   ``segment_softmax_scatter`` and ``preset_activation`` (tables on the
   module, no boolean-mask gather), the two ``-inf`` sites
@@ -20,7 +24,9 @@ JAX loop's K-step scan, and the graph-safety repairs of the step.
   of ``SynthParamsLoss``); and ``load_optimizer_state`` restoring either
   Adam form into either.
 - On the card (marked ``cuda``, skipped here): K steps replayed from a
-  CUDA graph against K eager steps, a step under
+  CUDA graph against K eager steps, a group followed by replays of the
+  remainder's one-step graph (captured after the group's graph or before
+  it) against eager steps, a step under
   ``torch.cuda.set_sync_debug_mode('error')``, and a capture during which
   the garbage collector would destroy an earlier run's graph.
 
@@ -41,6 +47,7 @@ from preset_gen_vae_tpu_torch.data.dexed_spec import build_dexed_preset_spec
 from preset_gen_vae_tpu_torch.data.pipeline import SplitLoader
 from preset_gen_vae_tpu_torch.data.preset import PresetIndexesHelper
 from preset_gen_vae_tpu_torch.logs.logger import load_checkpoint
+from preset_gen_vae_tpu_torch.logs.metrics import LatentMetric
 from preset_gen_vae_tpu_torch.losses import synth_params as sp
 from preset_gen_vae_tpu_torch.models import regression as reg
 from preset_gen_vae_tpu_torch.models.build import build_extended_ae_model
@@ -83,22 +90,57 @@ def test_grouping_matches_the_jax_loop(steps_per_dispatch):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The runs of the module, on one dataset: K=1, 2 and -1 for 2 epochs;
-    K=2 for 3 epochs; the K=2 2-epoch run resumed for a third."""
+    K=2 for 3 epochs; the K=2 2-epoch run resumed for a third; K=2 for 2
+    plot epochs. ``records`` holds each run's K of every ``TrainGroups``
+    built (``built``), the latents of its train steps in the order they ran
+    (``stepped``) and the train latents that ``LatCorr/Train`` received,
+    an epoch an entry (``logged``)."""
     tmp = tmp_path_factory.mktemp("runs")
     dataset = DexedDataset(n_synthetic_presets=64, operators=(1, 2), device="cpu")
+    records = {}
 
-    def run(name, k, **kw):
+    def run(name, k, use_tensorboard=False, **kw):
+        built, stepped, logged, made = [], [], [], []
+
+        class Groups(TrainGroups):
+            def __init__(self, k, *args, **kwargs):
+                built.append(k)
+                super().__init__(k, *args, **kwargs)
+
+        class Latents(LatentMetric):
+            def __init__(self, *args, **kwargs):
+                made.append(self)
+                super().__init__(*args, **kwargs)
+
+            def append(self, z0_mu, z0):
+                if self is made[0]:  # LatCorr/Train, made first
+                    logged.append((z0_mu.copy(), z0.copy()))
+                super().append(z0_mu, z0)
+
+        def recording_step(*args, **kwargs):
+            m = ts.train_step(*args, **kwargs)
+            if kwargs.get("latents"):
+                stepped.append((m["z0_mu"].float().numpy().copy(), m["z0"].float().numpy().copy()))
+            return m
+
         model_c = cfg.ModelConfig(dataset_synth_args=(None, (1, 2)), logs_root_dir=str(tmp),
                                   run_name=name)
         train_c = cfg.TrainConfig(**{"minibatch_size": BATCH, "save_period": 1, "verbosity": 0,
                                      "n_epochs": 2, "steps_per_dispatch": k, **kw})
-        summary = loop.train_config(model_c, train_c, dataset=dataset, device="cpu",
-                                    use_tensorboard=False)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(loop, "TrainGroups", Groups)
+            mp.setattr(loop, "LatentMetric", Latents)
+            mp.setattr(loop, "train_step", recording_step)
+            summary = loop.train_config(model_c, train_c, dataset=dataset, device="cpu",
+                                        use_tensorboard=use_tensorboard)
+        records[name] = dict(built=built, stepped=stepped, logged=logged)
         return model_c, summary
 
     out = {k: run(f"k{k}", k) for k in (1, 2, -1)}
     out["full"] = run("full", 2, n_epochs=3)
     out["resumed"] = run("k2", 2, start_epoch=2, n_epochs=3)
+    out["plot"] = run("plot", 2, use_tensorboard=True, plot_period=1)
+    out["records"] = records
     return out
 
 
@@ -129,6 +171,32 @@ def test_k_steps_a_dispatch_train_as_one_at_a_time(runs, k):
     assert s["train_steps"] == one["train_steps"] == 6
     # the CPU captures no graph
     assert s["train_graph_captures"] == s["eval_graph_captures"] == s["train_graph_replays"] == 0
+    assert s["remainder_graph_captures"] == s["remainder_graph_replays"] == 0
+
+
+@pytest.mark.parametrize("case, run, built", [("one_group_and_a_remainder", "k2", [2, 1]),
+                                               ("no_remainder", "k-1", [3]),
+                                               ("plot_epochs", "plot", [2, 1])])
+def test_the_steps_left_over_train_as_one_at_a_time(runs, case, run, built):
+    """The epoch's 3 steps at K=2 are a group and one step left over, which
+    a one-step ``TrainGroups`` takes (its graph on the card); K=-1 leaves
+    none and builds no second one. Each run bit-equal to K=1; on the plot
+    epochs the train latents are the steps' own, in the order they ran."""
+    key = {"k2": 2, "k-1": -1, "plot": "plot"}[run]
+    assert_same_run(runs[key], runs[1], 1)
+    record = runs["records"][run]
+    assert record["built"] == built and runs["records"]["k1"]["built"] == []
+    s = runs[key][1]
+    assert s["remainder_graph_captures"] == s["remainder_graph_replays"] == 0  # the CPU's
+    logged, stepped = record["logged"], record["stepped"]
+    if case != "plot_epochs":
+        assert logged == []
+        return
+    assert len(logged) == 2 and len(stepped) == 6  # 2 epochs of 3 steps
+    for epoch, (z0_mu, z0) in enumerate(logged):
+        steps = stepped[3 * epoch:3 * epoch + 3]
+        assert np.array_equal(z0_mu, np.concatenate([m for m, _ in steps]))
+        assert np.array_equal(z0, np.concatenate([z for _, z in steps]))
 
 
 def test_resume_at_k2_is_exact(runs):
@@ -229,7 +297,7 @@ def test_optimizer_state_restores_into_either_form(saved_capturable):
 
 def flagship_on_card():
     """The flagship (float32) and a loader over 64 seeded rows on the card;
-    -> (model, generator, step function, index rows)."""
+    -> (model, optimizer, generator, step function, index rows)."""
     model_c, train_c, helper, x, v, info = ranks.flagship_batch(64)
     model = build_extended_ae_model(model_c, train_c, helper, seed=0).cuda()
     optimizer = ts.make_optimizer(model, train_c)
@@ -246,7 +314,7 @@ def flagship_on_card():
                              latents=latents)
 
     idx = torch.from_numpy(np.stack(list(loader.epoch_index_batches()))).cuda()
-    return model, generator, step, idx
+    return model, optimizer, generator, step, idx
 
 
 def scalar_row(metrics, keys):
@@ -265,9 +333,9 @@ def test_graph_replay_of_k_steps_matches_eager_steps_on_card(monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     keys = ts.SCALARS + ("TotalLoss",)
-    model_a, gen_a, step_a, idx = flagship_on_card()
+    model_a, _, gen_a, step_a, idx = flagship_on_card()
     rows_a = torch.stack([scalar_row(step_a(idx[j]), keys) for j in range(4)])
-    model_b, gen_b, step_b, _ = flagship_on_card()
+    model_b, _, gen_b, step_b, _ = flagship_on_card()
     groups = TrainGroups(2, 16, step_b, keys, torch.device("cuda"), "the test's group", gen_b)
     with groups.call.warm_up():
         rows_b = [scalar_row(step_b(idx[j]), keys) for j in range(2)]
@@ -281,10 +349,52 @@ def test_graph_replay_of_k_steps_matches_eager_steps_on_card(monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("remainder_first", [False, True], ids=["group_first", "remainder_first"])
+def test_one_step_graph_replays_match_eager_steps_on_card(monkeypatch, remainder_first):
+    """7 eager steps against a K=2 group's warm-up (2 eager steps) and its
+    graph (2 steps), with 3 replays of a one-step graph that shares the
+    group's call: captured on the group's stream with no warm-up of its
+    own, after the group's graph and into its pool, or (one group an
+    epoch) before it, in a pool of its own. float32 with TF32 off and
+    cuDNN's deterministic algorithms: the scalar rows, every parameter and
+    buffer, Adam's state and the generator's state bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    keys, dev = ts.SCALARS + ("TotalLoss",), torch.device("cuda")
+    model_a, opt_a, gen_a, step_a, idx = flagship_on_card()
+    idx = torch.cat([idx, idx])[:7]
+    rows_a = torch.stack([scalar_row(step_a(idx[j]), keys) for j in range(7)])
+    model_b, opt_b, gen_b, step_b, _ = flagship_on_card()
+    groups = TrainGroups(2, 16, step_b, keys, dev, "the test's group", gen_b)
+    rest = TrainGroups(1, 16, step_b, keys, dev, "the test's step", gen_b, shares=groups.call)
+    assert rest.call.stream is groups.call.stream
+    with groups.call.warm_up():
+        rows_b = [torch.stack([scalar_row(step_b(idx[j]), keys) for j in range(2)])]
+    j = 2
+    for graphs in ([rest, groups, rest, rest] if remainder_first else [groups, rest, rest, rest]):
+        rows_b.append(graphs.run(idx[j:j + graphs.k])[0].clone())
+        j += graphs.k
+    torch.cuda.synchronize()
+    assert (groups.call.captures, groups.call.replays) == (1, 1)
+    assert (rest.call.captures, rest.call.replays) == (1, 3)
+    assert torch.equal(rows_a, torch.cat(rows_b))
+    for (k, a), b in zip(model_a.state_dict().items(), model_b.state_dict().values()):
+        assert torch.equal(a, b), k
+    sa, sb = opt_a.state_dict()["state"], opt_b.state_dict()["state"]
+    assert sa.keys() == sb.keys() and len(sa) > 100
+    for i, st in sa.items():
+        for k, t in st.items():
+            assert torch.equal(sb[i][k], t), (i, k)
+    assert torch.equal(gen_a.get_state(), gen_b.get_state())
+
+
+@pytest.mark.cuda
 def test_a_step_makes_the_host_wait_nowhere_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the sync check reads the card's stream")
-    _, _, step, idx = flagship_on_card()
+    _, _, _, step, idx = flagship_on_card()
     step(idx[0])  # the first step builds the device tables
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -307,7 +417,7 @@ def test_an_earlier_runs_graph_collected_during_a_capture_on_card():
     keys = ts.SCALARS + ("TotalLoss",)
     threshold = gc.get_threshold()
     for n in range(2):
-        model, gen, step, idx = flagship_on_card()
+        model, _, gen, step, idx = flagship_on_card()
         groups = TrainGroups(2, 16, step, keys, torch.device("cuda"), f"run {n}", gen)
         with groups.call.warm_up():
             for j in range(2):

@@ -7,7 +7,9 @@ the evaluation pass open them.
 - ``train_config`` on the loop tests' 64-preset corpus (40 train items) at
   batch 5 and K = 3, 8 batches an epoch (two groups, two steps left over),
   over 3 epochs: the spans of the two epochs after the first match
-  ``dispatch_sizes``, each epoch's top-level spans cover its wall within
+  ``dispatch_sizes``, the steps left over replayed from the one-step graph
+  (on the CPU its body, eagerly) and only the first epoch's warm-up
+  group stepping eagerly, each epoch's top-level spans cover its wall within
   5%, the logger's epoch times are the epoch spans', and every number of
   the summary is finite.
 - ``evaluate_model`` on that run: every phase key, each part no larger
@@ -140,8 +142,9 @@ def test_train_spans_match_the_dispatch(trained):
         window * len(groups), window * sum(groups))
     assert (t["epoch.remainder"]["n"], t["epoch.remainder"]["steps"]) == (
         window, window * len(singles))
-    assert t["train_step"]["n"] == window * len(singles)
-    assert "epoch.warmup" not in t and "epoch.capture" not in t  # the first epoch's
+    assert t["epoch.remainder"]["replayed"] == window * len(singles)
+    # the first epoch's: no step of the window runs eagerly
+    assert "epoch.warmup" not in t and "epoch.capture" not in t and "train_step" not in t
     for name in ("epoch.start", "epoch.batches", "epoch.fetch", "epoch.train_scalars",
                  "epoch.validation", "epoch.validation.batches", "epoch.validation.steps",
                  "epoch.validation.fetch", "epoch.validation.scalars", "epoch.schedule",
@@ -152,8 +155,9 @@ def test_train_spans_match_the_dispatch(trained):
         "epoch.validation.scalars", "epoch.schedule", "epoch.checkpoint", "epoch.log"}
     # the first epoch: its warm-up group, then the groups and steps of every epoch
     first = trained["spans"].totals([trained["train_c"].start_epoch])
-    assert first["epoch.warmup"]["steps"] == groups[0]
+    assert first["epoch.warmup"]["steps"] == first["train_step"]["n"] == groups[0]
     assert first["epoch.replays"]["steps"] + groups[0] == sum(groups)
+    assert first["epoch.remainder"]["replayed"] == first["epoch.remainder"]["steps"] == len(singles)
 
 
 def test_train_spans_cover_each_epoch(trained):
