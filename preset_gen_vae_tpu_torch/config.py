@@ -7,7 +7,8 @@ unchanged apart from this paragraph, one default of ``EvalConfig``
 ``main_cuda_device_idx``, the profiler fields, the parallel fields
 (``data_parallel_devices`` to ``force_multihost_data``), ``compute_dtype``
 and ``dataset_cache_device``, which say what the fields mean in this
-package.
+package; and ``resolve`` sets the epoch counts only in a config that it
+has not resolved already (see there).
 
 Typed, functional configuration system.
 
@@ -262,6 +263,11 @@ def resolve(model: ModelConfig, train: TrainConfig) -> Tuple[ModelConfig, TrainC
     (reference: config.py:148-202). Returns *new* config objects."""
     model = dataclasses.replace(model)
     train = dataclasses.replace(train)
+    # a config that resolve made (a run's config.json) holds its derived
+    # flags, and its epoch counts already reset or divided: a second
+    # resolve, as train_config makes of a saved run's config, leaves the
+    # counts as they are
+    flags = (model.increased_dataset_size, model.concat_midi_to_z)
 
     # stack_spectrograms must be False for 1-note datasets (config.py:155)
     model.stack_spectrograms = model.stack_spectrograms and (len(model.midi_notes) > 1)
@@ -274,17 +280,19 @@ def resolve(model: ModelConfig, train: TrainConfig) -> Tuple[ModelConfig, TrainC
         model.spectrogram_size[1],
     )
 
+    resolved = flags == (model.increased_dataset_size, model.concat_midi_to_z)
+
     train.early_stop_lr_threshold = train.initial_learning_rate * 1e-3
     train.logged_samples_count = max(train.logged_samples_count, len(model.midi_notes))
     # Epoch counts increased for algorithm-restricted (reduced) datasets (config.py:167-172)
-    if model.dataset_synth_args[0] is not None:
+    if model.dataset_synth_args[0] is not None and not resolved:
         train.n_epochs = 700
         train.lr_warmup_epochs = 10
         train.scheduler_patience = 10
         train.scheduler_cooldown = 10
         train.beta_warmup_epochs = 40
     # Epoch counts reduced for artificially increased datasets (config.py:175-181)
-    if model.increased_dataset_size:
+    if model.increased_dataset_size and not resolved:
         N = len(model.midi_notes) - 1
         train.n_epochs = 1 + train.n_epochs // N
         train.lr_warmup_epochs = 1 + train.lr_warmup_epochs // N

@@ -87,7 +87,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,7 +103,7 @@ from ..parallel import multihost, sharding_rules
 from ..utils.exception import check_nan_values
 from ..utils.hparams import LinearDynamicParam
 from ..utils.profile import Spans, get_optional_profiler
-from .dispatch import EvalReplays, TrainGroups, dispatch_k, dispatch_sizes
+from .dispatch import EvalReplays, GraphedCall, TrainGroups, dispatch_k, dispatch_sizes
 from .schedulers import ReduceLROnPlateau
 from .train_step import (
     Criteria,
@@ -234,7 +234,10 @@ def train_config(model_config: Optional[cfg.ModelConfig] = None,
 
     Host-only: ``epoch.start``, ``epoch.batches``, ``epoch.train_scalars``,
     ``epoch.validation.batches``, ``epoch.validation.scalars``,
-    ``epoch.schedule``, ``epoch.checkpoint``, ``epoch.log``."""
+    ``epoch.schedule``, ``epoch.checkpoint``, ``epoch.log``.
+
+    The summary's ``memory`` splits what the run holds on the card at the
+    call's end (``device_memory``); None off the card."""
     dev = resolve_device(device)
     model_c, train_c = cfg.resolve(model_config or cfg.ModelConfig(),
                                    train_config or cfg.TrainConfig())
@@ -625,6 +628,8 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
         # where the corpus lives (the host-fed pipeline: not on the device)
         "dataset_cache_device": train_c.dataset_cache_device,
         "corpus_bytes": corpus_x.numel() * corpus_x.element_size(),
+        "memory": device_memory(dev, model, optimizer, corpus_x,
+                                [g.call for g in (*train_graphs, evals) if g is not None]),
     }
     if tp_report is not None:  # (loop.py:890-891 there)
         summary["tp_kernels_sharded"] = tp_report[0]
@@ -634,6 +639,39 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
         if k != "Sched/LR" and getattr(s, "has_data", True):
             summary[k] = s.get()
     return summary
+
+
+def device_memory(dev: torch.device, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                  corpus_x: torch.Tensor, calls: List[GraphedCall]) -> Optional[Dict[str, int]]:
+    """What the run holds on the card at the call's end, or None off the
+    card: ``resident_bytes``, the tensors allocated in the caching
+    allocator's default pool and the whole of the private pools of the
+    graphed ``calls`` (a replay writes its activations, workspaces and
+    outputs anywhere in its pool, which stays reserved while its graph
+    lives); of it, ``corpus_bytes``, the resident corpus's spectrograms (0
+    where the corpus is fed from the host), and ``model_state_bytes``, the
+    parameters, buffers and optimizer state, what a checkpoint saves (Adam
+    makes its state at the first step). The gradients are not model state
+    here: each step sets them to None and its backward makes them anew, in
+    a graph's pool where the step is replayed. The allocator's own
+    bookkeeping: no wait for the card, and its peak statistics are left as
+    they are."""
+    if dev.type != "cuda":
+        return None
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    pools = {tuple(call.graph.pool()) for call in calls if call.graph is not None}
+    resident = sum(seg["total_size"] if tuple(seg["segment_pool_id"]) in pools
+                   else seg["allocated_size"]
+                   for seg in torch.cuda.memory_snapshot() if seg["device"] == index)
+    owned = {id(t): t for t in (*model.parameters(), *model.buffers())}
+    owned.update((id(t), t) for state in optimizer.state.values() for t in state.values()
+                 if torch.is_tensor(t))
+    return {
+        "resident_bytes": resident,
+        "corpus_bytes": corpus_x.numel() * corpus_x.element_size() if corpus_x.is_cuda else 0,
+        "model_state_bytes": sum(t.numel() * t.element_size() for t in owned.values()
+                                 if t.device.type == "cuda"),
+    }
 
 
 def valid_real_rows(loader, i: int) -> int:

@@ -97,6 +97,47 @@ def test_multi_mode_resolves_the_epochs_as_the_jax_package():
         assert ours[0].increased_dataset_size is ours[0].concat_midi_to_z is (mode == "multi")
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_a_resolved_config_resolves_to_itself(mode):
+    """``train_config`` resolves what it is given, and a saved run's
+    ``config.json`` is resolved already: resolving it again keeps its
+    epoch counts, reset for a restricted dataset or divided for an
+    increased one (the JAX package's ``resolve`` would
+    divide them a second time: 81 epochs to 17), so that the saved run
+    trains as published and a resume at epoch 199 of 200 stays 200
+    epochs long."""
+    fields = ("n_epochs", "lr_warmup_epochs", "scheduler_patience", "scheduler_cooldown",
+              "beta_warmup_epochs")
+    once = cfg.resolve(*run_6note.run_configs(mode, N_PRESETS, 400))
+    twice = cfg.resolve(*once)
+    assert twice == once
+    saved = sorted((ROOT / "saved" / "FlVAE2").glob(f"r5{mode}6_v2_*/config.json"))
+    assert len(saved) == (2 if mode == "multi" else 1)  # multi: 8,192 and 12,288 presets
+    for path in saved:
+        model_c, train_c = cfg.load_config(path)
+        resolved = cfg.resolve(model_c, train_c)[1]
+        assert tuple(getattr(resolved, k) for k in fields) == tuple(
+            getattr(train_c, k) for k in fields)
+        assert tuple(getattr(train_c, k) for k in fields) == (
+            (81, 2, 2, 2, 6) if mode == "multi" else (400, 6, 6, 6, 25))
+        resumed = cfg.resolve(model_c, dataclasses.replace(train_c, start_epoch=199,
+                                                           n_epochs=200))[1]
+        assert (resumed.start_epoch, resumed.n_epochs) == (199, 200)
+    # restricted to some algorithms: the counts reset to 700, 10, 10, 10,
+    # 40, then divided where the notes are items; a second resolve neither
+    # resets nor divides them again
+    model_c, train_c = run_6note.run_configs(mode, N_PRESETS, 400)
+    restricted = cfg.resolve(dataclasses.replace(model_c, dataset_synth_args=((1, 2), None)),
+                             train_c)
+    assert tuple(getattr(restricted[1], k) for k in fields) == (
+        (141, 3, 3, 3, 9) if mode == "multi" else (700, 10, 10, 10, 40))
+    assert cfg.resolve(*restricted) == restricted
+    # a derived flag set by the caller does not make a config resolved
+    flagged = cfg.resolve(dataclasses.replace(model_c, increased_dataset_size=True), train_c)
+    assert tuple(getattr(flagged[1], k) for k in fields) == tuple(
+        getattr(once[1], k) for k in fields)
+
+
 @pytest.mark.parametrize("n", [N_PRESETS, 12288, 20480])
 @pytest.mark.parametrize("mode", MODES)
 def test_run_name_is_never_a_saved_jax_run(mode, n):

@@ -16,12 +16,17 @@ MIDI pitch and velocity in z0 (``r5multi6_v2_12288``).
   each channel with its own batch statistics and chains C running-statistic
   updates, which the BN check after the step would catch if the channels
   were folded into the batch.
+- One train step of the un-stacked six-note model with MIDI in z0, at its
+  published widths, and the eval step after it, at the same bars; with
+  the items' notes permuted on the port's side, the step falls outside
+  them.
 - The loop and the evaluation end to end on the CPU for both layouts.
 
 Flows are cut to 3 layers (widths, dim_z 610 and 257x347 kept), as in
 tests/test_torch_port_train.py, so the JAX compiles stay short.
 """
 
+import copy
 import json
 import pathlib
 import tempfile
@@ -49,9 +54,13 @@ from preset_gen_vae_tpu_torch.training.loop import train_config
 from _torch_port_fixtures import isolated_data_root, two_torch_threads  # noqa: F401 (autouse)
 from test_torch_port_model import B, H, W, flagship_pair
 from test_torch_port_train import (
+    BETA,
     assert_batch_stats_match,
+    assert_eval_step_matches,
     assert_gradients_align,
     assert_loss_terms_match,
+    batch_stats_rel_errors,
+    gradient_cosines,
     step_both,
 )
 
@@ -251,6 +260,65 @@ def test_stack6_train_step_gradients_align_with_jax(stepped_stack6):
 
 def test_stack6_batch_stats_after_step_match_jax(stepped_stack6):
     assert_batch_stats_match(stepped_stack6, min_stats=50)
+
+
+@pytest.fixture(scope="module")
+def stepped_multi6():
+    """The un-stacked six notes with MIDI in z0 at their published widths
+    (mixers 1800 wide, dim_z 610 of which the encoder emits 608, 257x347;
+    2-layer flows as above): one train step on both sides, each item with
+    its own note; and, beside it, the port's step from the same weights
+    with the notes' (pitch, velocity) moved one item on in ``info``, the
+    spectrograms, targets and noise unchanged."""
+    start = []
+    st = step_both({}, dict(CONFIGS["multi6_midi_z0"], **E2E_FLOWS),
+                   adjust=lambda model: start.append(copy.deepcopy(model)))
+    pm, pt, _, _ = st["configs"]
+    x, v, info = st["data"]
+    assert len({tuple(r) for r in info[:, 1:]}) == len(info)  # a note an item
+    permuted = info.copy()
+    permuted[:, 1:] = np.roll(info[:, 1:], 1, axis=0)
+    port = start[0]
+    m = ts.train_step(port, ts.make_optimizer(port, pt), ts.Criteria(pm, pt, st["helpers"][0]),
+                      pt, torch.from_numpy(x), torch.from_numpy(v), torch.from_numpy(permuted),
+                      BETA, noise=torch.from_numpy(st["noise"]))
+    st["permuted"] = dict(st, port=port, m=m)
+    return st
+
+
+def test_multi6_train_step_loss_terms_match_jax(stepped_multi6):
+    assert stepped_multi6["port"].ae_model.encoder.mix7.Conv_0.out_channels == 1800
+    assert_loss_terms_match(stepped_multi6)
+
+
+def test_multi6_train_step_gradients_align_with_jax(stepped_multi6):
+    assert_gradients_align(stepped_multi6)
+
+
+def test_multi6_batch_stats_after_step_match_jax(stepped_multi6):
+    assert_batch_stats_match(stepped_multi6, min_stats=50)
+
+
+def test_multi6_eval_step_metrics_match_jax(stepped_multi6):
+    assert_eval_step_matches(stepped_multi6)
+
+
+def test_multi6_permuted_notes_fall_outside_the_jax_bars(stepped_multi6):
+    """The port's step with each item given another item's note, against
+    the JAX step on the true notes, fails each bar above, so that they
+    see the MIDI path. Measured: the controls loss 5.0e-3 and the total
+    3.2e-3 relative off (bar 2e-3; MIDI is 2 of the decoder's 610 inputs,
+    so the reconstruction moves only 2.7e-4), gradient cosines median
+    0.72 and least -0.21 (bars 0.99 and 0.95), running statistics median
+    2.2e-3 and worst 3.4e-2 (bars 1e-5 and 1e-4)."""
+    st = stepped_multi6["permuted"]
+    m, (_, _, j_cont) = st["m"], st["j_terms"]
+    assert float(m["Controls/BackpropLoss"]) != pytest.approx(j_cont, rel=2e-3)
+    assert float(m["TotalLoss"]) != pytest.approx(st["j_total"], rel=2e-3)
+    cosines, _ = gradient_cosines(st)
+    assert float(np.median(cosines)) < 0.9 and min(cosines) < 0.5
+    rel = list(batch_stats_rel_errors(st).values())
+    assert float(np.median(rel)) > 1e-3 and max(rel) > 1e-2
 
 
 # ---------------------------------------------------------------- end to end

@@ -102,7 +102,8 @@ def step_both(train_kwargs, model_kwargs, adjust=None):
     return dict(port=port, ext=ext, jvars=jvars, configs=(pm, pt, jm, jt), helpers=(helper, jhelper),
                 data=(x, v, info), j_total=float(j_total), j_terms=[float(t) for t in j_terms],
                 j_bs=jax.device_get(j_bs), j_grads=jax.device_get(j_grads), m=m,
-                flows_before=flows_before, flow_inputs={"ae_model": z0, "reg_model": np.asarray(j_outs[2])})
+                flows_before=flows_before, flow_inputs={"ae_model": z0, "reg_model": np.asarray(j_outs[2])},
+                noise=noise.astype(np.float32))
 
 
 def assert_loss_terms_match(st):
@@ -113,7 +114,9 @@ def assert_loss_terms_match(st):
     assert float(m["TotalLoss"]) == pytest.approx(st["j_total"], rel=2e-3)
 
 
-def assert_gradients_align(st, min_leaves=100):
+def gradient_cosines(st):
+    """Each parameter's gradient cosine with the JAX one, and the number
+    of parameters."""
     port, j_grads = st["port"], st["j_grads"]
     cosines, n = [], 0
     for key, coll, path, tf in weights.flax_leaves(port):
@@ -128,7 +131,12 @@ def assert_gradients_align(st, min_leaves=100):
         if nt / np.sqrt(tg.size) < 1e-6 and nj / np.sqrt(jg.size) < 1e-6:
             continue
         cosines.append(float(tg @ jg / (nt * nj + 1e-30)))
-    assert n == len(list(port.parameters())) and len(cosines) > min_leaves
+    return cosines, n
+
+
+def assert_gradients_align(st, min_leaves=100):
+    cosines, n = gradient_cosines(st)
+    assert n == len(list(st["port"].parameters())) and len(cosines) > min_leaves
     assert min(cosines) > 0.95, sorted(cosines)[:5]
     assert float(np.median(cosines)) > 0.99
 
@@ -150,6 +158,24 @@ def assert_batch_stats_match(st, min_stats=60):
     assert float(np.median(list(rel.values()))) < 1e-5
     worst = max(rel, key=rel.get)
     assert rel[worst] < 1e-4, (worst, rel[worst])
+
+
+def assert_eval_step_matches(stepped):
+    """The eval step after the train step, on the port's updated weights:
+    each metric within the loss terms' bar."""
+    port, ext = stepped["port"], stepped["ext"]
+    pm, pt, jm, jt = stepped["configs"]
+    (helper, jhelper), (x, v, info) = stepped["helpers"], stepped["data"]
+    jvars = jax.tree_util.tree_map(jnp.asarray, weights.flax_variables_from_model(port))
+    state = create_train_state(ext, jvars, jt)
+    jm_ = jax.device_get(jax.jit(make_eval_step(ext, jm, jt, jhelper))(
+        state, jnp.asarray(x), jnp.asarray(v), jnp.asarray(info)))
+    tm = ts.eval_step(port, ts.Criteria(pm, pt, helper), pt, torch.from_numpy(x),
+                      torch.from_numpy(v), torch.from_numpy(info))
+    for k in ("ReconsLoss/Backprop", "ReconsLoss/MSE", "LatLoss", "Controls/BackpropLoss",
+              "Controls/QLoss", "Controls/Accuracy"):
+        assert float(tm[k]) == pytest.approx(float(jm_[k]), rel=2e-3, abs=1e-6), k
+    assert float(tm["FlowInputReg"]) == 0.0
 
 
 @pytest.fixture(scope="module")
@@ -201,20 +227,7 @@ def test_batch_stats_after_step_match_jax(stepped):
 
 
 def test_eval_step_metrics_match_jax(stepped):
-    """The eval step after the train step, on the port's updated weights."""
-    port, ext = stepped["port"], stepped["ext"]
-    pm, pt, jm, jt = stepped["configs"]
-    (helper, jhelper), (x, v, info) = stepped["helpers"], stepped["data"]
-    jvars = jax.tree_util.tree_map(jnp.asarray, weights.flax_variables_from_model(port))
-    state = create_train_state(ext, jvars, jt)
-    jm_ = jax.device_get(jax.jit(make_eval_step(ext, jm, jt, jhelper))(
-        state, jnp.asarray(x), jnp.asarray(v), jnp.asarray(info)))
-    tm = ts.eval_step(port, ts.Criteria(pm, pt, helper), pt, torch.from_numpy(x),
-                      torch.from_numpy(v), torch.from_numpy(info))
-    for k in ("ReconsLoss/Backprop", "ReconsLoss/MSE", "LatLoss", "Controls/BackpropLoss",
-              "Controls/QLoss", "Controls/Accuracy"):
-        assert float(tm[k]) == pytest.approx(float(jm_[k]), rel=2e-3, abs=1e-6), k
-    assert float(tm["FlowInputReg"]) == 0.0
+    assert_eval_step_matches(stepped)
 
 
 def test_adam_is_coupled_l2_like_make_optimizer():
@@ -246,6 +259,7 @@ def test_tiny_train_config_on_cpu(tmp_path):
         dataset_kwargs={"n_synthetic_presets": 64})
     assert summary["device"] == "cpu" and summary["train_steps"] == 2
     assert summary["input_size"] == [16, 1, 257, 347]
+    assert summary["memory"] is None  # the card's memory split: off the card, nothing to read
     vals = [v for v in summary.values() if isinstance(v, float)]
     assert len(vals) > 15 and all(np.isfinite(vals))
     run_dir = tmp_path / "FlVAE2" / "00_debug"
