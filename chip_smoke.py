@@ -20,7 +20,10 @@ F2b, F2's backward (three kernels), against its plain version
 those three shapes (at the corpus pass's shape against F2's plain phases
 composed) and times it beside F2, each of the two backwards' kernels by
 CUDA events, and their serial chains (F1b on 8 items, F2b on one), with
-the earlier designs' times beside, then
+the earlier designs' times beside, holds the decoder's output transposed
+conv kernel (``csrc/tconv_out.cu``) against cuDNN at the train step's
+shape in bf16 and times it beside its bound, its plain version and the
+library call, then
 drives the port's main path through its user entry
 points with the flagship FlVAE2 at full width (257x347 log-mels, dim_z 610,
 batch 160) on a seeded synthetic 1,024-preset corpus, in three paths, each
@@ -380,17 +383,91 @@ def phase_kernels():
     return entry
 
 
+TCONV_SHAPE = (160, 8, 129, 174)  # dec7's input at the train step's batch (speccnn8l1_bn)
+
+
+def tconv_out_work(B: int, C: int, H: int, W: int, elem_bytes: int):
+    """(bytes, flops) of the decoder's output transposed conv (C -> 1, 5x5,
+    stride 2, padding 2) on (B, C, H, W): input, weight, bias read once and
+    the (B, 1, 2H - 1, 2W - 1) output written once; a multiply-add for each
+    channel and each tap of an output pixel that falls inside the input (9,
+    6, 6 or 4 by the pixel's parity inside the image). The taps separate by
+    rows and columns, so their count is the product of the two sums."""
+    def taps(n: int) -> int:
+        out = np.arange(2 * n - 1)[:, None]
+        k = np.arange(5)[None, :]
+        src = out + 2 - k
+        return int(((src % 2 == 0) & (src >= 0) & (src < 2 * n)).sum())
+
+    nbytes = elem_bytes * (B * C * H * W + C * 25 + 1 + B * (2 * H - 1) * (2 * W - 1))
+    return nbytes, 2 * B * C * taps(H) * taps(W)
+
+
+def phase_tconv_out():
+    """The decoder's output conv kernel at the train step's shape, bf16,
+    channels_last: against cuDNN (bit-equal: no output differs), then timed
+    beside its bound, its plain version (``F.conv_transpose2d``, cuDNN on
+    the card) and that library call, two inputs in turn (L2 cold)."""
+    import torch.nn.functional as F
+
+    from preset_gen_vae_tpu_torch.ops import tconv_out as to
+
+    print(f"[build] tconv_out\n"
+          f"{ptxas_report('tconv_out', to.tconv_out_build_command(), to.TCONV_OUT_SOURCE)}",
+          flush=True)
+    rng = np.random.default_rng(0)
+    B, C, H, W = TCONV_SHAPE
+    lim = (1.0 / (C * 25)) ** 0.5
+
+    def operands():  # the input channels_last, as the decoder hands it over
+        x = torch.from_numpy(rng.standard_normal(TCONV_SHAPE).astype(np.float32))
+        w = torch.from_numpy(rng.uniform(-lim, lim, (C, 1, 5, 5)).astype(np.float32))
+        b = torch.from_numpy(rng.uniform(-lim, lim, (1,)).astype(np.float32))
+        x, w, b = [t.cuda().to(torch.bfloat16) for t in (x, w, b)]
+        return x.to(memory_format=torch.channels_last), w, b
+
+    inputs = [operands() for _ in range(2)]
+    x, w, b = inputs[0]
+    got, ref = to.launch(x, w, b), F.conv_transpose2d(x, w, b, 2, 2)
+    torch.cuda.synchronize()
+    share = float((got != ref).float().mean())
+    err = float((got.float() - ref.float()).abs().max())
+    if got.shape != ref.shape or share > 0:
+        raise AssertionError(f"tconv_out: shape {tuple(got.shape)} vs {tuple(ref.shape)}, share "
+                             f"differing from cuDNN {share} (want 0)")
+    ms = cuda_ms(lambda a: to.launch(*a), inputs)
+    plain_ms = cuda_ms(lambda a: to.plain(*a), inputs)
+    library_ms = cuda_ms(lambda a: F.conv_transpose2d(*a, 2, 2), inputs)
+    nbytes, flops = tconv_out_work(B, C, H, W, 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    print(f"[tconv_out] bf16 {TCONV_SHAPE}: {share:.3e} of the outputs differ from cuDNN's "
+          f"(max |diff| {err:.3e}); kernel {ms:.4f} ms, plain (F.conv_transpose2d) "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+          f"{nbytes / 1e6:.2f} MB = {t_bytes:.4f} ms, {flops / 2e9:.3f} G FMA = {t_ops:.4f} ms);"
+          f" {bound_ms / ms:.1%} of the bound, {library_ms / ms:.1f}x faster than the library",
+          flush=True)
+    return {"name": "tconv_out", "route": "cuda",
+            "source": "preset_gen_vae_tpu_torch/csrc/tconv_out.cu", "replaces": None,
+            "launches": None, "share_differing": share, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": library_ms}
+
+
 def build_kernels():
-    """Builds K1 and F1/F2 at once, one nvcc each, started together."""
+    """Builds K1, F1/F2 and the decoder's output conv at once, one nvcc
+    each, started together."""
     from preset_gen_vae_tpu_torch.ops import spectrogram as sp
+    from preset_gen_vae_tpu_torch.ops import tconv_out as to
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
 
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        for build in [pool.submit(fn) for fn in (sp._logmel_library, ft._fm_library)]:
+        for build in [pool.submit(fn) for fn in (sp._logmel_library, ft._fm_library,
+                                                 to._tconv_out_library)]:
             build.result()  # re-raises a failed build
-    print(f"[build] logmel.cu and fm_render.cu built in parallel in {time.time() - t0:.1f} s",
-          flush=True)
+    print(f"[build] logmel.cu, fm_render.cu and tconv_out.cu built in parallel in "
+          f"{time.time() - t0:.1f} s", flush=True)
 
 
 FM_SHORT = 4096  # samples of the F1/F2 checks against the plain loops
@@ -1401,6 +1478,21 @@ def fresh_corpus(corpus: dict, root, name: str) -> dict:
 SUMMARY = []
 
 
+def launch_counters():
+    """Each kernel wrapper's launch counts (K1; F1, F2, F1b, F2b; the
+    decoder's output conv)."""
+    from preset_gen_vae_tpu_torch.ops import spectrogram as sp
+    from preset_gen_vae_tpu_torch.ops import tconv_out as to
+    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
+
+    return sp.LAUNCHES, ft.LAUNCHES, to.LAUNCHES
+
+
+def all_launches() -> dict:
+    """Every kernel's launches so far in this process, by name."""
+    return {k: n for counts in launch_counters() for k, n in counts.items()}
+
+
 def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0, bwd2: int = 0,
           n_ticks: int = SAMPLES // 32):
     """Runs one path of the main path with every kernel's launch count set
@@ -1415,10 +1507,9 @@ def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0, bwd2: int 
     render) and F2b and each of its three kernels ``bwd2`` times (one per
     gradient through F2). Records the path's line of ``SUMMARY``.
     -> (result, launches, wall seconds, peak device GiB)."""
-    from preset_gen_vae_tpu_torch.ops import spectrogram as sp
     from preset_gen_vae_tpu_torch.synth import fm_torch as ft
 
-    for counts in (sp.LAUNCHES, ft.LAUNCHES):
+    for counts in launch_counters():
         for k in counts:
             counts[k] = 0
     gc.collect()  # the previous path's tensors must not count in this one's peak
@@ -1427,7 +1518,7 @@ def drive(name: str, fn, fm: int = 0, k1=None, f1=None, bwd: int = 0, bwd2: int 
     result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**sp.LAUNCHES, **ft.LAUNCHES}
+    launches = all_launches()
     if (launches["logmel"] < 1) if k1 is None else (launches["logmel"] != k1):
         raise AssertionError(f"K1 launched {launches['logmel']} times on the {name} path, want "
                              f"{'at least 1' if k1 is None else k1}: {launches}")
@@ -2315,9 +2406,10 @@ def phase_variant_paths(root: str):
     variant_eval(counts, "stack6 eval", model_c, summary["run_dir"], CORPUS_V2)
 
     # ---- 6 un-stacked notes, MIDI in z0, 1800-channel mixers, 2 epochs
-    # (24 steps each: a group of 16, the graph's warm-up, then replayed);
-    # the un-stacked notes divide the epochs, 1 + n_epochs // 5 (config.py)
-    model_c, train_c = saved_run_configs("r5multi6_v2_12288", root, n_epochs=5)
+    # (24 steps each: a group of 16, the graph's warm-up, then replayed); a
+    # saved config is resolved already, so its epoch counts stand as given
+    # (config.py: resolve divides an un-stacked run's counts only once)
+    model_c, train_c = saved_run_configs("r5multi6_v2_12288", root, n_epochs=2)
     summary = variant_train(counts, "multi6 train", model_c, train_c, CORPUS_V2, 2, 610)
     n_train = len(split_preset_indexes(CORPUS_V2["n_synthetic_presets"])["train"]) * 6
     if summary["train_steps"] != 2 * (n_train // train_c.minibatch_size):
@@ -2736,9 +2828,7 @@ def phase_cli(root: str, train_summary: dict):
     last line."""
     from preset_gen_vae_tpu_torch import config as cfg
     from preset_gen_vae_tpu_torch.logs.logger import list_checkpoint_epochs
-    from preset_gen_vae_tpu_torch.ops import spectrogram as sp
     from preset_gen_vae_tpu_torch.scripts import train_queue
-    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
     from preset_gen_vae_tpu_torch.training import loop
 
     counts = {}
@@ -2758,7 +2848,7 @@ def phase_cli(root: str, train_summary: dict):
         "--logs-root", root, "--n-presets", str(CORPUS["n_synthetic_presets"]),
         "--data-root", data_root), k1=0)
     launched = json.loads(out.strip().splitlines()[-1])["launches"]
-    counts["cli_eval"] = {k: launched.get(k, 0) for k in {**sp.LAUNCHES, **ft.LAUNCHES}}
+    counts["cli_eval"] = {k: launched.get(k, 0) for k in all_launches()}
     c = counts["cli_eval"]
     if c["logmel"] < 1 or c["fm_control"] != 1 or c["fm_exact"] != 1:
         raise AssertionError(f"cli_eval: the subprocess launched {launched}, want K1 at least "
@@ -2962,8 +3052,6 @@ def tp_train_rank(rank: int, world: int, store: str, out: str, model_c, train_c,
     group, its steps eager as the grid's (``force_multihost_data``)."""
     import torch.distributed as dist
 
-    from preset_gen_vae_tpu_torch.ops import spectrogram as sp
-    from preset_gen_vae_tpu_torch.synth import fm_torch as ft
     from preset_gen_vae_tpu_torch.training.loop import train_config
 
     twin = world == 1
@@ -2977,7 +3065,7 @@ def tp_train_rank(rank: int, world: int, store: str, out: str, model_c, train_c,
         with column_twin_builds(train_c.tp_min_elements) if twin else contextlib.nullcontext():
             summary = train_config(model_c, train_c, device="cuda:0", use_tensorboard=False,
                                    dataset_kwargs=kwargs)
-        torch.save({"summary": summary, "launches": {**sp.LAUNCHES, **ft.LAUNCHES},
+        torch.save({"summary": summary, "launches": all_launches(),
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30},
                    f"{out}/rank{rank}.pt")
     finally:
@@ -3409,6 +3497,7 @@ def main(argv=None) -> int:
     fm = phase_fm_kernels()
     f1b = phase_f1b()
     f2b = phase_f2b()
+    tconv = phase_tconv_out()
     root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     try:
         counts, train_summary = phase_main_path(root)
@@ -3434,9 +3523,9 @@ def main(argv=None) -> int:
         counts.update(phase_cli_protocols(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    kernels = [k1, *fm, f1b, f2b]
+    kernels = [k1, *fm, f1b, f2b, tconv]
     for entry in kernels:
-        entry["launches_by_path"] = {name: c[entry["name"]] for name, c in counts.items()}
+        entry["launches_by_path"] = {name: c.get(entry["name"], 0) for name, c in counts.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
         if "kernels" in entry:
             entry["launches_by_kernel"] = {k: sum(c[k] for c in counts.values())

@@ -52,6 +52,7 @@ from ..logs.logger import get_run_dir, load_checkpoint
 from ..logs.metrics import LatentMetric
 from ..losses.synth_params import CategoricalParamsAccuracy, QuantizedNumericalParamsLoss
 from ..models.build import build_extended_ae_model
+from ..ops import tconv_out
 from ..synth import dexed_params as dx
 from ..synth import fm_torch
 from ..synth.render import engine_version
@@ -170,13 +171,15 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
     ``artifacts.write`` (the npz, npy and json files) and ``artifacts.means``
     (``per_uid_means``). Every key is there, 0.0 where its phase does not
     run (``render`` and ``similarity`` without ``render_audio``; the files
-    where the run dir is missing). ``latents`` receives the ``z0`` and ``zK``
-    rows (N, dim_z) of the evaluated items, in the order of the per-item
-    table."""
+    where the run dir is missing). Beside the seconds, ``tconv_out_launches``
+    counts the pass's launches of the decoder's output conv kernel (0 on
+    the CPU). ``latents`` receives the ``z0`` and ``zK`` rows (N, dim_z) of
+    the evaluated items, in the order of the per-item table."""
     dev = resolve_device(device)
     if eval_config.audio_render_backend not in ("jax", "cpp"):
         raise ValueError(f"audio_render_backend={eval_config.audio_render_backend!r}")
     spans = Spans(dev)
+    tconv_out_launches = tconv_out.LAUNCHES["tconv_out"]
 
     @contextlib.contextmanager
     def phase(name):
@@ -295,6 +298,7 @@ def evaluate_model(model_config: cfg.ModelConfig, train_config: cfg.TrainConfig,
     if phase_seconds is not None:
         totals = spans.totals()
         phase_seconds.update({k: totals[k]["s"] if k in totals else 0.0 for k in PHASES})
+        phase_seconds["tconv_out_launches"] = tconv_out.LAUNCHES["tconv_out"] - tconv_out_launches
     return means
 
 

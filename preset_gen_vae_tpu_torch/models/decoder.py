@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops.tconv_out import conv_transpose_out, takes_geometry
 from .layers import TConv2DBlock, _pair, dropout, f32_linear, widen
 
 
@@ -127,7 +128,11 @@ def decoder_tconv_specs(architecture: str, force_bigger_network: bool = False):
 
 class DecoderCNN(nn.Module):
     """Transposed-conv stack, blocks named ``dec1..decN``; the last one is a
-    bare transposed conv (counterpart: decoder.py:134-162)."""
+    bare transposed conv (counterpart: decoder.py:134-162). A bare one with
+    the geometry of ``ops/tconv_out.py`` (one output channel, 5x5, stride 2,
+    padding 2: every speccnn8l1 decoder's) runs through that op with its own
+    weight and bias: the hand-written kernel on the card, the module's own
+    function on the CPU."""
 
     def __init__(self, specs, in_ch: int):
         super().__init__()
@@ -146,7 +151,11 @@ class DecoderCNN(nn.Module):
 
     def forward(self, x):
         for name in self.names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if isinstance(block, nn.ConvTranspose2d) and takes_geometry(block):
+                x = conv_transpose_out(x, block.weight, block.bias)  # the kernel on the card
+            else:
+                x = block(x)
         return torch.clamp(widen(x), -1.0, 1.0)  # Hardtanh (decoder.py:160-161)
 
 

@@ -32,6 +32,7 @@ from .._native import REPO_ROOT
 from ..device import resolve_device
 from ..evaluation.evaluate import evaluate_all_models
 from ..ops import spectrogram as sp
+from ..ops import tconv_out
 from ..synth import fm_torch as ft
 
 STATS = ("count", "mean", "std", "min", "max")
@@ -82,8 +83,8 @@ def main(argv=None):
                                   dataset_kwargs=dataset_kwargs or None)
     for table in results:
         print(describe(table), flush=True)
-    print(json.dumps({"launches": {k: n for k, n in {**sp.LAUNCHES, **ft.LAUNCHES}.items()
-                                   if n}}), flush=True)
+    launched = {**sp.LAUNCHES, **ft.LAUNCHES, **tconv_out.LAUNCHES}
+    print(json.dumps({"launches": {k: n for k, n in launched.items() if n}}), flush=True)
     return results
 
 

@@ -46,6 +46,7 @@ from ..device import resolve_device
 from ..evaluation.evaluate import evaluate_model
 from ..logs.logger import get_run_dir, list_checkpoint_epochs, load_checkpoint
 from ..ops import spectrogram as sp
+from ..ops import tconv_out
 from ..synth import fm_torch as ft
 from ..training.loop import prepare_dataset, train_config
 
@@ -77,7 +78,7 @@ def card_line() -> str:
 
 def launches() -> Dict[str, int]:
     """The port's kernel launches so far in this process, those made."""
-    return {k: n for k, n in {**sp.LAUNCHES, **ft.LAUNCHES}.items() if n}
+    return {k: n for k, n in {**sp.LAUNCHES, **ft.LAUNCHES, **tconv_out.LAUNCHES}.items() if n}
 
 
 def _since(before: Dict[str, int]) -> Dict[str, int]:

@@ -99,6 +99,7 @@ from ..device import resolve_device
 from ..logs.logger import RunLogger, get_run_dir, load_checkpoint
 from ..logs.metrics import BufferedMetric, EpochMetric, LatentMetric, SimpleMetric
 from ..models.build import build_extended_ae_model
+from ..ops import tconv_out
 from ..parallel import multihost, sharding_rules
 from ..utils.exception import check_nan_values
 from ..utils.hparams import LinearDynamicParam
@@ -262,6 +263,7 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
     data_rank, n_data = multihost.data_rank_and_size()
     multiproc = world > 1 or train_c.force_multihost_data
     host_fed = not train_c.dataset_cache_device
+    tconv_out_launches = tconv_out.LAUNCHES["tconv_out"]
     if dev.type == "cuda" and train_c.compute_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False  # float32 convolutions in full f32
     # rank 0's corpus pass first: a cold 'disk' pass writes the cache, which
@@ -625,6 +627,9 @@ def _train(model_c: cfg.ModelConfig, train_c: cfg.TrainConfig, dataset: Optional
         "remainder_graph_replays": rest.call.replays if rest is not None else 0,
         "graph_capture_s": sum(g.call.capture_s for g in (*train_graphs, evals)
                                if g is not None),
+        # the decoder's output conv kernel's launches in this call (a replay
+        # is none; 0 on the CPU, where the plain version runs)
+        "tconv_out_launches": tconv_out.LAUNCHES["tconv_out"] - tconv_out_launches,
         # where the corpus lives (the host-fed pipeline: not on the device)
         "dataset_cache_device": train_c.dataset_cache_device,
         "corpus_bytes": corpus_x.numel() * corpus_x.element_size(),

@@ -181,7 +181,8 @@ def test_evaluate_writes_the_jax_artifacts(evaluated):
     assert set(evaluated["phases"]) == {"dataset", "model", "inference", "render", "similarity",
                                         "artifacts", "model.init", "model.load",
                                         "artifacts.spearman", "artifacts.write",
-                                        "artifacts.means"}
+                                        "artifacts.means", "tconv_out_launches"}
+    assert evaluated["phases"]["tconv_out_launches"] == 0  # the plain version on the CPU
 
 
 def test_per_uid_means_are_pandas_groupby(evaluated):

@@ -260,6 +260,7 @@ def test_tiny_train_config_on_cpu(tmp_path):
     assert summary["device"] == "cpu" and summary["train_steps"] == 2
     assert summary["input_size"] == [16, 1, 257, 347]
     assert summary["memory"] is None  # the card's memory split: off the card, nothing to read
+    assert summary["tconv_out_launches"] == 0  # the decoder's output conv runs its plain version
     vals = [v for v in summary.values() if isinstance(v, float)]
     assert len(vals) > 15 and all(np.isfinite(vals))
     run_dir = tmp_path / "FlVAE2" / "00_debug"
